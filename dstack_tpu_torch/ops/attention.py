@@ -1,0 +1,53 @@
+"""Attention entry point used by the model code (counterpart of
+dstack_tpu.ops.attention).
+
+The JAX dispatcher picks the Pallas flash kernel on a TPU and the
+masked-einsum ``_xla_attention`` elsewhere. Here the choice follows the
+tensors: on a CUDA device the hand-written flash kernel runs (or the
+call raises — the plain version is never the path taken on the card),
+on the CPU the plain version runs. ``impl="plain"`` asks for the plain
+version on any device, for reference checks on the card.
+
+This slice takes what the serving path passes: an int ``q_offset``,
+causal masking, a sliding window and a softcap. Per-row ``q_offset``
+vectors (packed prefill), Llama4 chunk masks and attention sinks raise
+``NotImplementedError`` until their slices land.
+"""
+
+from typing import Optional
+
+import torch
+
+from dstack_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+
+__all__ = ["attention", "flash_attention", "flash_attention_plain"]
+
+
+def attention(
+    q: torch.Tensor,  # [B, H, Tq, D]
+    k: torch.Tensor,  # [B, Hkv, Tk, D]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    window: int = 0,  # 0 = full attention; else sliding window size
+    softcap: float = 0.0,  # 0 = off; else tanh soft-cap on scores
+    chunk: int = 0,
+    sinks: Optional[torch.Tensor] = None,
+    impl: Optional[str] = None,  # None = by device | "plain"
+) -> torch.Tensor:
+    if chunk:
+        raise NotImplementedError("attention: Llama4 chunk masks come with the families slice")
+    if sinks is not None:
+        raise NotImplementedError("attention: sinks come with the gpt-oss slice")
+    if not isinstance(q_offset, int):
+        raise NotImplementedError(
+            "attention: per-row q_offset vectors come with the packed-prefill slice"
+        )
+    if impl not in (None, "plain"):
+        raise ValueError(f"attention: impl={impl!r}: expected None or 'plain'")
+    kw = dict(causal=causal, scale=scale, q_offset=q_offset, window=window, softcap=softcap)
+    if impl == "plain":
+        return flash_attention_plain(q, k, v, **kw)[0]
+    return flash_attention(q, k, v, **kw)

@@ -1,0 +1,163 @@
+"""The port's OpenAI server on the CPU answers with the same tokens as
+the engine's ``generate`` for the same weights and prompt: completions
+whole and streamed, chat completions whole and streamed."""
+
+import json
+
+import pytest
+import torch
+from aiohttp.test_utils import TestClient, TestServer
+
+from dstack_tpu_torch.models import llama
+from dstack_tpu_torch.serve.chat_template import render_chat
+from dstack_tpu_torch.serve.engine import GenParams, InferenceEngine
+from dstack_tpu_torch.serve.openai_server import build_app
+from dstack_tpu_torch.serve.tokenizer import ByteTokenizer
+
+CONFIG = llama.LLAMA_TINY_64
+
+
+def _engine():
+    params = llama.init_params(CONFIG, torch.Generator().manual_seed(0), device="cpu")
+    return InferenceEngine(
+        CONFIG, params, max_batch=4, max_seq=256, prefill_chunk=64, device="cpu"
+    )
+
+
+def _expected(prompt: str, n: int, streamed: bool = False) -> str:
+    """generate()'s tokens as the server renders them: a stream holds
+    back a trailing partial UTF-8 character it never completes."""
+    tok = ByteTokenizer()
+    ids = _engine().generate(
+        tok.encode(prompt), GenParams(max_new_tokens=n, eos_id=tok.eos_id)
+    )
+    text = tok.decode([i for i in ids if i != tok.eos_id])
+    return text.rstrip("\ufffd") if streamed else text
+
+
+async def _client():
+    client = TestClient(TestServer(build_app(_engine(), ByteTokenizer(), "llama-tiny-64")))
+    await client.start_server()
+    return client
+
+
+async def _sse(resp) -> list:
+    events = []
+    async for raw in resp.content:
+        line = raw.decode().strip()
+        if line.startswith("data: ") and line != "data: [DONE]":
+            events.append(json.loads(line[len("data: "):]))
+    return events
+
+
+PROMPT = "The quick brown fox jumps over the lazy dog, then " * 2  # > one chunk
+
+
+class TestOpenAIServer:
+    async def test_health_and_models(self):
+        client = await _client()
+        try:
+            h = await (await client.get("/health")).json()
+            assert h["status"] == "ok" and h["max_slots"] == 4
+            assert h["device"] == "cpu" and h["decode_kernel"] == "flash"
+            assert h["stats"]["decode_steps"] == 0
+            assert set(h["kernel_launches"]) == {"flash_fwd", "flash_decode"}
+            m = await (await client.get("/v1/models")).json()
+            assert m["data"][0]["id"] == "llama-tiny-64"
+        finally:
+            await client.close()
+
+    async def test_completions_whole_matches_generate(self):
+        client = await _client()
+        try:
+            r = await client.post("/v1/completions", json={"prompt": PROMPT, "max_tokens": 12})
+            assert r.status == 200
+            body = await r.json()
+            assert body["choices"][0]["text"] == _expected(PROMPT, 12)
+            assert body["usage"]["prompt_tokens"] == len(PROMPT)
+            assert 1 <= body["usage"]["completion_tokens"] <= 12
+            h = await (await client.get("/health")).json()
+            assert h["stats"]["prefill_dispatches"] == 2  # 101 tokens, 64-token chunks
+        finally:
+            await client.close()
+
+    async def test_completions_streamed_matches_generate(self):
+        client = await _client()
+        try:
+            r = await client.post(
+                "/v1/completions", json={"prompt": PROMPT, "max_tokens": 12, "stream": True}
+            )
+            events = await _sse(r)
+            text = "".join(e["choices"][0]["text"] for e in events)
+            assert text == _expected(PROMPT, 12, streamed=True)
+            assert events[-1]["choices"][0]["finish_reason"] in ("length", "stop")
+        finally:
+            await client.close()
+
+    async def test_chat_whole_and_streamed_match_generate(self):
+        messages = [{"role": "user", "content": "Say something."}]
+        want = _expected(render_chat(messages), 10)
+        want_streamed = _expected(render_chat(messages), 10, streamed=True)
+        client = await _client()
+        try:
+            r = await client.post("/v1/chat/completions", json={"messages": messages, "max_tokens": 10})
+            body = await r.json()
+            assert body["choices"][0]["message"]["content"] == want
+            r = await client.post(
+                "/v1/chat/completions",
+                json={"messages": messages, "max_tokens": 10, "stream": True},
+            )
+            events = await _sse(r)
+            text = "".join(e["choices"][0]["delta"].get("content", "") for e in events)
+            assert text == want_streamed
+        finally:
+            await client.close()
+
+    async def test_concurrent_requests_each_match_generate(self):
+        import asyncio
+
+        prompts = ["alpha " * 3, "beta " * 30, "gamma"]
+        client = await _client()
+        try:
+            rs = await asyncio.gather(*(
+                client.post("/v1/completions", json={"prompt": p, "max_tokens": 8})
+                for p in prompts
+            ))
+            texts = [(await r.json())["choices"][0]["text"] for r in rs]
+            assert texts == [_expected(p, 8) for p in prompts]
+        finally:
+            await client.close()
+
+    @pytest.mark.parametrize("stream", [False, True])
+    async def test_stop_string_truncates(self, stream):
+        full = _expected(PROMPT, 12, streamed=True)
+        assert len(full) >= 4
+        stop = full[2:4]
+        want = full[: full.find(stop)]
+        client = await _client()
+        try:
+            r = await client.post(
+                "/v1/completions",
+                json={"prompt": PROMPT, "max_tokens": 12, "stop": stop, "stream": stream},
+            )
+            if stream:
+                events = await _sse(r)
+                text = "".join(e["choices"][0]["text"] for e in events)
+                finish = events[-1]["choices"][0]["finish_reason"]
+            else:
+                choice = (await r.json())["choices"][0]
+                text, finish = choice["text"], choice["finish_reason"]
+            assert (text, finish) == (want, "stop")
+        finally:
+            await client.close()
+
+    @pytest.mark.parametrize(
+        "extra", [{"n": 2}, {"logprobs": 1}, {"tools": [{"type": "function"}]}]
+    )
+    async def test_unported_options_are_refused(self, extra):
+        client = await _client()
+        try:
+            r = await client.post("/v1/completions", json={"prompt": "x", **extra})
+            assert r.status == 400
+        finally:
+            await client.close()
