@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
 Run from the root of a checkout, with no arguments:
 
@@ -11,11 +12,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    hand-written kernels from ``dstack_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the build time.
 2. Kernel phase: each kernel against its plain PyTorch version on the
-   card in bf16 at the serving shapes (flash prefill at C = 16 and 256
-   with q_offset 0 and 512; ragged flash decode with positions from 0 to
-   2047), within atol = rtol = 2e-2. Times each kernel, its plain
-   version and one PyTorch library call of the same function
-   (``scaled_dot_product_attention`` with an explicit mask, a yardstick
+   card in bf16, within atol = rtol = 2e-2: flash prefill (K1) at the
+   serving shapes (C = 16 and 256 with q_offset 0 and 512), ragged flash
+   decode (K4) with positions from 0 to 2047, and the backward kernels
+   K2 (dq) and K3 (dk, dv) at the training shape q/dO [4,32,2048,64],
+   k/v [4,8,2048,64] (causal; window 512 with softcap 30; a ragged
+   T = 1000), where K1 is timed once more. Times each kernel, its plain version and one PyTorch
+   library call of the same function (``scaled_dot_product_attention``
+   forward with an explicit mask, or its backward for K2+K3: yardsticks
    the port never calls) with CUDA events, L2 flushed before each
    launch, and reckons each call's bound from the bytes it must move at
    3.35 TB/s and its FLOPs at 989 TFLOP/s.
@@ -32,12 +36,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the plain path's, both held to the plain path in f32 (the
    kernel path's relative RMS logit error may be at most 1.5 times the
    plain bf16 path's).
-4. Print the ``kernels`` JSON line, then the card line, then the last
+4. Training path phase: ``python -m dstack_tpu_torch.train.finetune
+   --model llama-3.2-1b --full --steps 6`` and then the default LoRA mode
+   for 4 steps (full width and depth, random weights from seed 0,
+   ``--batch 8 --seq-len 2048``), each in its own process whose launch
+   counts start at 0; from each summary line: finite losses, the first
+   within 1.0 of ln(vocab), K1 launched 2 x 16 times per step (forward
+   and the remat recompute) and K2 and K3 16 times per step.
+   Then one more full fine-tune step in this process, traced with
+   torch.profiler: device time by kernel family and the device's busy
+   share of the step.
+5. Gradient-parity phase: the full fine-tune loss of llama-3.2-1b (full
+   width and depth, random weights from seed 0, one batch of 1 x 2048
+   tokens) differentiated on three paths (kernels in bf16, plain in
+   bf16, plain in f32): for every parameter leaf the kernel path's
+   relative RMS gradient error against f32 may be at most 1.5 times the
+   plain bf16 path's, and the three losses agree within 2e-2.
+6. Print the ``kernels`` JSON line, then the card line, then the last
    line ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
 import json
+import math
 import socket
 import subprocess
 import sys
@@ -52,6 +73,7 @@ from dstack_tpu_torch.models import llama
 from dstack_tpu_torch.ops import cuda_build, flash, flash_decode
 from dstack_tpu_torch.serve import engine
 from dstack_tpu_torch.serve.chat_template import render_chat
+from dstack_tpu_torch.train import step as train_step
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
@@ -65,6 +87,8 @@ MODEL = "llama-3.2-1b"
 PROMPT_LENS = (40, 200, 300, 700)
 MAX_TOKENS = 32
 CHUNK = 256  # the server's --prefill-chunk default
+TRAIN_STEPS = {"full": 6, "lora": 4}
+BWD_SHAPE = (4, 32, 8, 2048, 64)  # B, H, Hkv, T, D of the backward kernel phase
 
 
 def log(msg: str) -> None:
@@ -184,6 +208,80 @@ def kernel_phase() -> dict:
     }
     log(f"kernel flash_decode B=8 positions={pos.tolist()}: {json.dumps(dec)}")
     rows["flash_decode"] = {**dec, "max_abs_err": err_dec}
+    return rows
+
+
+def live_pairs(t: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps for a square [t, t] call at
+    offset 0: what the kernels must compute, not the tiles they walk."""
+    if not causal:
+        return t * t
+    if not window:
+        return t * (t + 1) // 2
+    return sum(min(i + 1, window) for i in range(t))
+
+
+def backward_kernel_phase() -> dict:
+    """K2 and K3 against flash_bwd_plain at the training shape, then
+    timed: each kernel alone (delta computed beforehand), the plain
+    version (dq, dk, dv together) and the SDPA backward (dq, dk, dv
+    together: the yardstick for K2 + K3)."""
+    b, h, hkv, t, d = BWD_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(2)
+    err = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    main = None
+    for t_case, kw in ((t, {}), (t, dict(window=512, softcap=30.0)), (1000, {})):
+        q = torch.randn(b, h, t_case, d, generator=g, device="cuda").bfloat16()
+        do = torch.randn(b, h, t_case, d, generator=g, device="cuda").bfloat16()
+        k = torch.randn(b, hkv, t_case, d, generator=g, device="cuda").bfloat16()
+        v = torch.randn(b, hkv, t_case, d, generator=g, device="cuda").bfloat16()
+        o, lse = flash.flash_attention_with_lse(q, k, v, **kw)
+        dq, dk, dv = flash.flash_bwd(q, k, v, o, lse, do, **kw)
+        pdq, pdk, pdv = flash.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        what = f"T={t_case} {kw or 'causal'}"
+        err["flash_bwd_dq"] = max(err["flash_bwd_dq"], assert_close(dq, pdq, f"flash_bwd_dq {what}"))
+        for got, want, name in ((dk, pdk, "dk"), (dv, pdv, "dv")):
+            err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], assert_close(got, want, f"flash_bwd_dkv {name} {what}"))
+        if main is None:
+            main = (q, k, v, o, lse, do)
+        del dq, dk, dv, pdq, pdk, pdv
+    q, k, v, o, lse, do = main
+    delta = flash.bwd_delta(o, do)
+    pairs = live_pairs(t, True, 0)
+    gemm = 2 * b * h * pairs * d  # FLOPs of one causal [T, T] x [T, D] product
+    qb, kvb, rowb = q.numel() * 2, k.numel() * 2, lse.numel() * 4
+    bounds = {
+        # reads q, k, v, dO, lse, delta; writes dq
+        "flash_bwd_dq": bound_ms(2 * qb + 2 * kvb + 2 * rowb + qb, 3 * gemm),
+        # reads the same; writes dk, dv
+        "flash_bwd_dkv": bound_ms(2 * qb + 2 * kvb + 2 * rowb + 2 * kvb, 4 * gemm),
+    }
+    # K1 at the shape the trainer gives it (its kernels-line row stays at
+    # the serving shape): 2 causal GEMMs, reads q, k, v, writes o and lse
+    fwd = {
+        "ms": time_ms(lambda: flash.flash_attention_with_lse(q, k, v)),
+        "plain_ms": time_ms(lambda: flash.flash_attention_plain(q, k, v), iters=10),
+        "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+    }
+    b_ms, b_by = bound_ms(2 * qb + 2 * kvb + rowb, 2 * gemm)
+    fwd.update(bound_ms=b_ms, bound_by=b_by)
+    log(f"kernel flash_fwd (training shape) q [{b},{h},{t},{d}] k/v [{b},{hkv},{t},{d}] causal: {json.dumps(fwd)}")
+    plain_ms = time_ms(lambda: flash.flash_bwd_plain(q, k, v, o, lse, do), iters=10)
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    so = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    sdpa_ms = time_ms(lambda: torch.autograd.grad(so, (qs, ks, vs), do, retain_graph=True))
+    rows = {
+        "flash_bwd_dq": {"ms": time_ms(lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta))},
+        "flash_bwd_dkv": {"ms": time_ms(lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta))},
+    }
+    for name, row in rows.items():
+        row.update(
+            plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bounds[name][0],
+            bound_by=bounds[name][1], max_abs_err=err[name],
+        )
+        log(f"kernel {name} q/dO [{b},{h},{t},{d}] k/v [{b},{hkv},{t},{d}] causal: {json.dumps(row)}")
     return rows
 
 
@@ -429,6 +527,165 @@ def teacher_forced_phase() -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the training path through the fine-tune entry point
+# ---------------------------------------------------------------------------
+
+
+def _finetune(mode: str) -> dict:
+    """One ``python -m dstack_tpu_torch.train.finetune`` run → its summary.
+    A fresh process: its launch counts start at 0."""
+    steps = TRAIN_STEPS[mode]
+    out = ROOT / "build" / f"chip_smoke_train_{mode}"
+    log_path = ROOT / "build" / f"chip_smoke_train_{mode}.log"
+    cmd = [sys.executable, "-m", "dstack_tpu_torch.train.finetune", "--model", MODEL,
+           "--steps", str(steps), "--log-every", "1", "--device", "cuda", "--out", str(out)]
+    if mode == "full":
+        cmd.append("--full")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_f:
+        proc = subprocess.run(cmd, cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT, timeout=900)
+    text = log_path.read_text()
+    if proc.returncode != 0:
+        raise RuntimeError(f"finetune {mode} exited {proc.returncode}:\n{text[-4000:]}")
+    for line in text.splitlines():
+        if line.startswith("step "):
+            log(f"  finetune {mode}: {line}")
+    summary = json.loads(text.strip().splitlines()[-1])
+    log(f"finetune {mode} ({time.perf_counter() - t0:.1f} s with start-up): {json.dumps(summary)}")
+    c = llama.CONFIGS[MODEL]
+    ln_v = math.log(c.vocab_size)
+    first, last = summary["first_loss"], summary["last_loss"]
+    if not (math.isfinite(first) and math.isfinite(last) and abs(first - ln_v) <= 1.0):
+        raise AssertionError(f"finetune {mode}: losses {first}, {last} vs ln V = {ln_v:.3f}")
+    want = {"flash_fwd": 2 * c.n_layers * steps, "flash_bwd_dq": c.n_layers * steps,
+            "flash_bwd_dkv": c.n_layers * steps}
+    if summary["launches"] != want:
+        raise AssertionError(f"finetune {mode}: launches {summary['launches']} != {want}")
+    return summary
+
+
+def _kernel_family(name: str) -> str:
+    for key, fam in (("flash_fwd_kernel", "K1 flash_fwd"), ("flash_bwd_dq_kernel", "K2 flash_bwd_dq"),
+                     ("flash_bwd_dkv_kernel", "K3 flash_bwd_dkv")):
+        if key in name:
+            return fam
+    low = name.lower()
+    if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "matmul (cuBLAS)"
+    if "foreach" in low or "multi_tensor" in low:
+        return "optimizer (foreach)"
+    if any(k in low for k in ("index", "scatter", "gather")):
+        return "gather/scatter"
+    if "reduce" in low:
+        return "reductions"
+    return "elementwise and other"
+
+
+def train_profile_phase() -> dict:
+    """One full fine-tune step at the fine-tune defaults (batch 8 x 2048),
+    traced with torch.profiler after a warm-up step in this process:
+    device time by kernel family, and the device's busy share of the
+    step's host-clock time (kernel intervals merged). The profiler's own
+    host cost lengthens the step, so the busy share is a lower bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    c = llama.CONFIGS[MODEL]
+    opt = train_step.default_optimizer(lr=2e-4, decay_steps=10)
+    state = train_step.init_train_state(c, opt, seed=0, device="cuda")
+    fn = train_step.make_train_step(c, opt)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tok = torch.randint(0, c.vocab_size, (8, 2048), generator=g, device="cuda")
+    mask = torch.ones_like(tok)
+    mask[:, -1] = 0
+    batch = {"tokens": tok, "targets": torch.roll(tok, -1, dims=1), "mask": mask}
+    fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(state, batch)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_family: dict = {}
+    by_name: dict = {}
+    spans = []
+    for e in kernels:
+        ms = e.time_range.elapsed_us() / 1e3
+        fam = _kernel_family(e.name)
+        by_family[fam] = by_family.get(fam, 0.0) + ms
+        by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + ms
+        spans.append((e.time_range.start, e.time_range.end))
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    report = {
+        "step_ms_profiled": wall_us / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "device_busy_share": busy / wall_us if wall_us else None,
+        "kernel_ms_by_family": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
+        "kernels_seen": len(kernels),
+        "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12]),
+    }
+    log("train step profile (full fine-tune, batch 8 x 2048): " + json.dumps(report))
+    del state, fn, batch
+    torch.cuda.empty_cache()
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 5: gradient parity
+# ---------------------------------------------------------------------------
+
+
+def grad_parity_phase() -> dict:
+    """Gradients of the full fine-tune loss on three paths. Through 16
+    bf16 layers the kernel and plain paths differ by the model's own bf16
+    noise, so both are held to the plain f32 path by relative RMS error,
+    leaf by leaf (stacked layers: one leaf per weight name)."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 path in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    c = llama.CONFIGS[MODEL]
+    c32 = dataclasses.replace(c, dtype=torch.float32)
+    params = llama.init_params(c, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    params32 = train_step.tree_map(lambda w: w.float(), params)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, c.vocab_size, (1, 2048), generator=g, device="cuda")
+    mask = torch.ones_like(tokens)
+    mask[:, -1] = 0
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1), "mask": mask}
+    paths = {"kernel": (params, c, None), "plain": (params, c, "plain"), "f32": (params32, c32, "plain")}
+    loss, grads = {}, {}
+    for name, (p, cfg, impl) in paths.items():
+        loss[name], grads[name] = train_step.value_and_grad(train_step.full_loss, p, batch, cfg, impl)
+        loss[name] = float(loss[name])
+    pairs = [("kernel", "plain"), ("kernel", "f32"), ("plain", "f32")]
+    if any(abs(loss[a] - loss[b]) > TOL for a, b in pairs):
+        raise AssertionError(f"gradient parity: losses disagree beyond {TOL}: {loss}")
+
+    def rel_rms(a, ref):
+        return ((a.float() - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
+
+    leaves = {}
+    names = ["embed", "final_norm"] + [f"layers/{n}" for n in sorted(params["layers"])]
+    for name in names:
+        pick = (lambda tr: tr["layers"][name[7:]]) if name.startswith("layers/") else (lambda tr: tr[name])
+        ref = pick(grads["f32"])
+        k_err, p_err = rel_rms(pick(grads["kernel"]), ref), rel_rms(pick(grads["plain"]), ref)
+        leaves[name] = {"kernel": k_err, "plain": p_err}
+        if not k_err <= KERNEL_RMS_MARGIN * p_err:
+            raise AssertionError(f"gradient parity: {name} kernel rel RMS {k_err:.4g} > "
+                                 f"{KERNEL_RMS_MARGIN} x plain {p_err:.4g}")
+    report = {"loss": loss, "rel_rms_vs_f32": leaves}
+    log("gradient parity (rel RMS vs the f32 path, per leaf): " + json.dumps(report))
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -442,24 +699,34 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s (per source: {json.dumps(seconds)})")
 
     rows = kernel_phase()
+    rows.update(backward_kernel_phase())
     path = path_phase()
     teacher_forced_phase()
+    train = {mode: _finetune(mode) for mode in TRAIN_STEPS}
+    train_profile_phase()
+    grad_parity_phase()
 
+    by_path = {
+        "serve": path["launches"],
+        **{f"train_{mode}": summary["launches"] for mode, summary in train.items()},
+    }
     meta = {
         "flash_fwd": ("dstack_tpu_torch/csrc/flash_fwd.cu", "dstack_tpu/ops/flash.py:190"),
+        "flash_bwd_dq": ("dstack_tpu_torch/csrc/flash_bwd_dq.cu", "dstack_tpu/ops/flash.py:467"),
+        "flash_bwd_dkv": ("dstack_tpu_torch/csrc/flash_bwd_dkv.cu", "dstack_tpu/ops/flash.py:523"),
         "flash_decode": ("dstack_tpu_torch/csrc/flash_decode.cu", "dstack_tpu/ops/flash_decode.py:266"),
     }
-    kernels = [
-        {
+    kernels = []
+    for name, (src, rep) in meta.items():
+        counts = {p: n[name] for p, n in by_path.items() if n.get(name)}
+        kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": path["launches"][name],
+            "launches": sum(counts.values()), "launches_by_path": counts,
             "max_abs_err": rows[name]["max_abs_err"],
             "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
             "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
             "library_ms": rows[name]["library_ms"],
-        }
-        for name, (src, rep) in meta.items()
-    ]
+        })
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

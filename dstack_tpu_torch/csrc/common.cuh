@@ -37,6 +37,74 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// D += A·B for one warp: A a 16x16 bf16 tile in four registers, B a
+// 16x8 bf16 tile in two (`col` layout), D a 16x8 f32 tile in four; the
+// fragment layouts of mma.sync m16n8k16 (lane = 4 * g + t holds rows g
+// and g + 8, columns 2t and 2t + 1 of the accumulator).
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragment loads from bf16 tiles kept row-major in shared memory with row
+// stride `ld` (elements); g = lane / 4, t = lane % 4.
+//
+// A operand, rows row0 .. row0+15, k columns 16*kk .. 16*kk+15.
+__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* s, int ld, int row0, int kk,
+                                       int g, int t) {
+  const __nv_bfloat16* base = s + (row0 + g) * ld + kk * 16 + 2 * t;
+  a[0] = *reinterpret_cast<const uint32_t*>(base);
+  a[1] = *reinterpret_cast<const uint32_t*>(base + 8 * ld);
+  a[2] = *reinterpret_cast<const uint32_t*>(base + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(base + 8 * ld + 8);
+}
+
+// B operand with B[k][n] = M[n0 + n][16*kk + k]: the tile's rows are the
+// product's columns (K in S = Q K^T).
+__device__ __forceinline__ void load_b_nk(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* s, int ld,
+                                          int n0, int kk, int g, int t) {
+  const __nv_bfloat16* base = s + (n0 + g) * ld + kk * 16 + 2 * t;
+  b0 = *reinterpret_cast<const uint32_t*>(base);
+  b1 = *reinterpret_cast<const uint32_t*>(base + 8);
+}
+
+// B operand with B[k][n] = M[k0 + k][n0 + n]: the tile's rows are the
+// contraction (V in O = P V).
+__device__ __forceinline__ void load_b_kn(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* s, int ld,
+                                          int k0, int n0, int g, int t) {
+  const int r = k0 + 2 * t, c = n0 + g;
+  b0 = pack_bf16_raw(s[r * ld + c], s[(r + 1) * ld + c]);
+  b1 = pack_bf16_raw(s[(r + 8) * ld + c], s[(r + 9) * ld + c]);
+}
+
+// Two f32 accumulator tiles (columns 0-7 and 8-15 of a 16x16 block),
+// rounded to bf16 as one A operand: the accumulator and A layouts share
+// their rows, so a product feeds the next one without shared memory.
+__device__ __forceinline__ void acc_to_a(uint32_t* a, const float* lo, const float* hi) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// Copy rows lo .. lo+rows-1 of a row-major [T, D] bf16 matrix into a
+// shared tile with row stride `ld`, 16 bytes per thread per step; rows at
+// or past T are zero (0 * garbage could be NaN).
+template <int D, int NT>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src,
+                                           int lo, int rows, int T, int tid) {
+  constexpr int VEC = 8;  // bf16 per 16-byte vector
+  for (int i = tid; i < rows * D / VEC; i += NT) {
+    const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (lo + r < T) val = *reinterpret_cast<const uint4*>(src + (size_t)(lo + r) * D + c);
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+  }
+}
+
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;

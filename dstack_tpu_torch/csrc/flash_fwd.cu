@@ -26,18 +26,11 @@
 
 namespace {
 
+using dtpu::mma_16816;
 using dtpu::NEG_INF;
 
 constexpr int BQ = 64;  // query rows per block: 4 warps x 16 rows
 constexpr int NTHREADS = 128;
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int D, int BK>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(

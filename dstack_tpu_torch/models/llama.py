@@ -9,6 +9,14 @@ engine loops over layers in Python where JAX runs ``lax.scan``.
 Only the dense Llama path is here: the JAX config's model-family deltas
 (MoE, MLA, sliding windows, softcaps, qk norms, ...) arrive with the
 serving-breadth slice, so the port's config has no fields for them.
+
+:func:`forward` is the whole-sequence forward the trainer differentiates
+(counterpart of ``forward``, dstack_tpu/models/llama.py:1431): attention
+through ``FlashAttention`` (K1 forward, K2/K3 backward on the card), the
+LoRA bypass in every projection, and, with ``config.remat``, one
+``torch.utils.checkpoint`` per layer. JAX saves the flash residuals
+across its remat boundary (llama.py:1494-1504); the port recomputes
+them, so under remat K1 runs twice per layer and step.
 """
 
 import math
@@ -18,6 +26,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from dstack_tpu_torch.ops.attention import attention
 
 @dataclass(frozen=True)
 class LlamaConfig:
@@ -38,6 +49,8 @@ class LlamaConfig:
     # forms ("llama3", ...) / ("linear", factor); None = plain rope
     rope_scaling: Optional[tuple] = None
     attn_scale: Optional[float] = None  # override 1/sqrt(head_dim)
+    # recompute each layer's activations in the backward (training only)
+    remat: bool = True
 
     def __post_init__(self):
         if self.n_heads % self.n_kv_heads:
@@ -62,6 +75,14 @@ class LlamaConfig:
     def attention_scale(self) -> float:
         return self.attn_scale if self.attn_scale is not None else self.head_dim**-0.5
 
+    def num_params(self) -> int:
+        """Parameter count of the dense model (the JAX ``num_params`` with
+        every family delta off)."""
+        e, h = self.vocab_size * self.hidden_size, self.hidden_size
+        attn = 2 * h * self.q_dim + 2 * h * self.kv_dim
+        per_layer = attn + 2 * h + 3 * h * self.intermediate_size
+        return e + self.n_layers * per_layer + h + (0 if self.tie_embeddings else e)
+
 
 LLAMA_3_8B = LlamaConfig()
 LLAMA_32_1B = LlamaConfig(
@@ -71,10 +92,12 @@ LLAMA_32_1B = LlamaConfig(
 LLAMA_TINY = LlamaConfig(  # for tests
     vocab_size=512, hidden_size=128, n_layers=2, n_heads=4, n_kv_heads=2,
     head_dim=32, intermediate_size=256, max_seq_len=256, dtype=torch.float32,
+    remat=False,
 )
 LLAMA_TINY_64 = LlamaConfig(  # head_dim-64 tiny: kernel-eligible shapes
     vocab_size=512, hidden_size=128, n_layers=2, n_heads=2, n_kv_heads=1,
     head_dim=64, intermediate_size=256, max_seq_len=256, dtype=torch.float32,
+    remat=False,
 )
 
 CONFIGS = {
@@ -252,23 +275,143 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def _proj(layer: dict, name: str, inp: torch.Tensor) -> torch.Tensor:
-    """Base projection matmul (the JAX ``_proj`` without LoRA or int8:
-    neither is ported yet). A plain large product, so it stays
-    ``torch.matmul`` as JAX leaves it to XLA."""
-    return torch.matmul(inp, layer[name])
+    """Base projection plus the LoRA bypass ``x·W + s·(x·A)·B`` when the
+    layer carries ``{name}_lora_a``/``_lora_b`` (dstack_tpu/models/
+    llama.py:1105-1126; the int8 weights are not ported yet). Plain large
+    products, so they stay ``torch.matmul`` as JAX leaves them to XLA."""
+    y = torch.matmul(inp, layer[name])
+    a, b = layer.get(f"{name}_lora_a"), layer.get(f"{name}_lora_b")
+    if a is not None and b is not None:
+        y = y + torch.matmul(torch.matmul(inp, a), b) * layer["lora_scale"]
+    return y
+
+
+class _MatmulF32(torch.autograd.Function):
+    """bf16 x [N, E] · w [E, V] → f32 [N, V], accumulated and written in
+    f32 (``torch.mm(..., out_dtype=float32)``, which has no derivative).
+    The backward rounds the f32 cotangent to bf16 once and takes both
+    products in bf16 with f32 accumulation, as a TPU's default-precision
+    matmul does with an f32 operand."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = torch.mm(g, w.t()) if ctx.needs_input_grad[0] else None
+        gw = torch.mm(x.t(), g) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., E] · w [E, V] → f32 [..., V] with f32 accumulation
+    (``einsum(..., preferred_element_type=f32)``), differentiable. No
+    bf16 rounding of the result."""
+    if x.device.type == "cpu" or x.dtype == torch.float32:
+        # exact upcast of both operands: f32 products and sums
+        return torch.matmul(x.float(), w.float())
+    out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w.to(x.dtype))
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def lm_head_weight(params: dict, config: LlamaConfig) -> torch.Tensor:
+    """The [E, V] output head: the tied embedding's transpose or
+    ``lm_head``, in the model dtype."""
+    head = params["embed"].t() if config.tie_embeddings else params["lm_head"]
+    return head.to(config.dtype)
 
 
 def head_matmul(params: dict, x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
     """Output head over the tied embedding or ``lm_head`` → f32 logits
     (counterpart of ``head_logits_einsum`` with
     ``preferred_element_type=f32``): x [..., E] → [..., V]."""
-    head = params["embed"].t() if config.tie_embeddings else params["lm_head"]
-    head = head.to(config.dtype)
-    if x.device.type == "cpu" or x.dtype == torch.float32:
-        # exact upcast of both operands: f32 products and sums
-        return torch.matmul(x.float(), head.float())
-    # bf16 operands, f32 accumulation written out in f32 (no bf16
-    # rounding of the logits)
-    flat = x.reshape(-1, x.shape[-1])
-    out = torch.mm(flat, head, out_dtype=torch.float32)
-    return out.reshape(*x.shape[:-1], out.shape[-1])
+    return matmul_f32(x, lm_head_weight(params, config))
+
+
+def embed_tokens(params: dict, tokens: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
+    """Embedding rows in the model dtype; an id out of range gives zeros
+    (JAX ``.at[tokens].get(mode="fill", fill_value=0)``)."""
+    emb = params["embed"]
+    valid = (tokens >= 0) & (tokens < emb.shape[0])
+    x = emb[torch.where(valid, tokens, torch.zeros_like(tokens)).long()]
+    return torch.where(valid[..., None], x, torch.zeros_like(x)).to(config.dtype)
+
+
+# ---------------------------------------------------------------------------
+# whole-sequence forward (training, scoring)
+# ---------------------------------------------------------------------------
+
+
+def _attention_block(
+    x: torch.Tensor, layer: dict, c: LlamaConfig, cos, sin, impl: Optional[str]
+) -> torch.Tensor:
+    """Dense attention sublayer (``_attention_block``, llama.py:1177):
+    pre-norm, q/k/v projections, rope, causal attention, ``wo``."""
+    b, t, _ = x.shape
+    h = model_norm(x, layer["attn_norm"], c)
+    q = _proj(layer, "wq", h).view(b, t, c.n_heads, c.head_dim).transpose(1, 2)
+    k = _proj(layer, "wk", h).view(b, t, c.n_kv_heads, c.head_dim).transpose(1, 2)
+    v = _proj(layer, "wv", h).view(b, t, c.n_kv_heads, c.head_dim).transpose(1, 2)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    o = attention(q, k, v, causal=True, scale=c.attention_scale, impl=impl)
+    o = o.transpose(1, 2).reshape(b, t, c.q_dim)
+    return _proj(layer, "wo", o)
+
+
+def _mlp_block(x: torch.Tensor, layer: dict, c: LlamaConfig) -> torch.Tensor:
+    """Dense SwiGLU sublayer (``_mlp_block``, llama.py:1281)."""
+    h = model_norm(x, layer["mlp_norm"], c)
+    u = _proj(layer, "w_up", h)
+    g = _proj(layer, "w_gate", h)
+    return _proj(layer, "w_down", act_fn(c)(g) * u)
+
+
+def _layer(x, layer, c, cos, sin, impl):
+    x = x + _attention_block(x, layer, c, cos, sin, impl)
+    return x + _mlp_block(x, layer, c)
+
+
+def forward(
+    params: dict,
+    tokens: torch.Tensor,  # [B, T] int
+    config: LlamaConfig,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    lora: Optional[dict] = None,
+    lora_scale: float = 1.0,
+    return_hidden: bool = False,
+    impl: Optional[str] = None,  # attention: None = by device | "plain"
+) -> torch.Tensor:
+    """Token ids → f32 logits [B, T, V], or with ``return_hidden`` the
+    final normed hidden states [B, T, E] in the model dtype (the trainer
+    fuses the head into its loss).
+
+    ``lora`` is an adapter tree from ``train/lora.py`` (stacked per-layer
+    factors beside the base weights). The stacked ``[L, ...]`` leaves are
+    unbound once, so each leaf's gradient is stacked once in the
+    backward instead of being scattered into a zero ``[L, ...]`` tensor
+    per layer. With ``config.remat`` (and autograd on) every layer runs
+    under ``torch.utils.checkpoint``: its activations, flash output and
+    logsumexp included, are recomputed in the backward."""
+    c = config
+    x = embed_tokens(params, tokens, c)
+    pos = positions if positions is not None else torch.arange(tokens.shape[1], device=tokens.device)
+    cos, sin = rope_freqs(pos, c.rope_dim, c.rope_theta, c.rope_scaling)
+    leaves = {**params["layers"], **(lora["layers"] if lora is not None else {})}
+    per_layer = {name: w.unbind(0) for name, w in leaves.items()}
+    remat = c.remat and torch.is_grad_enabled()
+    for i in range(c.n_layers):
+        layer = {name: ws[i] for name, ws in per_layer.items()}
+        if lora is not None:
+            layer["lora_scale"] = lora_scale
+        if remat:
+            x = checkpoint(_layer, x, layer, c, cos, sin, impl, use_reentrant=False)
+        else:
+            x = _layer(x, layer, c, cos, sin, impl)
+    x = model_norm(x, params["final_norm"], c)  # _lm_head (llama.py:1376)
+    return x if return_hidden else head_matmul(params, x, c)

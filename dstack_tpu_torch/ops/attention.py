@@ -3,10 +3,12 @@ dstack_tpu.ops.attention).
 
 The JAX dispatcher picks the Pallas flash kernel on a TPU and the
 masked-einsum ``_xla_attention`` elsewhere. Here the choice follows the
-tensors: on a CUDA device the hand-written flash kernel runs (or the
+tensors: on a CUDA device the hand-written flash kernels run (or the
 call raises — the plain version is never the path taken on the card),
-on the CPU the plain version runs. ``impl="plain"`` asks for the plain
-version on any device, for reference checks on the card.
+on the CPU the plain versions run. ``impl="plain"`` asks for the plain
+versions on any device, for reference checks on the card. Both paths
+are differentiable through ``FlashAttention``: K1 forward with K2/K3
+backward, or the plain forward with ``flash_bwd_plain``.
 
 This slice takes what the serving path passes: an int ``q_offset``,
 causal masking, a sliding window and a softcap. Per-row ``q_offset``
@@ -48,6 +50,4 @@ def attention(
     if impl not in (None, "plain"):
         raise ValueError(f"attention: impl={impl!r}: expected None or 'plain'")
     kw = dict(causal=causal, scale=scale, q_offset=q_offset, window=window, softcap=softcap)
-    if impl == "plain":
-        return flash_attention_plain(q, k, v, **kw)[0]
-    return flash_attention(q, k, v, **kw)
+    return flash_attention(q, k, v, plain=impl == "plain", **kw)

@@ -1,5 +1,6 @@
-"""Flash-attention forward: the hand-written Hopper kernel (K1) and its
-plain PyTorch version.
+"""Flash attention: the hand-written Hopper kernels (K1 forward, K2/K3
+backward), their plain PyTorch versions and the autograd Function that
+joins them.
 
 Source note. The kernel (``csrc/flash_fwd.cu``) replaces the Pallas
 ``_fwd_kernel`` driven by ``_flash_fwd`` (dstack_tpu/ops/flash.py:54,149;
@@ -11,10 +12,19 @@ frontier and the window can see: a chunk at ``start`` reads
 kernel (``flash_supported`` needs ``Tq % 128 == 0``), it masks the ragged
 edge itself and takes every chunk size the engine hands it.
 
-The wrapper takes the plain version only for tensors on the CPU (the
-CPU tests); for a CUDA tensor it launches the kernel or raises. Only the
-forward is here: the backward kernels (``_dq_kernel``/``_dkv_kernel``)
-come with the training slice.
+The backward kernels replace the Pallas ``_dq_kernel`` (K2,
+``csrc/flash_bwd_dq.cu``; dstack_tpu/ops/flash.py:248, call at :467) and
+``_dkv_kernel`` (K3, ``csrc/flash_bwd_dkv.cu``; flash.py:329, call at
+:523), driven by ``_flash_bwd`` (flash.py:429). At the training shapes
+(T = 2048, D = 64) both are bound by operations: K2 recomputes S and dP
+and forms dQ (3 causal GEMMs), K3 recomputes S^T and dP^T and forms dV
+and dK (4). delta = rowsum(dO*O) stays one PyTorch expression, as it is
+one XLA expression in JAX (flash.py:457).
+
+Each wrapper takes the plain version only for tensors on the CPU (the
+CPU tests); for a CUDA tensor it launches the kernel or raises.
+:class:`FlashAttention` is the counterpart of the custom VJP ``_flash``
+(flash.py:571-614): forward K1, backward K2 then K3.
 """
 
 import ctypes
@@ -27,27 +37,30 @@ from dstack_tpu_torch.ops import cuda_build
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)  # the kernel's compiled head widths
 
-# kernel launches since the count was last set to 0 (the plain version
-# never counts): chip_smoke.py reads it to prove the serving path ran K1
-LAUNCHES = 0
+# kernel launches since each count was last set to 0 (the plain versions
+# never count): chip_smoke.py reads them to prove a path ran the kernels
+LAUNCHES = 0  # K1 flash_fwd
+LAUNCHES_DQ = 0  # K2 flash_bwd_dq
+LAUNCHES_DKV = 0  # K3 flash_bwd_dkv
 
 _c_void = ctypes.c_void_p
 _c_int = ctypes.c_int
 _c_float = ctypes.c_float
 
 
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("flash_fwd")
-    fn = lib.dtpu_flash_fwd
+# after the tensor pointers, every launcher takes the same tail:
+# B H Hkv Tq Tk D, scale causal q_off kv_off window softcap, stream
+_SHAPE_ARGS = [_c_int] * 6 + [_c_float, _c_int, _c_int, _c_int, _c_int, _c_float, _c_void]
+
+
+def _fn(source: str, name: str, n_ptrs: int):
+    """The C launcher ``name`` of ``csrc/<source>.cu`` with its argtypes
+    set (pointers as c_void_p: ctypes would cut an int to 32 bits)."""
+    fn = getattr(cuda_build.load(source), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [
-            _c_void, _c_void, _c_void, _c_void, _c_void,  # q k v o lse
-            _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,  # B H Hkv Tq Tk D
-            _c_float, _c_int, _c_int, _c_int, _c_int, _c_float,  # scale causal q_off kv_off window softcap
-            _c_void,  # stream
-        ]
-    return lib
+        fn.argtypes = [_c_void] * n_ptrs + _SHAPE_ARGS
+    return fn
 
 
 def flash_attention_plain(
@@ -94,7 +107,9 @@ def flash_attention_plain(
     return o, lse
 
 
-def _check_kernel_args(q, k, v) -> None:
+def _check_kernel_args(q, k, v, **like_q) -> None:
+    """Shapes, device, dtype, layout and alignment the kernels take;
+    ``like_q`` names more bf16 tensors shaped like q (dO)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash: want q [B,H,Tq,D], k/v [B,Hkv,Tk,D]; got {q.shape}, {k.shape}, {v.shape}")
     b, h, _, d = q.shape
@@ -102,7 +117,10 @@ def _check_kernel_args(q, k, v) -> None:
         raise ValueError(f"flash: mismatched q {tuple(q.shape)} and k/v {tuple(k.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash: head_dim {d} not in the kernel's {HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in like_q.items():
+        if t.shape != q.shape:
+            raise ValueError(f"flash: {name} {tuple(t.shape)} is not shaped like q {tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v), *like_q.items()):
         if t.device != q.device:
             raise ValueError(f"flash: {name} on {t.device}, q on {q.device}")
         if t.dtype != torch.bfloat16:
@@ -143,11 +161,9 @@ def flash_attention_with_lse(
     scale = float(scale) if scale is not None else d**-0.5
     o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    err = _lib().dtpu_flash_fwd(
+    err = _fn("flash_fwd", "dtpu_flash_fwd", 5)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, h, hkv, tq, tk, d, scale, int(bool(causal)), int(q_offset),
-        int(kv_offset), int(window), float(softcap or 0.0),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        *_shape_args(q, k, scale, causal, q_offset, kv_offset, window, softcap),
     )
     cuda_build.check(err, "flash_fwd")
     global LAUNCHES
@@ -155,9 +171,209 @@ def flash_attention_with_lse(
     return o, lse
 
 
-def flash_attention(q, k, v, **kw) -> torch.Tensor:
-    """Forward-only flash attention → o (serving never differentiates;
-    the training slice adds the backward kernels and an autograd
-    Function)."""
-    return flash_attention_with_lse(q, k, v, **kw)[0]
+def _shape_args(q, k, scale, causal, q_offset, kv_offset, window, softcap) -> tuple:
+    b, h, tq, d = q.shape
+    return (
+        b, h, k.shape[1], tq, k.shape[2], d, float(scale), int(bool(causal)),
+        int(q_offset), int(kv_offset), int(window), float(softcap or 0.0),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+
+def flash_bwd_plain(
+    q: torch.Tensor,  # [B, H, Tq, D]
+    k: torch.Tensor,  # [B, Hkv, Tk, D]
+    v: torch.Tensor,
+    o: torch.Tensor,  # [B, H, Tq, D] the forward's output
+    lse: torch.Tensor,  # [B, H, Tq] f32, the forward's logsumexp
+    do: torch.Tensor,  # [B, H, Tq, D] cotangent of o
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    kv_offset: int = 0,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) with the math of the JAX ``_flash_bwd`` kernels
+    (dstack_tpu/ops/flash.py:248-426), over whole rows instead of
+    blocks: delta = rowsum(dO*O) in f32; P = exp(S - lse), an lse at or
+    below NEG_INF/2 read as 0 and masked P set to 0; P cast to dO's
+    dtype before dV, dS cast to q's dtype before dQ and dK; the GQA
+    group sum of dK/dV taken in f32; outputs in the inputs' dtypes."""
+    return _bwd_plain(
+        q, k, v, do, lse, bwd_delta(o, do), causal=causal, scale=scale,
+        q_offset=q_offset, kv_offset=kv_offset, window=window, softcap=softcap,
+    )
+
+
+def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO * O) in f32 → [B, H, Tq] (flash.py:457)."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def _bwd_plain(q, k, v, do, lse, delta, *, causal=True, scale=None, q_offset=0, kv_offset=0,
+               window=0, softcap=0.0):
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = float(scale) if scale is not None else d**-0.5
+    q32, do32 = q.float(), do.float()
+    k32 = k.float().repeat_interleave(group, dim=1)
+    v32 = v.float().repeat_interleave(group, dim=1)
+    s = torch.matmul(q32, k32.transpose(-1, -2)) * scale
+    if softcap:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    if causal or window:
+        qi = q_offset + torch.arange(tq, device=q.device)[:, None]
+        kj = kv_offset + torch.arange(tk, device=q.device)[None, :]
+        keep = qi >= kj if causal else torch.ones_like(qi >= kj)
+        if window:
+            keep = keep & (qi - kj < window)
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    lse_safe = torch.where(lse <= NEG_INF / 2, torch.zeros_like(lse), lse)[..., None]
+    p = torch.exp(s - lse_safe)
+    p = torch.where(s <= NEG_INF / 2, torch.zeros_like(p), p)
+    dp = torch.matmul(do32, v32.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    if softcap:  # d(softcap*tanh(s/softcap))/ds = 1 - tanh^2
+        ds = ds * (1.0 - t * t)
+    ds_lo = ds.to(q.dtype).float()
+    dq = torch.matmul(ds_lo, k32)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do32)  # per query head
+    dk = torch.matmul(ds_lo.transpose(-1, -2), q32)
+    dk = dk.view(b, hkv, group, tk, d).sum(2)
+    dv = dv.view(b, hkv, group, tk, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_bwd(source: str, outs: tuple, q, k, v, do, lse, delta, *, causal=True, scale=None,
+                q_offset=0, kv_offset=0, window=0, softcap=0.0) -> None:
+    """Launch ``csrc/<source>.cu`` writing ``outs``, or raise: the checks
+    of the forward plus contiguous f32 [B, H, Tq] lse and delta."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash: no kernel for device {q.device}")
+    _check_kernel_args(q, k, v, do=do)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"flash: {name} must be contiguous f32 [B,H,Tq]; got {t.dtype} {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"flash: {name} on {t.device}, q on {q.device}")
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)]
+    err = _fn(source, f"dtpu_{source}", len(ptrs))(
+        *ptrs, *_shape_args(q, k, scale, causal, q_offset, kv_offset, window, softcap)
+    )
+    cuda_build.check(err, source)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, **kw) -> torch.Tensor:
+    """K2: dq [B, H, Tq, D] from the forward's lse and ``delta`` =
+    :func:`bwd_delta`; ``kw`` as :func:`flash_bwd` takes them. The plain
+    version only for CPU tensors."""
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, do, lse, delta, **kw)[0]
+    dq = torch.empty_like(q)
+    _launch_bwd("flash_bwd_dq", (dq,), q, k, v, do, lse, delta, **kw)
+    global LAUNCHES_DQ
+    LAUNCHES_DQ += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, **kw) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3: (dk, dv) [B, Hkv, Tk, D], the GQA group summed inside the
+    kernel; arguments as :func:`flash_bwd_dq`. The plain version only
+    for CPU tensors."""
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, do, lse, delta, **kw)[1:]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_bwd_dkv", (dk, dv), q, k, v, do, lse, delta, **kw)
+    global LAUNCHES_DKV
+    LAUNCHES_DKV += 1
+    return dk, dv
+
+
+def flash_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    kv_offset: int = 0,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash attention backward → (dq, dk, dv): delta = rowsum(dO*O) in
+    PyTorch, then K2 for dq and K3 for dk and dv at KV-head width. The
+    plain version only for CPU tensors; a CUDA tensor launches both
+    kernels or raises."""
+    kw = dict(causal=causal, scale=scale, q_offset=q_offset, kv_offset=kv_offset,
+              window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, o, lse, do, **kw)
+    if o.shape != q.shape:
+        raise ValueError(f"flash: o {tuple(o.shape)} is not shaped like q {tuple(q.shape)}")
+    delta = bwd_delta(o, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention, the counterpart of the JAX custom
+    VJP ``_flash`` (dstack_tpu/ops/flash.py:571-614). Forward saves
+    (q, k, v, o, lse); backward runs :func:`flash_bwd` (K2, K3) on them.
+    With ``plain`` both directions take the plain versions on any
+    device: the reference path on the card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_offset, kv_offset, window, softcap, plain):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        kw = dict(
+            causal=causal, scale=scale, q_offset=q_offset, kv_offset=kv_offset,
+            window=window, softcap=softcap,
+        )
+        fwd = flash_attention_plain if plain else flash_attention_with_lse
+        o, lse = fwd(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw, ctx.plain = kw, plain
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = flash_bwd_plain if ctx.plain else flash_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    kv_offset: int = 0,
+    window: int = 0,
+    softcap: float = 0.0,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Differentiable flash attention → o: K1 forward and K2/K3 backward
+    on the card, the plain versions on the CPU (or anywhere with
+    ``plain``)."""
+    return FlashAttention.apply(
+        q, k, v, causal, scale, q_offset, kv_offset, window, softcap, plain
+    )
 

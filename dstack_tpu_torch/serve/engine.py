@@ -33,6 +33,7 @@ from dstack_tpu_torch.models.llama import (
     act_fn,
     apply_rope,
     dual_rope_freqs,
+    embed_tokens,
     head_matmul,
     layer_params,
     model_norm,
@@ -173,10 +174,7 @@ def _qkv(h: torch.Tensor, layer: dict, c: LlamaConfig) -> tuple:
 
 def _embed_lookup(params: dict, tokens: torch.Tensor, c: LlamaConfig) -> torch.Tensor:
     """Embedding rows; out-of-range ids give zeros (JAX ``mode="fill"``)."""
-    emb = params["embed"]
-    valid = (tokens >= 0) & (tokens < emb.shape[0])
-    x = emb[torch.where(valid, tokens, torch.zeros_like(tokens)).long()]
-    return torch.where(valid[..., None], x, torch.zeros_like(x)).to(c.dtype)
+    return embed_tokens(params, tokens, c)
 
 
 def _head_logits(params: dict, x: torch.Tensor, c: LlamaConfig) -> torch.Tensor:

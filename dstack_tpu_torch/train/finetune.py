@@ -1,0 +1,247 @@
+"""Fine-tune entry point for the PyTorch port:
+``python -m dstack_tpu_torch.train.finetune``.
+
+Counterpart of ``python -m dstack_tpu.train.finetune`` on one GPU: the
+same model names, defaults (llama-3.2-1b, ``--seq-len 2048 --batch 8``,
+LoRA on wq/wk/wv/wo unless ``--full``) and outputs
+(``model_weights.npz`` or ``lora_adapters.npz`` under ``--out``). Every
+step runs the flash kernels: K1 forward (twice per layer under remat),
+K2/K3 backward. Weights are random from ``--seed``; data is a synthetic
+token stream unless ``--data`` names a pre-tokenized ``.npy``/``.bin``.
+
+Output: the ``first_train_step`` JSON event, one line per logged step
+(loss, tokens/s, MFU against the H100 SXM dense-bf16 peak), and as the
+last line a JSON summary (losses, median step time, tokens/s, MFU, peak
+device memory, kernel launch counts). Runs on ``cuda`` unless
+``--device cpu`` asks for the plain versions on the CPU.
+
+Flags of the JAX finetune with no counterpart yet exit non-zero and name the
+slice that brings them (ROADMAP.md, queue A).
+"""
+
+import argparse
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from dstack_tpu_torch.models import llama
+from dstack_tpu_torch.ops import flash
+from dstack_tpu_torch.serve.engine import resolve_device
+from dstack_tpu_torch.train import data as data_mod
+from dstack_tpu_torch.train import lora as lora_mod
+from dstack_tpu_torch.train.step import (
+    default_optimizer,
+    flops_per_token,
+    init_train_state,
+    make_train_step,
+    tree_leaves,
+)
+
+PEAK_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (NVIDIA data sheet)
+PEAK_NAME = "H100 SXM dense bf16 peak, 989 TFLOP/s"
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m dstack_tpu_torch.train.finetune")
+    p.add_argument("--model", default="llama-3.2-1b", choices=sorted(llama.CONFIGS))
+    p.add_argument("--seq-len", type=int, default=2048)
+    p.add_argument("--batch", type=int, default=8, help="global batch size")
+    p.add_argument("--grad-accum", type=int, default=1, help="mask-weighted microbatches per update")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--full", action="store_true", help="full fine-tune (no LoRA)")
+    p.add_argument("--lora-rank", type=int, default=16)
+    p.add_argument("--lora-alpha", type=float, default=32.0)
+    p.add_argument("--data", default=None, help="pre-tokenized corpus: .npy or .bin")
+    p.add_argument("--data-seed", type=int, default=0, help="shuffle seed")
+    p.add_argument("--data-bin-dtype", default="uint16", choices=["uint16", "uint32"])
+    p.add_argument("--out", default="adapters", help="output dir for weights")
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    # flags of the JAX finetune that wait for later slices: parsed so the command
+    # lines match, refused when set (see _refusals)
+    for axis, default in (("--dp", 1), ("--fsdp", -1), ("--sp", 1), ("--tp", 1)):
+        p.add_argument(axis, type=int, default=default, help="mesh axis; > 1 not ported")
+    p.add_argument("--seq-parallel", default=None, choices=["ring", "ulysses"])
+    p.add_argument("--opt-bits", type=int, default=32, choices=[8, 32])
+    for flag in ("--ckpt-dir", "--eval-data", "--export-hf", "--hf-model", "--profile-dir", "--data-tokenizer"):
+        p.add_argument(flag, default=None)
+    p.add_argument("--resume", action="store_true")
+    return p
+
+
+def _refusals(args) -> list[str]:
+    """What this slice cannot honour, each with the slice that brings it."""
+    out = []
+    if max(args.dp, args.fsdp, args.sp, args.tp) > 1:
+        out.append("mesh axes > 1 (--dp/--fsdp/--sp/--tp) come with the parallel slice")
+    if args.seq_parallel:
+        out.append("--seq-parallel comes with the parallel slice")
+    if args.opt_bits == 8:
+        out.append("--opt-bits 8 comes with the opt8 slice (int8 Adam moments)")
+    if args.ckpt_dir or args.resume:
+        out.append("--ckpt-dir/--resume come with the checkpoint slice")
+    if args.eval_data:
+        out.append("--eval-data comes with the eval slice")
+    if args.export_hf or args.hf_model:
+        out.append("--export-hf/--hf-model come with the HF loader slice")
+    if args.profile_dir:
+        out.append("--profile-dir comes with the tracing slice")
+    if args.data_tokenizer:
+        out.append("--data-tokenizer (text corpora) comes with the HF loader slice")
+    return out
+
+
+def _synthetic_batch(i: int, args, config, dev) -> dict:
+    """Random ids seeded by the step index (the JAX finetune's
+    ``jax.random.key(i)``; the bits differ). The roll wraps the last
+    target to the row's first token, so that position is masked out."""
+    gen = torch.Generator(device=dev).manual_seed(i)
+    tok = torch.randint(0, config.vocab_size, (args.batch, args.seq_len), generator=gen, device=dev)
+    mask = torch.ones_like(tok)
+    mask[:, -1] = 0
+    return {"tokens": tok, "targets": torch.roll(tok, -1, dims=1), "mask": mask}
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A leaf as numpy: bf16 goes out as f32 (numpy has no bfloat16)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        key = f"{prefix}{k}"
+        out.update(_flat(v, key + "/") if isinstance(v, dict) else {key: _host(v)})
+    return out
+
+
+def main(argv=None) -> int:
+    p = _parser()
+    args = p.parse_args(argv)
+    for msg in _refusals(args):
+        p.error(f"not ported yet: {msg} (ROADMAP.md, queue A)")
+    if args.batch % max(args.grad_accum, 1):
+        p.error(f"--batch {args.batch} not divisible by --grad-accum {args.grad_accum}")
+    dev = resolve_device(args.device)
+    config = llama.CONFIGS[args.model]
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(
+        f"model={args.model} params={config.num_params() / 1e9:.2f}B mode="
+        f"{'full' if args.full else 'lora'} device={dev} ({kind})",
+        flush=True,
+    )
+
+    rows = None
+    if args.data:
+        try:
+            rows = data_mod.load_tokens(args.data, args.seq_len, bin_dtype=args.data_bin_dtype)
+        except ValueError as e:
+            p.error(str(e))
+        if rows.shape[0] < args.batch:
+            p.error(f"corpus packs to {rows.shape[0]} rows < batch {args.batch}")
+
+    t0 = time.perf_counter()
+    opt = default_optimizer(lr=args.lr, decay_steps=args.steps)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = llama.init_params(config, gen, device=dev)
+    if args.full:
+        state = init_train_state(config, opt, params=params)
+        step_fn = make_train_step(config, opt, grad_accum=args.grad_accum)
+    else:
+        lora_conf = lora_mod.LoRAConfig(rank=args.lora_rank, alpha=args.lora_alpha)
+        state = lora_mod.init_lora_state(lora_mod.init_lora_params(config, lora_conf, gen, device=dev), opt)
+        step_fn = lora_mod.make_lora_train_step(config, lora_conf, opt, grad_accum=args.grad_accum)
+    print(f"init done in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    if rows is not None:
+        data_iter = data_mod.prefetch_to_device(data_mod.batches(rows, args.batch, seed=args.data_seed), dev)
+
+        def next_batch(i):
+            return next(data_iter)
+    else:
+
+        def next_batch(i):
+            return _synthetic_batch(i, args, config, dev)
+
+    ftok = flops_per_token(config, args.seq_len)
+    tokens_per_step = args.batch * args.seq_len
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    # the counts of this run's launches start here
+    flash.LAUNCHES = flash.LAUNCHES_DQ = flash.LAUNCHES_DKV = 0
+    first_loss, step_s = None, []
+    t_window = time.perf_counter()
+    for i in range(args.steps):
+        batch = next_batch(i)
+        if args.full:
+            state, metrics = step_fn(state, batch)
+        else:
+            state, metrics = step_fn(params, state, batch)
+        if first_loss is None:
+            first_loss = float(metrics["loss"])  # waits for the step
+            # the provision → first-train-step marker the JAX finetune prints
+            print(json.dumps({"event": "first_train_step", "t_unix": time.time()}), flush=True)
+        if (i + 1) % args.log_every == 0:
+            loss = float(metrics["loss"])  # host sync: the window's steps are done
+            dt = (time.perf_counter() - t_window) / args.log_every
+            t_window = time.perf_counter()
+            step_s.append(dt)
+            tps = tokens_per_step / dt
+            mfu = f"{ftok * tps / PEAK_FLOPS:.2%} of the {PEAK_NAME}" if dev.type == "cuda" else "n/a on the CPU"
+            print(
+                f"step {i + 1}/{args.steps} loss={loss:.4f} step_s={dt:.4f} "
+                f"tokens/s={tps:,.0f} mfu={mfu}",
+                flush=True,
+            )
+    last_loss = float(metrics["loss"]) if args.steps else None
+    launches = {
+        "flash_fwd": flash.LAUNCHES,
+        "flash_bwd_dq": flash.LAUNCHES_DQ,
+        "flash_bwd_dkv": flash.LAUNCHES_DKV,
+    }
+
+    trained = state["params"] if args.full else state["lora"]
+    flat = _flat(trained) if args.full else {f"layers.{k}": _host(v) for k, v in trained["layers"].items()}
+    if args.full:
+        flat["step"] = np.asarray(state["step"], np.int32)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    fname = "model_weights.npz" if args.full else "lora_adapters.npz"
+    np.savez(out / fname, **flat)
+    print(f"weights saved to {out}/{fname} ({len(tree_leaves(trained))} leaves)", flush=True)
+
+    med = statistics.median(step_s) if step_s else None
+    tps = tokens_per_step / med if med else None
+    on_card = dev.type == "cuda"
+    print(json.dumps({
+        "event": "summary",
+        "model": args.model,
+        "mode": "full" if args.full else "lora",
+        "device": str(dev),
+        "device_name": kind,
+        "batch": args.batch,
+        "seq_len": args.seq_len,
+        "steps": args.steps,
+        "first_loss": first_loss,
+        "last_loss": last_loss,
+        "median_step_s": med,
+        "tokens_per_s": tps,
+        "mfu": ftok * tps / PEAK_FLOPS if on_card and tps else None,
+        "mfu_peak": PEAK_NAME,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(dev) if on_card else None,
+        "launches": launches,
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,302 @@
+"""Training step for the PyTorch port (counterpart of dstack_tpu.train.step).
+
+One step is: forward (``llama.forward`` with ``return_hidden``; K1 flash
+forward per layer, recomputed under remat), the head fused into the
+cross-entropy, backward (K2/K3 per layer), then clip-by-global-norm and
+AdamW under a warmup-cosine schedule. JAX builds the step as one ``jit``
+over a mesh; the port runs it eagerly on one device and updates the
+parameters and moments in place (the JAX step donates its state, so the
+old state is never read again either).
+
+Parameters, gradients and moments are plain nested dicts of tensors in
+the JAX package's layout (stacked ``[L, ...]`` layers), so the parity
+tests compare them leaf for leaf. The parallel paths (meshes, pipeline,
+``chunked_cross_entropy``), ``opt8`` and the obs registry of
+``make_step_callback`` are not ported yet (ROADMAP.md).
+"""
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from dstack_tpu_torch.models import llama
+
+# ---------------------------------------------------------------------------
+# parameter trees (nested dicts of tensors)
+# ---------------------------------------------------------------------------
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the same keys of ``rest``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in sorted-key order, the same for every tree of one shape."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def _unflatten(tree, leaves):
+    it = iter(leaves)
+
+    def fill(node):
+        if isinstance(node, dict):
+            return {k: fill(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return fill(tree)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32 (0-dim tensor)."""
+    return torch.sqrt(sum(leaf.float().pow(2).sum() for leaf in tree_leaves(tree)))
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def _mask(targets: torch.Tensor, mask: Optional[torch.Tensor]) -> tuple:
+    m = torch.ones_like(targets, dtype=torch.float32) if mask is None else mask.float()
+    return m, m.sum().clamp(min=1.0)
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,  # [B, T, V] f32
+    targets: torch.Tensor,  # [B, T] int
+    mask: Optional[torch.Tensor] = None,  # [B, T] 0/1
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """→ (mean loss over the mask, total weight) (step.py:25)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, targets[..., None].long())[..., 0]
+    m, total = _mask(targets, mask)
+    return -(ll * m).sum() / total, total
+
+
+def fused_cross_entropy(
+    x: torch.Tensor,  # [B, T, E] final hidden (model dtype)
+    head: torch.Tensor,  # [E, V]
+    targets: torch.Tensor,  # [B, T] int
+    mask: Optional[torch.Tensor],  # [B, T] 0/1
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy in logsumexp form, loss = lse(logits) - logit[y]
+    (step.py:40): the f32-accumulated logits are the only full-vocab
+    tensor the forward keeps; no f32 log-probabilities."""
+    logits = llama.matmul_f32(x, head)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets[..., None].long())[..., 0]
+    m, total = _mask(targets, mask)
+    return ((lse - tgt) * m).sum() / total, total
+
+
+def full_loss(params: dict, batch: dict, config: llama.LlamaConfig, impl=None) -> torch.Tensor:
+    """The full fine-tune objective (the JAX step's ``loss_fn`` for a
+    dense model: the router aux loss is 0)."""
+    x = llama.forward(params, batch["tokens"], config, return_hidden=True, impl=impl)
+    head = llama.lm_head_weight(params, config)
+    return fused_cross_entropy(x, head, batch["targets"], batch.get("mask"))[0]
+
+
+# ---------------------------------------------------------------------------
+# gradients
+# ---------------------------------------------------------------------------
+
+
+def value_and_grad(fn: Callable, wrt: dict, *args) -> tuple[torch.Tensor, dict]:
+    """(fn(wrt, *args), d fn / d wrt) as a tree shaped like ``wrt``;
+    ``args`` are constants. The leaves share ``wrt``'s storage."""
+    live = tree_map(lambda t: t.detach().requires_grad_(True), wrt)
+    loss = fn(live, *args)
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    return loss.detach(), _unflatten(wrt, grads)
+
+
+def accumulate_grads(
+    fn: Callable, wrt: dict, batch: dict, grad_accum: int, *args
+) -> tuple[torch.Tensor, dict]:
+    """``grad_accum`` microbatches over the batch's leading dim, gradients
+    averaged with each one weighted by its mask sum (step.py:336-357):
+    f32 accumulators, the mean cast back to each leaf's dtype. ``fn`` is
+    called as ``fn(wrt, microbatch, *args)``."""
+    if grad_accum == 1:
+        return value_and_grad(fn, wrt, batch, *args)
+    n = batch["tokens"].shape[0]
+    if n % grad_accum:
+        raise ValueError(f"batch {n} not divisible by grad_accum {grad_accum}")
+    size = n // grad_accum
+    g_acc = tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device), wrt)
+    loss_acc = w_acc = 0.0
+    for i in range(grad_accum):
+        mb = {k: v[i * size : (i + 1) * size] for k, v in batch.items()}
+        loss, g = value_and_grad(fn, wrt, mb, *args)
+        w = _mask(mb["tokens"], mb.get("mask"))[1]
+        tree_map(lambda acc, gi: acc.add_(gi.float() * w), g_acc, g)
+        loss_acc = loss_acc + loss * w
+        w_acc = w_acc + w
+    grads = tree_map(lambda acc, t: (acc / w_acc).to(t.dtype), g_acc, wrt)
+    return loss_acc / w_acc, grads
+
+
+# ---------------------------------------------------------------------------
+# optimizer
+# ---------------------------------------------------------------------------
+
+
+def warmup_cosine_decay(peak: float, warmup: int, decay_steps: int) -> Callable[[int], float]:
+    """``optax.warmup_cosine_decay_schedule(0.0, peak, warmup,
+    decay_steps)``: linear from 0 over ``warmup`` counts, then cosine to
+    0 at ``decay_steps`` (which includes the warmup)."""
+    cos_steps = decay_steps - warmup
+    if cos_steps <= 0:
+        raise ValueError(f"decay_steps {decay_steps} must exceed warmup {warmup}")
+
+    def schedule(count: int) -> float:
+        if count < warmup:
+            return peak * count / warmup
+        t = min(count - warmup, cos_steps)
+        return peak * 0.5 * (1.0 + math.cos(math.pi * t / cos_steps))
+
+    return schedule
+
+
+@dataclass(frozen=True)
+class AdamW:
+    """``optax.chain(clip_by_global_norm(max_norm), adamw(schedule, b1,
+    b2, eps, weight_decay))`` as functions on tensor lists:
+
+    - the clip scales by ``max_norm / norm`` only when ``norm >= max_norm``
+      (no ``+1e-6`` as ``torch.nn.utils.clip_grad_norm_`` adds);
+    - the moments keep each parameter's dtype;
+    - bias correction uses the incremented count, the schedule the count
+      before it (so the first update has lr = schedule(0));
+    - weight decay applies to every leaf, the norms included.
+
+    :meth:`update` writes the new parameters and moments in place."""
+
+    schedule: Callable[[int], float]
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    max_norm: float = 1.0
+
+    def init(self, params: dict) -> dict:
+        return {
+            "count": 0,
+            "mu": tree_map(torch.zeros_like, params),
+            "nu": tree_map(torch.zeros_like, params),
+        }
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: dict, params: dict) -> dict:
+        """One step: ``params`` and ``state``'s moments are updated in
+        place (``grads`` are not); returns ``state`` with its count
+        advanced. Scalars enter each dtype's arithmetic rounded to that
+        dtype, as optax casts them."""
+        norm = global_norm(grads)
+        clip = norm >= self.max_norm
+        count = state["count"] + 1
+        f32 = torch.float32
+        bc1 = (1 - torch.tensor(self.b1, dtype=f32) ** count).item()
+        bc2 = (1 - torch.tensor(self.b2, dtype=f32) ** count).item()
+        step_size = -self.schedule(state["count"])
+        groups = {}
+        for leaves in zip(
+            tree_leaves(params), tree_leaves(grads), tree_leaves(state["mu"]), tree_leaves(state["nu"])
+        ):
+            groups.setdefault(leaves[0].dtype, []).append(leaves)
+        for dtype, leaves in groups.items():
+            p, g, mu, nu = (list(x) for x in zip(*leaves))
+
+            def cast(x: float, dtype=dtype) -> float:
+                return torch.tensor(x, dtype=dtype).item()
+
+            g = [torch.where(clip, x / norm.to(dtype) * self.max_norm, x) for x in g]
+            torch._foreach_mul_(mu, self.b1)
+            torch._foreach_add_(mu, g, alpha=1 - self.b1)
+            torch._foreach_mul_(nu, self.b2)
+            torch._foreach_addcmul_(nu, g, g, value=1 - self.b2)
+            del g
+            upd = torch._foreach_div(mu, cast(bc1))
+            denom = torch._foreach_div(nu, cast(bc2))
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            torch._foreach_div_(upd, denom)
+            del denom
+            torch._foreach_add_(upd, p, alpha=self.weight_decay)
+            torch._foreach_mul_(upd, cast(step_size))
+            torch._foreach_add_(p, upd)
+        state["count"] = count
+        return state
+
+
+def default_optimizer(
+    lr: float = 3e-4,
+    weight_decay: float = 0.1,
+    warmup: int = 100,
+    decay_steps: int = 10000,
+    opt_bits: int = 32,
+) -> AdamW:
+    """clip-by-global-norm(1.0) then AdamW(b1 0.9, b2 0.95) under
+    warmup-cosine (step.py:141). The int8 moments (``opt_bits=8``,
+    train/opt8.py) are not ported yet."""
+    if opt_bits != 32:
+        raise NotImplementedError("opt_bits=8 (int8 Adam moments) comes with the opt8 slice")
+    schedule = warmup_cosine_decay(lr, warmup, max(decay_steps, warmup + 1))
+    return AdamW(schedule, b1=0.9, b2=0.95, weight_decay=weight_decay)
+
+
+# ---------------------------------------------------------------------------
+# the step
+# ---------------------------------------------------------------------------
+
+
+def init_train_state(
+    config: llama.LlamaConfig,
+    optimizer: AdamW,
+    *,
+    params: Optional[dict] = None,
+    seed: int = 0,
+    device="cuda",
+) -> dict:
+    """{params, opt_state, step}; random weights from ``seed`` unless
+    ``params`` is given."""
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = llama.init_params(config, gen, device=device)
+    return {"params": params, "opt_state": optimizer.init(params), "step": 0}
+
+
+def make_train_step(
+    config: llama.LlamaConfig,
+    optimizer: AdamW,
+    grad_accum: int = 1,
+    impl: Optional[str] = None,
+) -> Callable:
+    """(state, batch{tokens, targets, mask}) → (state, metrics): the full
+    fine-tune step. ``state`` is updated in place and returned;
+    ``metrics`` hold 0-dim device tensors (``loss``, ``aux_loss``, and
+    ``grad_norm`` before the clip), read without a host sync."""
+
+    def step(state: dict, batch: dict) -> tuple[dict, dict]:
+        loss, grads = accumulate_grads(full_loss, state["params"], batch, grad_accum, config, impl)
+        gnorm = global_norm(grads)
+        optimizer.update(grads, state["opt_state"], state["params"])
+        state["step"] += 1
+        return state, {"loss": loss, "aux_loss": torch.zeros_like(loss), "grad_norm": gnorm}
+
+    return step
+
+
+def flops_per_token(config: llama.LlamaConfig, seq_len: int) -> float:
+    """Approximate train FLOPs per token (step.py:402): 6·N plus the
+    attention term."""
+    attn = 12 * config.n_layers * config.hidden_size * seq_len  # fwd+bwd qk/av
+    return 6.0 * config.num_params() + attn

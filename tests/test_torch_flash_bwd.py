@@ -1,0 +1,180 @@
+"""The port's flash-attention backward against the JAX package's.
+
+On the CPU ``flash_bwd`` takes ``flash_bwd_plain`` (a CPU tensor), which
+is held here to the Pallas ``_flash_bwd`` kernels (``_dq_kernel``,
+``_dkv_kernel``) run in interpret mode with 128-row blocks, and the
+gradients of ``FlashAttention`` to ``jax.vjp`` of ``flash_attention``
+and to torch autograd through ``flash_attention_plain``: the same f32
+inputs drawn with numpy, tolerance 2e-5 (the reference's own,
+tests/compute/test_flash_decode.py). The ``cuda``-marked tests hold the
+hand-written K2/K3 kernels to the plain version on the card (bf16,
+2e-2) and skip where there is none.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dstack_tpu.ops.flash import _flash_bwd, _flash_fwd
+from dstack_tpu.ops.flash import flash_attention as jax_flash_attention
+from dstack_tpu_torch.ops import flash as tflash
+
+TOL = 2e-5
+BLOCK = 128
+
+# (T, causal, q_offset, kv_offset, window, softcap): GQA 4 query heads
+# over 2 KV heads in every case
+CASES = [
+    (128, True, 0, 0, 0, 0.0),
+    (256, True, 0, 0, 0, 0.0),
+    (128, True, 128, 0, 0, 0.0),  # queries after a 128-key prefix shard
+    (256, True, 0, 0, 96, 0.0),  # sliding window
+    (256, True, 0, 0, 0, 30.0),  # softcap: the (1 - tanh^2) factor
+    (128, False, 0, 0, 0, 0.0),  # non-causal
+    (128, True, 0, 64, 0, 0.0),  # rows 0..63 see no key at all
+]
+IDS = ["T128", "T256", "qoff128", "window96", "softcap30", "noncausal", "no_live_key"]
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _inputs(t: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    q = _rand(rng, 1, 4, t, 64)
+    k = _rand(rng, 1, 2, t, 64)
+    v = _rand(rng, 1, 2, t, 64)
+    do = _rand(rng, 1, 4, t, 64)
+    return q, k, v, do
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the hand-written kernels run only on the card")
+    return torch.device("cuda")
+
+
+class TestFlashBackwardPlain:
+    @pytest.mark.parametrize("t,causal,q_offset,kv_offset,window,softcap", CASES, ids=IDS)
+    def test_matches_pallas_interpret(self, t, causal, q_offset, kv_offset, window, softcap):
+        q, k, v, do = _inputs(t)
+        scale = 64**-0.5
+        jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+        # one forward for both backwards: the test is of the backward alone
+        jo, jlse = _flash_fwd(
+            jq, jk, jv, causal, scale, BLOCK, BLOCK, q_offset, kv_offset, True,
+            window, softcap,
+        )
+        jdq, jdk, jdv = _flash_bwd(
+            jq, jk, jv, jo, jlse, jdo, causal, scale, BLOCK, BLOCK, q_offset,
+            kv_offset, True, window, softcap,
+        )
+        tdq, tdk, tdv = tflash.flash_bwd(
+            _t(q), _t(k), _t(v), _t(jo), _t(jlse[..., 0]), _t(do),
+            causal=causal, scale=scale, q_offset=q_offset, kv_offset=kv_offset,
+            window=window, softcap=softcap,
+        )
+        for got, want in ((tdq, jdq), (tdk, jdk), (tdv, jdv)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
+
+    def test_row_with_no_live_key_gives_zero_gradients(self):
+        q, k, v, do = (_t(x) for x in _inputs(128, seed=1))
+        o, lse = tflash.flash_attention_with_lse(q, k, v, kv_offset=64)
+        dq, dk, dv = tflash.flash_bwd(q, k, v, o, lse, do, kv_offset=64)
+        assert not dq[:, :, :64].any()
+        # the last 64 keys sit past every query's causal frontier
+        assert not dk[:, :, 64:].any() and not dv[:, :, 64:].any()
+
+    def test_kernel_wrapper_refuses_a_non_cpu_tensor(self):
+        x = torch.zeros(1, 2, 16, 64, device="meta")
+        lse = torch.zeros(1, 2, 16, device="meta")
+        with pytest.raises(ValueError, match="no kernel"):
+            tflash.flash_bwd(x, x, x, x, lse, x)
+
+
+class TestFlashAttentionFunction:
+    @pytest.mark.parametrize("t,causal,q_offset,kv_offset,window,softcap", CASES, ids=IDS)
+    def test_grads_match_jax_vjp(self, t, causal, q_offset, kv_offset, window, softcap):
+        q, k, v, do = _inputs(t, seed=2)
+        kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset, window=window, softcap=softcap)
+        jo, vjp = jax.vjp(
+            lambda a, b, c: jax_flash_attention(
+                a, b, c, block_q=BLOCK, block_k=BLOCK, interpret=True, **kw
+            ),
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        )
+        jgrads = vjp(jnp.asarray(do))
+        tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+        to = tflash.flash_attention(tq, tk, tv, **kw)
+        tgrads = torch.autograd.grad(to, (tq, tk, tv), _t(do))
+        np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo), atol=TOL, rtol=TOL)
+        for got, want in zip(tgrads, jgrads):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
+
+    @pytest.mark.parametrize("t,causal,q_offset,kv_offset,window,softcap", CASES, ids=IDS)
+    def test_grads_match_autograd_through_the_plain_forward(
+        self, t, causal, q_offset, kv_offset, window, softcap
+    ):
+        q, k, v, do = _inputs(t, seed=3)
+        kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset, window=window, softcap=softcap)
+        got_in = [_t(x).requires_grad_() for x in (q, k, v)]
+        want_in = [_t(x).requires_grad_() for x in (q, k, v)]
+        got = torch.autograd.grad(tflash.flash_attention(*got_in, **kw), got_in, _t(do))
+        o_plain = tflash.flash_attention_plain(*want_in, **kw)[0]
+        want = torch.autograd.grad(o_plain, want_in, _t(do))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), atol=TOL, rtol=TOL)
+
+    def test_plain_flag_runs_the_plain_backward(self):
+        q, k, v, do = (_t(x) for x in _inputs(128, seed=4))
+        ins = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = (tflash.LAUNCHES, tflash.LAUNCHES_DQ, tflash.LAUNCHES_DKV)
+        o = tflash.flash_attention(*ins, plain=True)
+        torch.autograd.grad(o, ins, do)
+        # the plain versions never count a launch
+        assert (tflash.LAUNCHES, tflash.LAUNCHES_DQ, tflash.LAUNCHES_DKV) == before
+
+
+@pytest.mark.cuda
+class TestBackwardKernelsOnTheCard:
+    """bf16 K2/K3 vs flash_bwd_plain at the training shapes."""
+
+    @pytest.mark.parametrize(
+        "d,t,causal,window,softcap",
+        [
+            (64, 2048, True, 0, 0.0),  # llama-3.2-1b training shape
+            (64, 2048, True, 512, 30.0),
+            (64, 1000, True, 0, 0.0),  # ragged edge: T not a multiple of 64
+            (64, 300, False, 0, 0.0),
+            (128, 1024, True, 0, 0.0),  # Llama-3-8B head width
+        ],
+    )
+    def test_flash_backward(self, cuda, d, t, causal, window, softcap):
+        g = torch.Generator(device=cuda).manual_seed(0)
+        q, do = (torch.randn(4, 32, t, d, generator=g, device=cuda).bfloat16() for _ in range(2))
+        k, v = (torch.randn(4, 8, t, d, generator=g, device=cuda).bfloat16() for _ in range(2))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        o, lse = tflash.flash_attention_with_lse(q, k, v, **kw)
+        got = tflash.flash_bwd(q, k, v, o, lse, do, **kw)
+        want = tflash.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2)
+
+    def test_offsets(self, cuda):
+        g = torch.Generator(device=cuda).manual_seed(1)
+        q, do = (torch.randn(1, 32, 256, 64, generator=g, device=cuda).bfloat16() for _ in range(2))
+        k, v = (torch.randn(1, 8, 512, 64, generator=g, device=cuda).bfloat16() for _ in range(2))
+        kw = dict(q_offset=256, kv_offset=0)
+        o, lse = tflash.flash_attention_with_lse(q, k, v, **kw)
+        got = tflash.flash_bwd(q, k, v, o, lse, do, **kw)
+        want = tflash.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2)

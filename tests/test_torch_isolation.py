@@ -63,7 +63,7 @@ def test_source_scan_finds_no_jax_or_dstack_tpu_import():
 
 def test_the_port_has_its_own_kernel_sources():
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
-        "flash_fwd.cu", "flash_decode.cu",
+        "flash_fwd.cu", "flash_decode.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
     }
 
 
@@ -87,6 +87,12 @@ class TestNoSilentCpuFallback:
 
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             openai_server.main(["--model", "llama-tiny-64"])
+
+    def test_finetune_default_device_raises(self):
+        from dstack_tpu_torch.train import finetune
+
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            finetune.main(["--model", "llama-tiny-64", "--steps", "1"])
 
     def test_kernel_wrapper_raises_for_a_non_cpu_tensor(self):
         from dstack_tpu_torch.ops import flash
