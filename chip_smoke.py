@@ -13,29 +13,42 @@ Phases, in order; any failure raises and the script exits non-zero:
    source, in parallel) and print the build time.
 2. Kernel phase: each kernel against its plain PyTorch version on the
    card in bf16, within atol = rtol = 2e-2: flash prefill (K1) at the
-   serving shapes (C = 16 and 256 with q_offset 0 and 512), ragged flash
-   decode (K4) with positions from 0 to 2047, and the backward kernels
-   K2 (dq) and K3 (dk, dv) at the training shape q/dO [4,32,2048,64],
-   k/v [4,8,2048,64] (causal; window 512 with softcap 30; a ragged
-   T = 1000), where K1 is timed once more. Times each kernel, its plain version and one PyTorch
-   library call of the same function (``scaled_dot_product_attention``
-   forward with an explicit mask, or its backward for K2+K3: yardsticks
-   the port never calls) with CUDA events, L2 flushed before each
-   launch, and reckons each call's bound from the bytes it must move at
-   3.35 TB/s and its FLOPs at 989 TFLOP/s.
+   serving shapes (C = 16 and 256 with q_offset 0 and 512); ragged flash
+   decode (K4) with positions from 0 to 2047 in its four forms: the bf16
+   and the int8 cache (f32 per-token scales), one row group a slot
+   (q [8,8,4,64]) and speculative verify (S = 5: q [8,8,20,64]); and the
+   backward kernels K2 (dq) and K3 (dk, dv) at the training shape q/dO
+   [4,32,2048,64], k/v [4,8,2048,64] (causal; window 512 with softcap 30;
+   a ragged T = 1000), where K1 is timed once more. Times each kernel,
+   its plain version and one PyTorch library call of the same function
+   (``scaled_dot_product_attention`` forward with an explicit mask, or its
+   backward for K2+K3: yardsticks the port never calls; none reads an int8
+   cache, so the int8 forms have none) with CUDA events, L2 flushed before
+   each launch, and reckons each call's bound from the bytes it must move
+   at 3.35 TB/s and its FLOPs at 989 TFLOP/s.
 3. Path phase: start ``python -m dstack_tpu_torch.serve.openai_server
-   --model llama-3.2-1b --device cuda --decode-kernel flash`` (full
-   width, random weights from seed 0) on a free port, check every launch
-   count reads 0, send 4 concurrent greedy ``/v1/completions`` (prompts
-   of 40, 200, 300 and 700 byte tokens) and then one streamed
-   ``/v1/chat/completions``, 32 tokens each, check every answer's shape,
-   and read ``/health``: the prefill kernel must have run n_layers times
-   per prefill chunk and the decode kernel n_layers times per decode
-   step. Then, in this process, a teacher-forced comparison on one
-   prompt over the prefill and 8 decode steps: the kernel path's logits
-   against the plain path's, both held to the plain path in f32 (the
-   kernel path's relative RMS logit error may be at most 1.5 times the
-   plain bf16 path's).
+   --model llama-3.2-1b --device cuda --decode-kernel flash`` (full width,
+   random weights from seed 0) on a free port three times: on the serial
+   path (``--prefill-pack 1 --spec-draft 0 --turbo-steps 0
+   --no-prefix-cache``), at the engine's defaults (packed prefill,
+   speculative verify, turbo macro-steps, the prefix cache), and at the
+   defaults with ``--kv-quant int8``. Each time check every launch count
+   reads 0, send 4 concurrent greedy ``/v1/completions`` (prompts of 40,
+   200, 300 and 700 byte tokens) and one streamed
+   ``/v1/chat/completions``, 32 tokens each; the default servers then get
+   a 4-token phrase x 30 prompt and two prompts sharing a 512-token
+   prefix, one after the other. Check every answer's shape and read
+   ``/health``: on the serial path K1 ran n_layers times per prefill
+   chunk and K4 n_layers times per decode step; on the default paths K1
+   ran n_layers times per serial chunk (packed waves take the masked
+   attention), K4 n_layers times per plain, verify and turbo device step,
+   packed, turbo and prefix-cache dispatches all ran, and K4 ran only the
+   forms of the server's cache. Then, in this process, a teacher-forced
+   comparison on one prompt over the prefill, 8 decode steps and one
+   verify of 5 tokens, on the bf16 and on the int8 cache: the kernel
+   path's logits against the plain path's, both held to the plain path
+   in f32 (the kernel path's relative RMS logit error may be at most 1.5
+   times the plain bf16 path's).
 4. Training path phase: ``python -m dstack_tpu_torch.train.finetune
    --model llama-3.2-1b --full --steps 6`` and then the default LoRA mode
    for 4 steps (full width and depth, random weights from seed 0,
@@ -52,8 +65,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    bf16, plain in f32): for every parameter leaf the kernel path's
    relative RMS gradient error against f32 may be at most 1.5 times the
    plain bf16 path's, and the three losses agree within 2e-2.
-6. Print the ``kernels`` JSON line, then the card line, then the last
-   line ``{"ok": true, "device": {...}}``.
+6. Print the ``kernels`` JSON line (K4 as one row per form, each with
+   its launches on every path; a form launched on no path fails the
+   run), then the card line, then the last line
+   ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -85,10 +100,19 @@ TOL = 2e-2  # bf16: atol = rtol, the JAX package's own bf16 tolerance
 KERNEL_RMS_MARGIN = 1.5
 MODEL = "llama-3.2-1b"
 PROMPT_LENS = (40, 200, 300, 700)
+PREFIX_LEN = 512  # the shared prefix of the prefix-cache pair: two 256-token chunks
 MAX_TOKENS = 32
 CHUNK = 256  # the server's --prefill-chunk default
 TRAIN_STEPS = {"full": 6, "lora": 4}
 BWD_SHAPE = (4, 32, 8, 2048, 64)  # B, H, Hkv, T, D of the backward kernel phase
+SPEC_ROWS = 5  # rows a query head verifies: the server's --spec-draft 4, plus one
+# the server runs: the serial path of the first slice, then the JAX
+# server's default engine on the bf16 and on the int8 cache
+SERVER_MODES = {
+    "serial": ["--prefill-pack", "1", "--spec-draft", "0", "--turbo-steps", "0", "--no-prefix-cache"],
+    "default": [],
+    "int8": ["--kv-quant", "int8"],
+}
 
 
 def log(msg: str) -> None:
@@ -186,29 +210,60 @@ def kernel_phase() -> dict:
 
     b, grp = 8, h // hkv
     q = torch.randn(b, hkv, grp, d, generator=g, device="cuda").bfloat16()
+    qv = torch.randn(b, hkv, grp * SPEC_ROWS, d, generator=g, device="cuda").bfloat16()
     kc = torch.randn(b, hkv, t, d, generator=g, device="cuda").bfloat16()
     vc = torch.randn(b, hkv, t, d, generator=g, device="cuda").bfloat16()
+    int8 = (*engine.kv_quantize(kc), *engine.kv_quantize(vc))  # k, k_s, v, v_s
     pos = torch.tensor([0, 40, 200, 300, 700, 1024, 1500, 2047], dtype=torch.int32, device="cuda")
-    o = flash_decode.flash_decode(q, kc, vc, pos, scale=scale)
-    po = flash_decode.flash_decode_plain(q, kc, vc, pos, scale=scale)
+    # verify: the last row of a slot reads up to pos + S - 1 <= 2047
+    pos_v = torch.tensor([0, 40, 200, 300, 700, 1024, 1500, 2043], dtype=torch.int32, device="cuda")
+    for name, qq, pp, s_rows, quant in (
+        ("flash_decode", q, pos, 1, False),
+        ("flash_decode_verify", qv, pos_v, SPEC_ROWS, False),
+        ("flash_decode_int8", q, pos, 1, True),
+        ("flash_decode_int8_verify", qv, pos_v, SPEC_ROWS, True),
+    ):
+        k_, v_ = (int8[0], int8[2]) if quant else (kc, vc)
+        kw = dict(scale=scale, rows_per_slot=s_rows)
+        if quant:
+            kw.update(k_scale=int8[1], v_scale=int8[3])
+        rows[name] = decode_row(name, qq, k_, v_, pp, kw)
+    return rows
+
+
+def decode_row(name: str, q, k, v, pos, kw: dict) -> dict:
+    """One K4 variant against its plain version, then timed with its
+    bound: every live key's K and V read once (bf16, or int8 plus its f32
+    scale), q read and o written once; 4 D FLOP per live (row, key) pair.
+    The library yardstick is SDPA with the explicit per-row mask; no
+    single PyTorch call reads an int8 cache with per-token scales."""
+    o = flash_decode.flash_decode(q, k, v, pos, **kw)
+    po = flash_decode.flash_decode_plain(q, k, v, pos, **kw)
     torch.cuda.synchronize()
-    err_dec = assert_close(o, po, "flash_decode")
-    mask = (torch.arange(t, device="cuda")[None, :] <= pos[:, None].long())[:, None, None, :]
-    keys = int((pos.long() + 1).sum())
-    nbytes = 2 * q.numel() * 2 + pos.numel() * 4 + 2 * keys * hkv * d * 2
-    flops = 4 * d * grp * hkv * keys
-    b_ms, b_by = bound_ms(nbytes, flops)
-    dec = {
-        "ms": time_ms(lambda: flash_decode.flash_decode(q, kc, vc, pos, scale=scale)),
-        "plain_ms": time_ms(lambda: flash_decode.flash_decode_plain(q, kc, vc, pos, scale=scale)),
-        "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, kc, vc, attn_mask=mask, scale=scale)),
+    b, hkv, r, d = q.shape
+    t, s_rows, quant = k.shape[2], kw["rows_per_slot"], "k_scale" in kw
+    err = assert_close(o, po, name)
+    qpos = pos.long()[:, None] + torch.arange(r, device="cuda")[None, :] % s_rows  # [B, R]
+    mask = torch.arange(t, device="cuda")[None, None, :] <= qpos[:, :, None]  # [B, R, T]
+    keys = int((pos.long() + s_rows).clamp(max=t).sum())  # keys each KV head of a slot reads
+    pairs = hkv * int((qpos + 1).clamp(max=t).sum())
+    nbytes = 2 * q.numel() * 2 + pos.numel() * 4 + 2 * keys * hkv * (d + 4 if quant else 2 * d)
+    b_ms, b_by = bound_ms(nbytes, 4 * d * pairs)
+    row = {
+        "ms": time_ms(lambda: flash_decode.flash_decode(q, k, v, pos, **kw)),
+        "plain_ms": time_ms(lambda: flash_decode.flash_decode_plain(q, k, v, pos, **kw)),
+        "library_ms": None if quant else time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask[:, None], scale=kw["scale"])),
         "bound_ms": b_ms,
         "bound_by": b_by,
+        "max_abs_err": err,
     }
-    log(f"kernel flash_decode B=8 positions={pos.tolist()}: {json.dumps(dec)}")
-    rows["flash_decode"] = {**dec, "max_abs_err": err_dec}
-    return rows
+    if quant:
+        row["library_note"] = "no single PyTorch call reads an int8 cache with per-token scales"
+    log(f"kernel {name} q {list(q.shape)} cache {list(k.shape)} {k.dtype} positions={pos.tolist()}: "
+        + json.dumps(row))
+    return row
 
 
 def live_pairs(t: int, causal: bool, window: int) -> int:
@@ -335,21 +390,24 @@ def _chunks(n_tokens: int) -> int:
     return 1 if n_tokens <= CHUNK else -(-n_tokens // CHUNK)
 
 
-def path_phase() -> dict:
+def path_phase(mode: str) -> dict:
+    """One server process in ``mode`` (SERVER_MODES), driven and checked
+    → its counts and serving metrics. A fresh process: every count
+    starts at 0."""
     c = llama.CONFIGS[MODEL]
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
-    server_log = ROOT / "build" / "chip_smoke_server.log"
+    server_log = ROOT / "build" / f"chip_smoke_server_{mode}.log"
     server_log.parent.mkdir(parents=True, exist_ok=True)
     with open(server_log, "w") as log_f:
         proc = subprocess.Popen(
             [sys.executable, "-m", "dstack_tpu_torch.serve.openai_server",
              "--model", MODEL, "--device", "cuda", "--decode-kernel", "flash",
-             "--port", str(port), "--seed", "0"],
+             "--port", str(port), "--seed", "0", *SERVER_MODES[mode]],
             cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT,
         )
         try:
-            return _drive_server(c, base, proc)
+            return _drive_server(c, base, proc, mode)
         except BaseException:
             log("server log tail:\n" + server_log.read_text()[-4000:])
             raise
@@ -362,7 +420,36 @@ def path_phase() -> dict:
                 proc.wait(timeout=30)
 
 
-def _drive_server(c, base: str, proc) -> dict:
+def _complete(base: str, prompt: str) -> dict:
+    body = _post(base + "/v1/completions", {"prompt": prompt, "max_tokens": MAX_TOKENS, "temperature": 0})
+    ch, u = body["choices"][0], body["usage"]
+    if not (body["object"] == "text_completion" and isinstance(ch["text"], str)
+            and ch["finish_reason"] in ("length", "stop")
+            and u["prompt_tokens"] == len(prompt) and 1 <= u["completion_tokens"] <= MAX_TOKENS):
+        raise AssertionError(f"malformed completion for a {len(prompt)}-token prompt: {body}")
+    return body
+
+
+def _serving_metrics(st: dict) -> dict:
+    """TTFT, decode tokens/s over every step kind, and host ms a call of
+    each kind (a turbo call runs up to 8 device steps) from engine stats."""
+    tokens = st["decode_tokens"] + st["spec_tokens"] + st["turbo_tokens"]
+    seconds = st["decode_seconds"] + st["spec_seconds"] + st["turbo_seconds"]
+    return {
+        "ttft_mean_s": st["ttft_sum_s"] / st["ttft_count"],
+        "ttft_max_s": st["ttft_max_s"],
+        "decode_tokens": tokens,
+        "decode_tokens_per_s": tokens / seconds,
+        "ms_per_call": {
+            kind: 1e3 * st[f"{kind}_seconds"] / st[count]
+            for kind, count in (("decode", "decode_steps"), ("spec", "spec_steps"),
+                                ("turbo", "turbo_dispatches"))
+            if st[count]
+        },
+    }
+
+
+def _drive_server(c, base: str, proc, mode: str) -> dict:
     t0 = time.perf_counter()
     while True:
         if proc.poll() is not None:
@@ -374,9 +461,10 @@ def _drive_server(c, base: str, proc) -> dict:
             if time.perf_counter() - t0 > 600:
                 raise RuntimeError("server not ready after 600 s")
             time.sleep(0.5)
-    log(f"server ready in {time.perf_counter() - t0:.1f} s")
+    log(f"server [{mode}] ready in {time.perf_counter() - t0:.1f} s: {json.dumps(h0['engine'])}")
     # the counts start at 0 in the fresh server process: nothing ran yet
-    if any(h0["kernel_launches"].values()) or h0["stats"]["decode_steps"]:
+    if (any(h0["kernel_launches"].values()) or any(h0["flash_decode_launches"].values())
+            or h0["stats"]["decode_steps"]):
         raise AssertionError(f"counts not zero before the path phase: {h0}")
 
     prompts = [("".join(chr(97 + (i * 7 + n) % 26) for i in range(n))) for n in PROMPT_LENS]
@@ -385,8 +473,7 @@ def _drive_server(c, base: str, proc) -> dict:
 
     def one(i: int) -> None:
         try:
-            results[i] = _post(base + "/v1/completions",
-                               {"prompt": prompts[i], "max_tokens": MAX_TOKENS, "temperature": 0})
+            results[i] = _complete(base, prompts[i])
         except Exception as e:  # noqa: BLE001 - re-raised below
             errors.append(e)
 
@@ -399,14 +486,7 @@ def _drive_server(c, base: str, proc) -> dict:
     batch_s = time.perf_counter() - t_batch
     if errors or any(th.is_alive() for th in threads):
         raise RuntimeError(f"completions failed: {errors}")
-    for n, body in zip(PROMPT_LENS, results):
-        ch = body["choices"][0]
-        u = body["usage"]
-        if not (body["object"] == "text_completion" and isinstance(ch["text"], str)
-                and ch["finish_reason"] in ("length", "stop")
-                and u["prompt_tokens"] == n and 1 <= u["completion_tokens"] <= MAX_TOKENS):
-            raise AssertionError(f"malformed completion for a {n}-token prompt: {body}")
-    log(f"4 concurrent completions in {batch_s:.3f} s: "
+    log(f"[{mode}] 4 concurrent completions in {batch_s:.3f} s: "
         + json.dumps([b["usage"]["completion_tokens"] for b in results]))
 
     # random weights over a 128k vocab rarely pick one of the 256 byte
@@ -425,37 +505,72 @@ def _drive_server(c, base: str, proc) -> dict:
         raise AssertionError(f"malformed chat stream: {events[-3:]}")
     chat_s = arrivals[-1] - t_send
     text = "".join(e["choices"][0]["delta"].get("content", "") for e in body)
+    # the traffic every mode serves: the burst and the chat, read here
+    st_common = _get(base + "/health")["stats"]
+    chat_ttft = st_common["ttft_sum_s"] - st_before["ttft_sum_s"]
+    log(f"[{mode}] chat stream: TTFT {chat_ttft:.4f} s (engine), whole stream {chat_s:.4f} s, "
+        f"{len(body) - 1} content deltas, {len(text)} chars")
+
+    extra = []
+    if mode != "serial":
+        # a repetitive prompt (prompt-lookup drafts may fire), then two
+        # prompts sharing a 512-token prefix, one after the other: the
+        # second copies the first's cached rows
+        shared = "".join(chr(97 + (i * 11) % 26) for i in range(PREFIX_LEN))
+        extra = ["abcd" * 30, shared + " first tail", shared + " and a second, longer tail"]
+        for prompt in extra:
+            _complete(base, prompt)
 
     h = _get(base + "/health")
-    st, launches = h["stats"], h["kernel_launches"]
-    chat_ttft = st["ttft_sum_s"] - st_before["ttft_sum_s"]
-    log(f"chat stream: TTFT {chat_ttft:.4f} s (engine), whole stream {chat_s:.4f} s, "
-        f"{len(body) - 1} content deltas, {len(text)} chars")
-    want_chunks = sum(_chunks(n) for n in PROMPT_LENS) + _chunks(len(render_chat(messages)))
-    if st["prefill_dispatches"] != want_chunks:
-        raise AssertionError(f"prefill chunks {st['prefill_dispatches']} != {want_chunks}")
-    if launches["flash_fwd"] != c.n_layers * st["prefill_dispatches"] or not launches["flash_fwd"]:
-        raise AssertionError(f"flash_fwd launches {launches} vs stats {st}")
-    if launches["flash_decode"] != c.n_layers * st["decode_steps"] or not launches["flash_decode"]:
-        raise AssertionError(f"flash_decode launches {launches} vs stats {st}")
+    st, launches, variants = h["stats"], h["kernel_launches"], h["flash_decode_launches"]
+    n = c.n_layers
+    if mode == "serial":
+        want_chunks = sum(_chunks(k) for k in PROMPT_LENS) + _chunks(len(render_chat(messages)))
+        if st["prefill_dispatches"] != want_chunks:
+            raise AssertionError(f"prefill chunks {st['prefill_dispatches']} != {want_chunks}")
+        if launches["flash_fwd"] != n * st["prefill_dispatches"] or not launches["flash_fwd"]:
+            raise AssertionError(f"flash_fwd launches {launches} vs stats {st}")
+        if launches["flash_decode"] != n * st["decode_steps"] or not launches["flash_decode"]:
+            raise AssertionError(f"flash_decode launches {launches} vs stats {st}")
+        if variants["bf16_decode"] != launches["flash_decode"]:
+            raise AssertionError(f"serial path ran K4 variants other than bf16 decode: {variants}")
+    else:
+        serial_chunks = st["prefill_dispatches"] - st["packed_dispatches"]
+        steps = st["decode_steps"] + st["spec_steps"] + st["turbo_device_steps"]
+        if launches["flash_fwd"] != n * serial_chunks:
+            raise AssertionError(f"flash_fwd launches {launches} != {n} x serial chunks: {st}")
+        if launches["flash_decode"] != n * steps or not steps:
+            raise AssertionError(f"flash_decode launches {launches} != {n} x device steps: {st}")
+        if not (st["packed_dispatches"] >= 1 and st["turbo_dispatches"] >= 1 and st["prefix_hits"] >= 1):
+            raise AssertionError(f"[{mode}] packed, turbo and prefix-cache dispatches must all run: {st}")
+        own, other = ("int8", "bf16") if mode == "int8" else ("bf16", "int8")
+        if (sum(v for k, v in variants.items() if k.startswith(other))
+                or sum(v for k, v in variants.items() if k.startswith(own)) != launches["flash_decode"]
+                or variants[f"{own}_verify"] != n * st["spec_steps"]):
+            raise AssertionError(f"[{mode}] K4 variants {variants} vs stats {st}")
     path = {
-        "launches": launches,
+        "launches": {**launches, **variants},
         "stats": st,
-        "ttft_mean_s": st["ttft_sum_s"] / st["ttft_count"],
-        "ttft_max_s": st["ttft_max_s"],
+        "prefix_stats": {k: h[k] for k in ("prefix_hits", "prefix_slots", "prefix_tokens")},
+        "requests": len(PROMPT_LENS) + 1 + len(extra),
+        "burst_s": batch_s,
         "chat_ttft_s": chat_ttft,
-        "decode_tokens_per_s": st["decode_tokens"] / st["decode_seconds"],
-        "decode_step_ms": 1e3 * st["decode_seconds"] / st["decode_steps"],
         "chat_stream_s": chat_s,
+        "common_traffic": _serving_metrics(st_common),
+        "all_traffic": _serving_metrics(st),
     }
-    log("path: " + json.dumps(path))
+    log(f"path [{mode}]: " + json.dumps(path))
     return path
 
 
-def teacher_forced_phase() -> dict:
+def teacher_forced_phase(kv_quant=None) -> dict:
     """Kernel path vs plain path on the card, teacher-forced: one
     300-token prompt (two chunks, the second at q_offset 256), then 8
-    decode steps fed the kernel path's greedy tokens.
+    decode steps fed the kernel path's greedy tokens, then one
+    speculative verify of S = 5 tokens whose draft is the kernel path's
+    own next 4 greedy tokens (decoded on a copy of its cache). With
+    ``kv_quant="int8"`` every path keeps the int8 cache (the f32 path
+    dequantizes to f32).
 
     Through 16 bf16 layers the two paths drift apart by the model's own
     bf16 noise (each attention call agrees within one bf16 ulp, yet
@@ -478,7 +593,10 @@ def teacher_forced_phase() -> dict:
         "f32": (params32, c32, "plain", "einsum"),
     }
     prompt = [(i * 7 + 300) % 26 + 97 for i in range(300)]
-    caches = {p: engine.init_cache(cfg, 1, 2048, device="cuda") for p, (_, cfg, _, _) in paths.items()}
+    caches = {
+        p: engine.init_cache(cfg, 1, 2048, device="cuda", kv_quant=kv_quant)
+        for p, (_, cfg, _, _) in paths.items()
+    }
     logits = {}
     for start in range(0, len(prompt), CHUNK):
         part = prompt[start : start + CHUNK]
@@ -505,11 +623,11 @@ def teacher_forced_phase() -> dict:
             "rel_rms_plain_vs_f32": rel_rms(p, f),
         }
         if not e["rel_rms_kernel_vs_f32"] <= KERNEL_RMS_MARGIN * e["rel_rms_plain_vs_f32"]:
-            raise AssertionError(f"{what}: kernel path drifts from the f32 path: {e}")
+            raise AssertionError(f"{what} [{kv_quant or 'bf16'} cache]: kernel path drifts from the f32 path: {e}")
         for name, v in e.items():
             report[name] = max(report[name], v)
         report["argmax_agree"] += int(
-            logits["kernel"].argmax().item() == logits["plain"].argmax().item()
+            bool((logits["kernel"].argmax(dim=-1) == logits["plain"].argmax(dim=-1)).all())
         )
 
     check("prefill")
@@ -523,7 +641,28 @@ def teacher_forced_phase() -> dict:
             )
         check(f"decode step {step}")
         pos += 1
-    log("teacher-forced logits over prefill + 8 decode steps (max |err|): " + json.dumps(report))
+    # the draft: the kernel path's own next greedy tokens, from a copy
+    draft = [logits["kernel"].argmax(dim=-1)]
+    scratch = {n: a.clone() for n, a in caches["kernel"].items()}
+    for i in range(SPEC_ROWS - 1):
+        positions = torch.tensor([pos + i], dtype=torch.int32, device="cuda")
+        nxt, scratch = engine.decode_step(params, scratch, draft[-1], positions, c)
+        draft.append(nxt.argmax(dim=-1))
+    del scratch
+    tokens = torch.stack(draft, dim=1)  # [1, S]
+    positions = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    write = torch.ones(1, dtype=torch.bool, device="cuda")
+    for p, (w, cfg, _, kern) in paths.items():
+        logits[p], caches[p] = engine.verify_step(
+            w, caches[p], tokens, positions, cfg, write, decode_kernel=kern,
+        )
+    check("verify")
+    # how many draft tokens the kernel path's verify accepts (all of
+    # them, up to bf16 ties between the decode and verify computations)
+    preds = logits["kernel"].argmax(dim=-1)[0, :-1]
+    report["verify_accepts"] = int((preds == tokens[0, 1:]).cumprod(0).sum())
+    log(f"teacher-forced logits [{kv_quant or 'bf16'} cache] over prefill + 8 decode steps "
+        "+ one verify of S = 5 (max |err|): " + json.dumps(report))
     return report
 
 
@@ -700,32 +839,39 @@ def main() -> int:
 
     rows = kernel_phase()
     rows.update(backward_kernel_phase())
-    path = path_phase()
-    teacher_forced_phase()
+    serve = {mode: path_phase(mode) for mode in SERVER_MODES}
+    for kv_quant in (None, "int8"):
+        teacher_forced_phase(kv_quant)
     train = {mode: _finetune(mode) for mode in TRAIN_STEPS}
     train_profile_phase()
     grad_parity_phase()
 
     by_path = {
-        "serve": path["launches"],
+        **{f"serve_{mode}": path["launches"] for mode, path in serve.items()},
         **{f"train_{mode}": summary["launches"] for mode, summary in train.items()},
     }
-    meta = {
-        "flash_fwd": ("dstack_tpu_torch/csrc/flash_fwd.cu", "dstack_tpu/ops/flash.py:190"),
-        "flash_bwd_dq": ("dstack_tpu_torch/csrc/flash_bwd_dq.cu", "dstack_tpu/ops/flash.py:467"),
-        "flash_bwd_dkv": ("dstack_tpu_torch/csrc/flash_bwd_dkv.cu", "dstack_tpu/ops/flash.py:523"),
-        "flash_decode": ("dstack_tpu_torch/csrc/flash_decode.cu", "dstack_tpu/ops/flash_decode.py:266"),
+    k4 = ("dstack_tpu_torch/csrc/flash_decode.cu", "dstack_tpu/ops/flash_decode.py:266")
+    meta = {  # kernel row → (source, replaces, its count in by_path)
+        "flash_fwd": ("dstack_tpu_torch/csrc/flash_fwd.cu", "dstack_tpu/ops/flash.py:190", "flash_fwd"),
+        "flash_bwd_dq": ("dstack_tpu_torch/csrc/flash_bwd_dq.cu", "dstack_tpu/ops/flash.py:467",
+                         "flash_bwd_dq"),
+        "flash_bwd_dkv": ("dstack_tpu_torch/csrc/flash_bwd_dkv.cu", "dstack_tpu/ops/flash.py:523",
+                          "flash_bwd_dkv"),
+        "flash_decode": (*k4, "bf16_decode"),
+        "flash_decode_verify": (*k4, "bf16_verify"),
+        "flash_decode_int8": (*k4, "int8_decode"),
+        "flash_decode_int8_verify": (*k4, "int8_verify"),
     }
     kernels = []
-    for name, (src, rep) in meta.items():
-        counts = {p: n[name] for p, n in by_path.items() if n.get(name)}
+    for name, (src, rep, count) in meta.items():
+        counts = {p: n[count] for p, n in by_path.items() if n.get(count)}
+        if not counts:
+            raise AssertionError(f"{name} was launched on no path: {by_path}")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(counts.values()), "launches_by_path": counts,
-            "max_abs_err": rows[name]["max_abs_err"],
-            "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
-            "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
-            "library_ms": rows[name]["library_ms"],
+            **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")},
         })
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

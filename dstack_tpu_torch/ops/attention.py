@@ -10,10 +10,14 @@ versions on any device, for reference checks on the card. Both paths
 are differentiable through ``FlashAttention``: K1 forward with K2/K3
 backward, or the plain forward with ``flash_bwd_plain``.
 
-This slice takes what the serving path passes: an int ``q_offset``,
-causal masking, a sliding window and a softcap. Per-row ``q_offset``
-vectors (packed prefill), Llama4 chunk masks and attention sinks raise
-``NotImplementedError`` until their slices land.
+The serving path passes an int ``q_offset`` (a serial prefill chunk) or
+a ``[B]`` tensor of per-row offsets (packed prefill: concurrent prompt
+chunks at unequal starts). A vector offset takes the masked attention
+``flash_attention_plain`` on every device, as JAX takes ``_xla_attention``
+for it on every backend: no flash kernel tiles per-row offsets. Causal
+masking, a sliding window and a softcap are served; Llama4 chunk masks
+and attention sinks raise ``NotImplementedError`` until their slices
+land.
 """
 
 from typing import Optional
@@ -32,7 +36,7 @@ def attention(
     *,
     causal: bool = True,
     scale: Optional[float] = None,
-    q_offset: int = 0,
+    q_offset=0,  # int, or [B] int tensor of per-row offsets (packed prefill)
     window: int = 0,  # 0 = full attention; else sliding window size
     softcap: float = 0.0,  # 0 = off; else tanh soft-cap on scores
     chunk: int = 0,
@@ -43,11 +47,9 @@ def attention(
         raise NotImplementedError("attention: Llama4 chunk masks come with the families slice")
     if sinks is not None:
         raise NotImplementedError("attention: sinks come with the gpt-oss slice")
-    if not isinstance(q_offset, int):
-        raise NotImplementedError(
-            "attention: per-row q_offset vectors come with the packed-prefill slice"
-        )
     if impl not in (None, "plain"):
         raise ValueError(f"attention: impl={impl!r}: expected None or 'plain'")
     kw = dict(causal=causal, scale=scale, q_offset=q_offset, window=window, softcap=softcap)
+    if isinstance(q_offset, torch.Tensor) and q_offset.dim() > 0:
+        return flash_attention_plain(q, k, v, **kw)[0]  # serving: never differentiated
     return flash_attention(q, k, v, plain=impl == "plain", **kw)

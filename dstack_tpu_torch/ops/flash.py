@@ -70,7 +70,7 @@ def flash_attention_plain(
     *,
     causal: bool = True,
     scale: Optional[float] = None,
-    q_offset: int = 0,
+    q_offset=0,  # int, or [B] int tensor: each batch row's own frontier
     kv_offset: int = 0,
     window: int = 0,
     softcap: float = 0.0,
@@ -79,7 +79,8 @@ def flash_attention_plain(
     the JAX ``_xla_attention`` (dstack_tpu/ops/attention.py:44) with the
     logsumexp beside it. Scores in f32, softmax in f32, probabilities
     cast to v's dtype before the P·V product. A row with no live key
-    gives 0 and lse NEG_INF, the flash kernels' convention."""
+    gives 0 and lse NEG_INF, the flash kernels' convention (JAX's
+    averages v there; no serving or training row has no live key)."""
     b, h, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     scale = float(scale) if scale is not None else d**-0.5
@@ -92,12 +93,13 @@ def flash_attention_plain(
     if softcap:
         s = softcap * torch.tanh(s / softcap)  # cap raw scores, then mask
     if causal or window:
-        qi = q_offset + torch.arange(tq, device=q.device)[:, None]
-        kj = kv_offset + torch.arange(tk, device=q.device)[None, :]
+        off = torch.as_tensor(q_offset, device=q.device).reshape(-1, 1, 1)
+        qi = off + torch.arange(tq, device=q.device)[None, :, None]  # [B|1, Tq, 1]
+        kj = kv_offset + torch.arange(tk, device=q.device)[None, None, :]
         keep = qi >= kj if causal else torch.ones_like(qi >= kj)
         if window:
             keep = keep & (qi - kj < window)
-        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+        s = torch.where(keep[:, None], s, torch.full_like(s, NEG_INF))  # over heads
     live = s.amax(dim=-1) > NEG_INF / 2  # [B, H, Tq]
     p = torch.softmax(s, dim=-1)
     o = torch.matmul(p.to(v.dtype), v)
@@ -231,12 +233,13 @@ def _bwd_plain(q, k, v, do, lse, delta, *, causal=True, scale=None, q_offset=0, 
         t = torch.tanh(s / softcap)
         s = softcap * t
     if causal or window:
-        qi = q_offset + torch.arange(tq, device=q.device)[:, None]
-        kj = kv_offset + torch.arange(tk, device=q.device)[None, :]
+        off = torch.as_tensor(q_offset, device=q.device).reshape(-1, 1, 1)
+        qi = off + torch.arange(tq, device=q.device)[None, :, None]  # [B|1, Tq, 1]
+        kj = kv_offset + torch.arange(tk, device=q.device)[None, None, :]
         keep = qi >= kj if causal else torch.ones_like(qi >= kj)
         if window:
             keep = keep & (qi - kj < window)
-        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+        s = torch.where(keep[:, None], s, torch.full_like(s, NEG_INF))  # over heads
     lse_safe = torch.where(lse <= NEG_INF / 2, torch.zeros_like(lse), lse)[..., None]
     p = torch.exp(s - lse_safe)
     p = torch.where(s <= NEG_INF / 2, torch.zeros_like(p), p)

@@ -10,15 +10,18 @@ engine.py:1880) so XLA updates them in place, the port writes the cache
 tensors in place and hands the same dict back.
 
 Attention runs through the port's hand-written Hopper kernels on the
-card: every prefill chunk through the flash forward kernel
-(ops/flash.py) and every decode step's cache attention through the
-ragged flash-decode kernel (ops/flash_decode.py). On the CPU both take
-their plain versions, which is what the parity tests run.
+card: every serial prefill chunk through the flash forward kernel
+(ops/flash.py), and the cache attention of every decode step, turbo
+macro-step and speculative verify through the ragged flash-decode kernel
+(ops/flash_decode.py). A packed prefill wave attends through the masked
+attention with per-row offsets, as JAX's does. On the CPU the kernels
+take their plain versions, which is what the parity tests run.
 
-This slice ports the serial path only: ``prefill_pack`` 0/1,
-``spec_draft=0``, ``turbo_steps=0``, ``prefix_cache=False`` and the bf16
-cache. Other values of those switches and the int8 cache raise
-``NotImplementedError``; token logprobs are not ported yet.
+The engine runs the JAX engine's default configuration: packed
+multi-slot prefill (``prefill_pack``), prompt-lookup speculative decoding
+(``spec_draft``), device-side greedy macro-steps (``turbo_steps``), the
+chunk-aligned prefix cache, and the optional int8 KV cache
+(``kv_quant="int8"``). Token logprobs are not ported yet.
 """
 
 import time
@@ -43,7 +46,9 @@ from dstack_tpu_torch.ops.flash_decode import (
     flash_decode,
     flash_decode_plain,
     flash_decode_supported,
+    kv_dequant,
 )
+
 NEG_INF = -1e30
 
 
@@ -87,58 +92,150 @@ class GenParams:
 # ---------------------------------------------------------------------------
 
 
+def kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., D] → (int8 values, per-vector f32 scale [...]): symmetric
+    absmax per (token, head) vector, the scale floored at 1e-8. The
+    division is ``x / s`` and ``torch.round`` rounds half to even, as
+    ``jnp.round`` does, so the int8 values match the JAX ones exactly."""
+    x32 = x.float()
+    s = torch.clamp_min(x32.abs().amax(dim=-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(x32 / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+# Quantized caches travel through the compute paths as (int8, scale)
+# tuples of one layer's views in place of the plain tensor (JAX's tuple
+# leaves); only the write/read helpers below branch on them.
+
+
 def init_cache(
     config: LlamaConfig, max_batch: int, max_seq: int, device="cuda", kv_quant=None
 ) -> dict:
     """Preallocated KV cache: k/v ``[L, B, Hkv, T_max, D]`` in the model
-    dtype (the int8 cache comes with the kv_quant slice)."""
-    if kv_quant is not None:
-        raise NotImplementedError("init_cache: the int8 KV cache comes with the kv_quant slice")
+    dtype, or (``kv_quant="int8"``) int8 with f32 per-(token, head)
+    scales ``k_s``/``v_s`` ``[L, B, Hkv, T_max]``: half the bytes a
+    decode step reads. The ``k_s`` key is what the compute paths branch
+    on."""
+    if kv_quant not in (None, "int8"):
+        raise ValueError(f"unknown kv_quant {kv_quant!r}")
     shape = (config.n_layers, max_batch, config.n_kv_heads, max_seq, config.head_dim)
-    return {
-        n: torch.zeros(shape, dtype=config.dtype, device=device) for n in ("k", "v")
-    }
+    dt = torch.int8 if kv_quant else config.dtype
+    cache = {n: torch.zeros(shape, dtype=dt, device=device) for n in ("k", "v")}
+    if kv_quant:
+        for n in ("k_s", "v_s"):
+            cache[n] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    return cache
 
 
-def _cwrite_chunk(ckv: torch.Tensor, new: torch.Tensor, slot: int, start: int) -> torch.Tensor:
+def _cache_layer(cache: dict, i: int) -> tuple:
+    """Layer ``i``'s (ck, cv): views of the cache tensors, or (int8,
+    scale) view pairs for the int8 cache (``_cache_pack`` for one layer).
+    Writes through them land in the cache."""
+    if "k_s" in cache:
+        return (cache["k"][i], cache["k_s"][i]), (cache["v"][i], cache["v_s"][i])
+    return cache["k"][i], cache["v"][i]
+
+
+def _cwrite_chunk(ckv, new: torch.Tensor, slot: int, start: int):
     """Write a prefill chunk ``new [1, H, C, D]`` at (slot, start) in
     place. ``lax.dynamic_update_slice`` CLAMPS an out-of-range start so
     the slice fits; torch slicing would silently shorten the write, so
     the clamp is explicit (the engine keeps ``start + C <= T_max``)."""
-    b, _, t, _ = ckv.shape
-    c = new.shape[2]
+    if isinstance(ckv, tuple):
+        q, s = kv_quantize(new)
+        _cwrite_chunk(ckv[0], q, slot, start)
+        _cwrite_chunk(ckv[1], s, slot, start)
+        return ckv
+    b, t, c = ckv.shape[0], ckv.shape[2], new.shape[2]
     slot = min(max(int(slot), 0), b - 1)
     start = min(max(int(start), 0), t - c)
     ckv[slot, :, start : start + c] = new[0]
     return ckv
 
 
-def _cread_row(ckv: torch.Tensor, slot: int) -> torch.Tensor:
-    """One slot's row ``[1, H, T_max, D]`` (a view; slot clamped as
-    ``dynamic_slice`` does)."""
+def _cread_row(ckv, slot: int, dtype) -> torch.Tensor:
+    """One slot's row ``[1, H, T_max, D]`` in the compute dtype (bf16
+    cache: a view; slot clamped as ``dynamic_slice`` does)."""
+    if isinstance(ckv, tuple):
+        return kv_dequant(_cread_row(ckv[0], slot, dtype), _cread_row(ckv[1], slot, dtype), dtype)
     slot = min(max(int(slot), 0), ckv.shape[0] - 1)
     return ckv[slot : slot + 1]
 
 
-def _cwrite_at(
-    ckv: torch.Tensor, batch_ix: torch.Tensor, write_pos: torch.Tensor, new: torch.Tensor
-) -> torch.Tensor:
-    """Scatter per-slot tokens ``new [B, H, D]`` at ``[B]`` positions in
-    place. JAX's ``mode="drop"`` discards rows whose position is out of
-    range (inactive slots get ``T_max``); torch indexing would raise or
-    wrap, so those rows write their own old value back instead — no
-    device-to-host sync for a mask."""
+def _cread_rows(ckv, slots: torch.Tensor, dtype) -> torch.Tensor:
+    """Gather ``slots``' rows ``[G, H, T_max, D]`` in the compute dtype
+    (packed prefill: G concurrent prompt chunks attend over their own
+    rows)."""
+    if isinstance(ckv, tuple):
+        return kv_dequant(ckv[0].index_select(0, slots), ckv[1].index_select(0, slots), dtype)
+    return ckv.index_select(0, slots)
+
+
+def _cwrite_at(ckv, batch_ix: torch.Tensor, write_pos: torch.Tensor, new: torch.Tensor):
+    """Scatter per-slot tokens in place: ``new [B, H, D]`` at ``[B]``
+    positions, or ``[B, S, H, D]`` at ``[B, S]`` positions (speculative
+    verify, packed prefill). JAX's ``mode="drop"`` discards entries whose
+    position is out of range; torch indexing would raise or wrap, so
+    those entries write a value that is already due at their redirected
+    index instead — no device-to-host sync for a mask."""
+    if isinstance(ckv, tuple):
+        q, s = kv_quantize(new)
+        _cwrite_at(ckv[0], batch_ix, write_pos, q)
+        _cwrite_at(ckv[1], batch_ix, write_pos, s)
+        return ckv
     t = ckv.shape[2]
-    valid = (write_pos >= 0) & (write_pos < t)
-    pos = torch.where(valid, write_pos, torch.zeros_like(write_pos)).long()
-    old = ckv[batch_ix, :, pos]  # [B, H, D]
-    ckv[batch_ix, :, pos] = torch.where(valid[:, None, None], new.to(ckv.dtype), old)
+    new = new.to(ckv.dtype)
+    if new.dim() == ckv.dim() - 1:
+        # one entry per slot: a dropped row writes its own old value back
+        valid = (write_pos >= 0) & (write_pos < t)
+        pos = torch.where(valid, write_pos, torch.zeros_like(write_pos)).long()
+        old = ckv[batch_ix, :, pos]  # [B, H, (D)]
+        keep = valid.view(-1, *([1] * (new.dim() - 1)))
+        ckv[batch_ix, :, pos] = torch.where(keep, new, old)
+        return ckv
+    # S entries per slot: a dropped entry could share its redirected index
+    # with a kept one, and duplicate indices must carry equal values. So
+    # every dropped entry repeats the first kept entry's write (index and
+    # value); when none is kept, all of them write one old value back
+    bi = batch_ix[:, None].expand_as(write_pos).reshape(-1)
+    wp = write_pos.reshape(-1).long()
+    vals = new.reshape(-1, *new.shape[2:])  # [N, H, (D)]
+    valid = (wp >= 0) & (wp < t)
+    donor = valid.to(torch.int32).argmax()  # the first kept entry, else 0
+    bi = torch.where(valid, bi, bi[donor])
+    wp = torch.where(valid, wp, wp[donor]).clamp(0, t - 1)
+    shape = (-1, *([1] * (vals.dim() - 1)))
+    vals = torch.where(valid.view(shape), vals, vals[donor])
+    vals = torch.where(valid[donor], vals, ckv[bi, :, wp])
+    ckv[bi, :, wp] = vals
     return ckv
 
 
-def _cfull(ckv: torch.Tensor) -> torch.Tensor:
-    """The whole cache tensor in compute dtype (bf16 cache: itself)."""
+def _cfull(ckv, dtype) -> torch.Tensor:
+    """The whole cache tensor in the compute dtype (the einsum paths;
+    bf16 cache: itself)."""
+    if isinstance(ckv, tuple):
+        return kv_dequant(ckv[0], ckv[1], dtype)
     return ckv
+
+
+def copy_cache_prefix(cache: dict, src: int, dst: int, *, p: int) -> dict:
+    """Copy the first ``p`` cached positions of slot ``src`` into slot
+    ``dst`` in place, for every cache tensor (k/v and the int8 scales:
+    the token axis is the fourth for all of them): prefix caching, a new
+    request whose prompt shares a prefix with an already-cached sequence
+    skips prefilling it."""
+    for a in cache.values():
+        a[:, dst, :, :p] = a[:, src, :, :p]
+    return cache
+
+
+def _common_prefix_len(a: list, b: list) -> int:
+    n = min(len(a), len(b))
+    i = 0
+    while i < n and a[i] == b[i]:
+        i += 1
+    return i
 
 
 # ---------------------------------------------------------------------------
@@ -182,17 +279,34 @@ def _head_logits(params: dict, x: torch.Tensor, c: LlamaConfig) -> torch.Tensor:
     return head_matmul(params, x, c)
 
 
+def _rope_rows(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rope with per-(row, step) angles: t ``[B, Hh, S, D]``, cos/sin
+    ``[B, S, D/2]`` — the grid form wherever rows sit at unequal
+    positions (speculative verify at width S, packed prefill at width C).
+    Rotate-half; dense Llama has no interleaved or partial rotary."""
+    cc = cos[:, None].to(t.dtype)  # [B, 1, S, D/2]
+    ss = sin[:, None].to(t.dtype)
+    d2 = t.shape[-1] // 2
+    t1, t2 = t[..., :d2], t[..., d2:]
+    return torch.cat([t1 * cc - t2 * ss, t2 * cc + t1 * ss], dim=-1)
+
+
 def _scan_layers_kv(params: dict, cache: dict, x: torch.Tensor, one_layer, c: LlamaConfig):
     """Drive ``one_layer(x, layer, ck, cv, window) -> x`` over the layers
     (the Python loop where JAX runs ``lax.scan``); ``ck``/``cv`` are the
-    layer's cache views, updated in place → (final hidden, cache)."""
+    layer's cache views (or int8 view pairs), updated in place → (final
+    hidden, cache)."""
     for i in range(c.n_layers):
-        x = one_layer(x, layer_params(params, i), cache["k"][i], cache["v"][i], 0)
+        ck, cv = _cache_layer(cache, i)
+        x = one_layer(x, layer_params(params, i), ck, cv, 0)
     return x, cache
 
 
-def _prefill_one_layer(c: LlamaConfig, ropes: tuple, *, kv_update, q_offset: int, impl=None):
-    """The dense prefill attention + MLP sublayer of one chunk."""
+def _prefill_one_layer(c: LlamaConfig, ropes: tuple, *, rope_apply, kv_update, q_offset, impl=None):
+    """The dense prefill attention + MLP sublayer shared by the serial
+    chunk and the packed multi-slot forms, which differ only in the rope
+    application, the cache write/read and the causal offset (an int, or
+    a ``[G]`` tensor of per-row starts)."""
     scale = c.attention_scale
     cos, sin = ropes[0]
 
@@ -203,10 +317,10 @@ def _prefill_one_layer(c: LlamaConfig, ropes: tuple, *, kv_update, q_offset: int
         q = q.view(b, cl, c.n_heads, c.head_dim).transpose(1, 2)
         k = k.view(b, cl, c.n_kv_heads, c.head_dim).transpose(1, 2)
         v = v.view(b, cl, c.n_kv_heads, c.head_dim).transpose(1, 2)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        # write the chunk K/V into the slot row, then attend over the
-        # whole row: keys past the causal frontier are masked (and the
+        q = rope_apply(q, cos, sin)
+        k = rope_apply(k, cos, sin)
+        # write the chunk K/V into the slot rows, then attend over the
+        # whole rows: keys past each causal frontier are masked (and the
         # kernel never reads their tiles), so stale data is never used
         row_k, row_v = kv_update(ck, cv, k, v)
         o = attention(
@@ -243,21 +357,75 @@ def prefill_chunk_step(
     def kv_update(ck, cv, k, v):
         _cwrite_chunk(ck, k, slot, start)
         _cwrite_chunk(cv, v, slot, start)
-        return _cread_row(ck, slot), _cread_row(cv, slot)
+        return _cread_row(ck, slot, k.dtype), _cread_row(cv, slot, v.dtype)
 
     one_layer = _prefill_one_layer(
-        c, dual_rope_freqs(c, chunk_pos), kv_update=kv_update, q_offset=int(start), impl=impl,
+        c, dual_rope_freqs(c, chunk_pos), rope_apply=apply_rope, kv_update=kv_update,
+        q_offset=int(start), impl=impl,
     )
     x, cache = _scan_layers_kv(params, cache, x, one_layer, c)
     x = model_norm(x, params["final_norm"], c)
     return _head_logits(params, x[:, int(last_ix)], c), cache
 
 
-def _flash_attend(q_rows, ck, cv, positions, window, *, config, scale):
-    """Decode attention through the ragged kernel (``mesh=None`` form of
-    the JAX ``_flash_attend``: no int8 tuple, no sinks, no softcap, one
-    row per slot)."""
-    return flash_decode(q_rows, ck, cv, positions, scale=scale, window=window)
+def prefill_packed_step(
+    params: dict,
+    cache: dict,
+    tokens: torch.Tensor,  # [G, C] int chunk rows (right-padded)
+    slots: torch.Tensor,  # [G] int cache rows (distinct per real row)
+    starts: torch.Tensor,  # [G] int per-row global start positions
+    last_ix: torch.Tensor,  # [G] int last real index minus start; -1 = pad row
+    config: LlamaConfig,
+) -> tuple[torch.Tensor, dict]:
+    """Packed multi-slot prefill: G prompt chunks, one dispatch →
+    (per-row f32 logits at ``last_ix`` [G, V], cache).
+
+    :func:`prefill_chunk_step` generalised from ``[1, C]`` at one start
+    to ``[G, C]`` at per-row starts: rope angles from the position grid,
+    cache writes that drop padding and pad rows (``last_ix = -1``), and
+    per-row causal frontiers through the masked attention with a vector
+    ``q_offset`` (no flash kernel tiles per-row offsets, on the TPU or
+    here)."""
+    c = config
+    g, cl = tokens.shape
+    x = _embed_lookup(params, tokens, c)
+    ar = torch.arange(cl, device=tokens.device)
+    pos_grid = starts[:, None] + ar[None, :]  # [G, C]
+    (cos, sin), _ = dual_rope_freqs(c, pos_grid.reshape(-1))
+    ropes = ((cos.reshape(g, cl, -1), sin.reshape(g, cl, -1)),) * 2
+    si = slots.long()
+    tmax = cache["k"].shape[3]
+    # positions past each row's real tokens (padding, pad rows) drop
+    valid = ar[None, :] <= last_ix[:, None]
+    write_pos = torch.where(valid, pos_grid, torch.full_like(pos_grid, tmax))
+
+    def kv_update(ck, cv, k, v):
+        # scatter each row's chunk K/V at its own positions, then gather
+        # the packed rows for attention
+        _cwrite_at(ck, si, write_pos, k.transpose(1, 2))
+        _cwrite_at(cv, si, write_pos, v.transpose(1, 2))
+        return _cread_rows(ck, si, k.dtype), _cread_rows(cv, si, v.dtype)
+
+    one_layer = _prefill_one_layer(
+        c, ropes, rope_apply=_rope_rows, kv_update=kv_update, q_offset=starts,
+    )
+    x, cache = _scan_layers_kv(params, cache, x, one_layer, c)
+    x = model_norm(x, params["final_norm"], c)
+    last = x[torch.arange(g, device=x.device), last_ix.clamp_min(0).long()]  # [G, E]
+    return _head_logits(params, last, c), cache
+
+
+def _flash_attend(q_rows, ck, cv, positions, window, *, config, scale, rows_per_slot):
+    """The ragged kernel dispatch shared by decode_step (one row group a
+    slot) and verify_step (``rows_per_slot`` = S): the int8 tuple
+    unpacked into values and scales (the ``mesh=None``, sink-less form of
+    the JAX ``_flash_attend``)."""
+    kq, ks = ck if isinstance(ck, tuple) else (ck, None)
+    vq, vs = cv if isinstance(cv, tuple) else (cv, None)
+    return flash_decode(
+        q_rows, kq, vq, positions, scale=scale, window=window,
+        k_scale=ks, v_scale=vs, rows_per_slot=rows_per_slot,
+    )
 
 
 def decode_step(
@@ -274,7 +442,8 @@ def decode_step(
     ``write_mask`` guards the cache writes: an inactive row (finished,
     or mid-prefill for another request) must not scribble stale K/V
     into its slot. ``decode_kernel="einsum"`` runs the plain masked
-    attention over the full row — the reference the kernel is held to."""
+    attention over the full (dequantized) row — the reference the kernel
+    is held to."""
     c = config
     b = tokens.shape[0]
     t_max = cache["k"].shape[3]
@@ -292,7 +461,7 @@ def decode_step(
 
     for i in range(c.n_layers):
         layer = layer_params(params, i)
-        ck, cv = cache["k"][i], cache["v"][i]  # [B, Hkv, Tmax, D] views
+        ck, cv = _cache_layer(cache, i)  # [B, Hkv, Tmax, D] views (or int8 pairs)
         h = model_norm(x, layer["attn_norm"], c)
         q, k, v = _qkv(h, layer, c)
         q = q.view(b, 1, c.n_heads, c.head_dim).transpose(1, 2)
@@ -306,10 +475,13 @@ def decode_step(
         # the cache is read once at KV width, never G times
         qg = q[:, :, 0, :].reshape(b, c.n_kv_heads, grp, c.head_dim).contiguous()
         if decode_kernel == "flash":
-            o = _flash_attend(qg, ck, cv, positions, window, config=c, scale=scale)
+            o = _flash_attend(
+                qg, ck, cv, positions, window, config=c, scale=scale, rows_per_slot=1
+            )
         else:
             o = flash_decode_plain(
-                qg, _cfull(ck), _cfull(cv), positions, scale=scale, window=window
+                qg, _cfull(ck, k.dtype), _cfull(cv, v.dtype), positions,
+                scale=scale, window=window,
             )
         # [B, Hkv, G, D] row-major flatten == query-head order
         o = o.reshape(b, 1, c.q_dim)
@@ -317,6 +489,71 @@ def decode_step(
         x = _mlp(x, layer, c)
     x = model_norm(x, params["final_norm"], c)
     return _head_logits(params, x[:, 0], c), cache
+
+
+def verify_step(
+    params: dict,
+    cache: dict,
+    tokens: torch.Tensor,  # [B, S] int: last sampled token + S-1 draft tokens
+    positions: torch.Tensor,  # [B] int32: each row's current length (pos of tokens[:, 0])
+    config: LlamaConfig,
+    write_mask: torch.Tensor,  # [B] bool
+    decode_kernel: str = "flash",
+) -> tuple[torch.Tensor, dict]:
+    """Multi-token decode for speculative verification → (f32 logits
+    [B, S, V], cache).
+
+    :func:`decode_step` generalised to S tokens a row at per-row
+    positions: one call verifies S-1 drafted tokens, costing about S
+    decode steps' compute but replacing up to S steps when the drafts are
+    accepted. K/V written at rejected positions is garbage until the
+    real tokens decode over it, the masked-future invariant padding
+    relies on."""
+    c = config
+    b, sdraft = tokens.shape
+    positions = positions.to(torch.int32)
+    x = _embed_lookup(params, tokens, c)  # [B, S, E]
+    # per-row positions: row i covers [pos_i, pos_i + S)
+    pos_grid = positions[:, None] + torch.arange(sdraft, device=tokens.device, dtype=torch.int32)
+    (cos, sin), _ = dual_rope_freqs(c, pos_grid.reshape(-1))
+    cos, sin = cos.reshape(b, sdraft, -1), sin.reshape(b, sdraft, -1)  # [B, S, D/2]
+    batch_ix = torch.arange(b, device=tokens.device)
+    scale = c.attention_scale
+    grp = c.n_heads // c.n_kv_heads
+    window = 0
+    tmax = cache["k"].shape[3]
+    write_pos = torch.where(write_mask[:, None], pos_grid, torch.full_like(pos_grid, tmax))
+
+    for i in range(c.n_layers):
+        layer = layer_params(params, i)
+        ck, cv = _cache_layer(cache, i)
+        h = model_norm(x, layer["attn_norm"], c)
+        q, k, v = _qkv(h, layer, c)
+        q = q.view(b, sdraft, c.n_heads, c.head_dim).transpose(1, 2)
+        k = k.view(b, sdraft, c.n_kv_heads, c.head_dim).transpose(1, 2)
+        v = v.view(b, sdraft, c.n_kv_heads, c.head_dim).transpose(1, 2)
+        q = _rope_rows(q, cos, sin)
+        k = _rope_rows(k, cos, sin)
+        # scatter the S tokens' K/V at their per-row positions
+        _cwrite_at(ck, batch_ix, write_pos, k.transpose(1, 2))
+        _cwrite_at(cv, batch_ix, write_pos, v.transpose(1, 2))
+        # rows flatten [G, S] row-major; row g*S+s attends keys <= pos+s
+        qr = q.reshape(b, c.n_kv_heads, grp * sdraft, c.head_dim)
+        if decode_kernel == "flash":
+            o = _flash_attend(
+                qr, ck, cv, positions, window, config=c, scale=scale, rows_per_slot=sdraft
+            )
+        else:
+            o = flash_decode_plain(
+                qr, _cfull(ck, k.dtype), _cfull(cv, v.dtype), positions,
+                scale=scale, window=window, rows_per_slot=sdraft,
+            )
+        o = o.view(b, c.n_kv_heads, grp, sdraft, c.head_dim)
+        o = o.permute(0, 3, 1, 2, 4).reshape(b, sdraft, c.q_dim)
+        x = x + _proj(layer, "wo", o)
+        x = _mlp(x, layer, c)
+    x = model_norm(x, params["final_norm"], c)
+    return _head_logits(params, x, c), cache
 
 
 def advance_decode_state(tok, pos, rem, act, eos_ids, sampled, *, max_seq: int):
@@ -328,6 +565,41 @@ def advance_decode_state(tok, pos, rem, act, eos_ids, sampled, *, max_seq: int):
     rem = rem - step
     act = act & (new_tok != eos_ids) & (rem > 0) & (pos < max_seq - 1)
     return new_tok, pos, rem, act
+
+
+def decode_loop(
+    params: dict,
+    cache: dict,
+    tokens: torch.Tensor,  # [B] int: last sampled token per slot
+    positions: torch.Tensor,  # [B] int32 current lengths
+    remaining: torch.Tensor,  # [B] int32 generation budget left
+    active: torch.Tensor,  # [B] bool
+    eos_ids: torch.Tensor,  # [B] int (-1 = no EOS)
+    config: LlamaConfig,
+    *,
+    steps: int,
+    max_seq: int,
+    decode_kernel: str = "flash",
+) -> tuple:
+    """``steps`` greedy decode steps on the device → (emitted [steps, B]
+    with -1 for inactive rows, cache, last token, positions, remaining,
+    active). Nothing here reads the device from the host: argmax and the
+    slot-state transition stay on the device, so the caller pays one
+    device-to-host copy a macro-step, not one a token. A slot that hits
+    EOS, its budget or the cache end stops writing K/V mid-loop (the
+    same ``write_mask`` guard as :func:`decode_step`)."""
+    tok, pos, rem, act = tokens, positions, remaining, active
+    emitted = []
+    for _ in range(steps):
+        logits, cache = decode_step(
+            params, cache, tok, pos, config, write_mask=act, decode_kernel=decode_kernel,
+        )
+        tok, pos, rem, act2 = advance_decode_state(
+            tok, pos, rem, act, eos_ids, logits.argmax(dim=-1), max_seq=max_seq
+        )
+        emitted.append(torch.where(act, tok, torch.full_like(tok, -1)))
+        act = act2
+    return torch.stack(emitted), cache, tok, pos, rem, act
 
 
 # ---------------------------------------------------------------------------
@@ -431,11 +703,14 @@ def _mark_prompt(counts, gen_counts, slot: int, prompt: list) -> None:
 
 
 class InferenceEngine:
-    """Slot-based continuous batching over the decode step (the serial
-    path of the JAX ``InferenceEngine``). Synchronous; the OpenAI server
-    drives it from one scheduler task (``start_request`` into a free
-    slot, ``prefill_wave`` chunk by chunk, ``step`` for every active
-    slot)."""
+    """Slot-based continuous batching (the JAX ``InferenceEngine``).
+    Synchronous; the OpenAI server drives it from one scheduler task
+    (``start_request`` into a free slot, ``prefill_wave`` until no prompt
+    is pending, ``step`` for every active slot). ``step`` dispatches, in
+    the reference's order, a speculative verify when at least half the
+    greedy batch has a prompt-lookup draft, else a device-side greedy
+    macro-step when no prompt is prefilling, else one plain decode
+    step."""
 
     def __init__(
         self,
@@ -445,29 +720,17 @@ class InferenceEngine:
         max_seq: int = 2048,
         seed: int = 0,
         prefill_chunk: int = 256,
-        prefill_pack: int = 1,
-        spec_draft: int = 0,
-        turbo_steps: int = 0,
-        prefix_cache: bool = False,
-        kv_quant=None,
+        prefill_pack: int = 4,
+        spec_draft: int = 4,
+        turbo_steps: int = 8,
+        prefix_cache: bool = True,
+        kv_quant=None,  # None | "int8": quantized KV cache
+        turbo_quiet_s: float = 0.5,
+        turbo_depth: int = 1,
         decode_kernel: Optional[str] = None,  # None/"flash" | "einsum"
         device="cuda",
     ):
         self.device = resolve_device(device)
-        later = {
-            "prefill_pack > 1 (packed prefill)": prefill_pack > 1,
-            "spec_draft > 0 (speculative verify)": spec_draft > 0,
-            "turbo_steps > 1 (device macro-steps)": turbo_steps > 1,
-            "prefix_cache=True": bool(prefix_cache),
-            "kv_quant (int8 KV cache)": kv_quant is not None,
-        }
-        todo = [k for k, on in later.items() if on]
-        if todo:
-            raise NotImplementedError(
-                f"InferenceEngine: {todo} not ported yet; the PyTorch port "
-                "serves the serial path (prefill_pack=1, spec_draft=0, "
-                "turbo_steps=0, prefix_cache=False, bf16 cache)"
-            )
         if decode_kernel not in (None, "flash", "einsum"):
             raise ValueError(
                 f"decode_kernel={decode_kernel!r}: expected 'flash' or 'einsum'"
@@ -483,7 +746,8 @@ class InferenceEngine:
         self.params = params
         self.max_batch = max_batch
         self.max_seq = max_seq
-        self.cache = init_cache(config, max_batch, max_seq, device=self.device)
+        self.kv_quant = kv_quant
+        self.cache = init_cache(config, max_batch, max_seq, device=self.device, kv_quant=kv_quant)
         self._auto_seed = seed
         # per-slot host state
         self.lengths = [0] * max_batch  # tokens currently in cache
@@ -514,17 +778,69 @@ class InferenceEngine:
         self._decode_mirror = None
         # pending chunked prefills: slot → {prompt, tp, next, gen}
         self._prefilling: dict[int, dict] = {}
+        # prompt-lookup speculative decoding (greedy slots): draft
+        # spec_draft tokens from the last n-gram match in the slot's
+        # history and verify them in ONE multi-token decode. 0 disables
+        self.spec_draft = max(0, spec_draft)
+        self.spec_ngram = 2
+        self.history: list = [[] for _ in range(max_batch)]
+        # incremental {n-gram: last index} per slot: O(1) draft lookup
+        self._ngram_ix: list = [dict() for _ in range(max_batch)]
+        # per-request acceptance: slots whose drafts keep failing stop
+        self._spec_tries = [0] * max_batch
+        self._spec_accepted = [0] * max_batch
+        self._spec_off = [False] * max_batch
         self.prefill_chunk = max(16, min(prefill_chunk, max_seq))
+        # packed multi-slot prefill: up to this many chunk rows in one
+        # prefill_packed_step, floored to a power of two (the G buckets);
+        # 0/1 = serial per-slot prefill
+        pack = max(0, min(prefill_pack, max_batch))
+        while pack & (pack - 1):
+            pack &= pack - 1
+        self.prefill_pack = pack
+        # automatic prefix caching: slots whose rows still hold a fully
+        # prefilled prompt (valid after release, until the slot is
+        # reused) → a new request sharing a chunk-aligned prefix copies
+        # those rows and skips their chunks
+        self.prefix_cache = prefix_cache
+        self._prefix_registry: dict[int, list] = {}  # slot → prompt ids
+        # device-side greedy macro-steps (decode_loop): K tokens a host
+        # round trip; 0/1 = per step. K starts at its floor (8), doubles
+        # while arrival-quiet for turbo_quiet_s and snaps back whenever
+        # requests arrive or wait; once fully open, up to turbo_depth
+        # macro-steps are chained before the one device-to-host copy
+        self.turbo_steps = max(0, turbo_steps)
+        self.turbo_quiet_s = turbo_quiet_s
+        self.waiting_requests = 0  # hint set by the serving scheduler
+        self._turbo_k = min(8, self.turbo_steps) or self.turbo_steps
+        self._last_admit = 0.0
+        self.turbo_depth = max(1, turbo_depth)
         self.last_wave_slots: list = []
-        # serving counts on the host: with the kernels' launch counts
-        # they show which path a run took. TTFT runs from admission to
-        # the first sampled token; decode time is the host clock around
-        # each step, which ends in a device-to-host copy of its tokens
+        self._last_step_phase = "decode"  # "decode" | "spec" | "turbo"
+        # serving counts on the host: with the kernels' launch counts they
+        # show which path a run took (K4 launches = n_layers x
+        # (decode_steps + spec_steps + turbo_device_steps); K1 launches =
+        # n_layers x (prefill_dispatches - packed_dispatches)). TTFT runs
+        # from admission to the first sampled token; each step kind's
+        # seconds are the host clock around its step() calls, which end
+        # in a device-to-host copy of their tokens
         self.stats = {
-            "prefill_dispatches": 0,
-            "decode_steps": 0,
+            "prefill_dispatches": 0,  # serial chunks and packed waves
+            "packed_dispatches": 0,
+            "prefix_hits": 0,
+            "prefix_tokens_reused": 0,
+            "decode_steps": 0,  # plain one-token steps
             "decode_tokens": 0,
             "decode_seconds": 0.0,
+            "spec_steps": 0,
+            "spec_draft_tokens": 0,
+            "spec_accepted_tokens": 0,
+            "spec_tokens": 0,
+            "spec_seconds": 0.0,
+            "turbo_dispatches": 0,
+            "turbo_device_steps": 0,  # steps x depth: the device runs each one
+            "turbo_tokens": 0,
+            "turbo_seconds": 0.0,
             "ttft_count": 0,
             "ttft_sum_s": 0.0,
             "ttft_max_s": 0.0,
@@ -537,24 +853,58 @@ class InferenceEngine:
             if not self.active[i] and i not in self._prefilling
         ]
 
+    def _find_prefix_source(self, prompt: list) -> tuple[int, Optional[int]]:
+        """Longest chunk-aligned cached prefix of ``prompt`` among
+        registered slots → (reusable length, source slot)."""
+        c = self.prefill_chunk
+        best_len, best_src = 0, None
+        for s, cached in self._prefix_registry.items():
+            common = _common_prefix_len(cached, prompt)
+            # at least one real tail token must prefill (it produces the
+            # first-token logits), and reuse stays chunk-aligned
+            reuse = min(common, len(prompt) - 1) // c * c
+            if reuse >= c and reuse > best_len:
+                best_len, best_src = reuse, s
+        return best_len, best_src
+
     def start_request(self, prompt: list[int], gen: GenParams) -> int:
         """Reserve a slot and queue the prompt for chunked prefill (host
-        bookkeeping only). Raises RuntimeError when full."""
+        bookkeeping, plus the prefix copy on a prefix-cache hit). Raises
+        RuntimeError when full."""
         free = self.free_slots()
         if not free:
             raise RuntimeError("no free slots")
+        self._last_admit = time.monotonic()  # arrival signal → small K
         # cap the generation budget by the cache, then keep as much
         # prompt tail as fits alongside it (never less than 1 token)
         gen.max_new_tokens = max(1, min(gen.max_new_tokens, self.max_seq - 2))
         keep = max(1, self.max_seq - 1 - gen.max_new_tokens)
         if len(prompt) > keep:
             prompt = prompt[-keep:]
-        slot = min(free)
+        reuse_len, src = (
+            self._find_prefix_source(prompt) if self.prefix_cache else (0, None)
+        )
+        return self._start_request_inner(prompt, gen, free, reuse_len, src)
+
+    def _start_request_inner(self, prompt, gen, free, reuse_len, src) -> int:
+        # prefer slots NOT holding a reusable prefix (keep the registry),
+        # and never overwrite the chosen source itself
+        candidates = [s for s in free if s != src] or free
+        slot = min(candidates, key=lambda s: (s in self._prefix_registry, s))
+        if slot == src:
+            reuse_len, src = 0, None
+        self._prefix_registry.pop(slot, None)  # rows about to be overwritten
+        start = 0
+        if src is not None and reuse_len > 0:
+            copy_cache_prefix(self.cache, src, slot, p=reuse_len)
+            start = reuse_len
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_tokens_reused"] += reuse_len
         self._admit_t0[slot] = time.perf_counter()
         self._prefilling[slot] = {
             "prompt": list(prompt),
             "tp": len(prompt),
-            "next": 0,  # next chunk's global start position
+            "next": start,  # next chunk's global start position
             "gen": gen,
         }
         return slot
@@ -595,15 +945,75 @@ class InferenceEngine:
         return self._activate(slot, st["prompt"], tp, gen, logits)
 
     def prefill_wave(self) -> dict[int, int]:
-        """ONE prefill dispatch → {slot: first token} for a prompt that
-        completed (serial branch: the oldest pending prompt, one chunk)."""
-        pending = list(self._prefilling)  # admission order
-        if not pending:
+        """ONE prefill dispatch advancing up to ``prefill_pack`` pending
+        prompts a chunk each → {slot: first token} for the prompts that
+        completed. Rows at unequal starts share one packed dispatch; a
+        lone chunk-aligned row takes the serial path (so the flash
+        prefill kernel serves it), and a row a packed wave left at an
+        unaligned start finishes packed at G = 1."""
+        states = {s: st for s, st in list(self._prefilling.items())}
+        if not states:
             return {}
-        slot = pending[0]
-        self.last_wave_slots = [slot]
-        tok = self.prefill_step(slot)
-        return {} if tok is None else {slot: tok}
+        pending = list(states)  # admission order
+        if self.prefill_pack <= 1 or (
+            len(pending) == 1 and states[pending[0]]["next"] % self.prefill_chunk == 0
+        ):
+            slot = pending[0]
+            self.last_wave_slots = [slot]
+            tok = self.prefill_step(slot)
+            return {} if tok is None else {slot: tok}
+        rows = pending[: self.prefill_pack]
+        self.last_wave_slots = list(rows)
+        # chunk length: the power-of-2 bucket covering the widest
+        # remaining chunk in the pack, capped at prefill_chunk
+        need = max(min(states[s]["tp"] - states[s]["next"], self.prefill_chunk) for s in rows)
+        cl = 16
+        while cl < need:
+            cl *= 2
+        cl = min(cl, self.prefill_chunk)
+        # G bucketed by powers of two; pad rows carry last_ix = -1
+        g = 1
+        while g < len(rows):
+            g *= 2
+        g = min(g, self.prefill_pack)
+        tok_rows, slot_ix, starts, last_ix = [], [], [], []
+        final = {}
+        for s in rows:
+            st = states[s]
+            tp, start = st["tp"], st["next"]
+            chunk = st["prompt"][start : start + cl]
+            final[s] = start + cl >= tp
+            tok_rows.append(chunk + [0] * (cl - len(chunk)))
+            slot_ix.append(s)
+            starts.append(start)
+            last_ix.append((tp - 1 - start) if final[s] else (cl - 1))
+        for _ in range(g - len(rows)):
+            tok_rows.append([0] * cl)
+            slot_ix.append(0)
+            starts.append(0)
+            last_ix.append(-1)
+        dev = self.device
+        logits, self.cache = prefill_packed_step(
+            self.params, self.cache,
+            torch.tensor(tok_rows, dtype=torch.long, device=dev),
+            torch.tensor(slot_ix, dtype=torch.long, device=dev),
+            torch.tensor(starts, dtype=torch.long, device=dev),
+            torch.tensor(last_ix, dtype=torch.long, device=dev),
+            self.config,
+        )
+        self.stats["prefill_dispatches"] += 1
+        self.stats["packed_dispatches"] += 1
+        out: dict[int, int] = {}
+        for i, s in enumerate(rows):
+            st = self._prefilling.get(s)
+            if st is None:
+                continue  # released while the wave ran
+            if not final[s]:
+                st["next"] += cl
+                continue
+            self._prefilling.pop(s, None)
+            out[s] = self._activate(s, st["prompt"], st["tp"], st["gen"], logits[i : i + 1])
+        return out
 
     def add_request(self, prompt: list[int], gen: GenParams) -> tuple[int, int]:
         """Prefill ``prompt`` into a free slot → (slot, first token)."""
@@ -661,6 +1071,16 @@ class InferenceEngine:
             self.stats["ttft_sum_s"] += ttft
             self.stats["ttft_max_s"] = max(self.stats["ttft_max_s"], ttft)
         self.active[slot] = True
+        if self.prefix_cache:
+            # the slot's rows now hold this fully prefilled prompt; they
+            # stay reusable until the slot is reassigned
+            self._prefix_registry[slot] = list(prompt)
+        self.history[slot] = []
+        self._ngram_ix[slot] = {}
+        self._spec_tries[slot] = 0
+        self._spec_accepted[slot] = 0
+        self._spec_off[slot] = False
+        self._record_tokens(slot, list(prompt) + [tok])
         self.lengths[slot] = tp
         self.remaining[slot] = gen.max_new_tokens - 1
         self.eos[slot] = gen.eos_id
@@ -672,13 +1092,179 @@ class InferenceEngine:
             self.finish_reason[slot] = "stop" if tok == gen.eos_id else "length"
         return tok
 
+    def _record_tokens(self, slot: int, toks: list) -> None:
+        """Append to the slot's history, keeping the n-gram index current
+        (each n-gram's LAST occurrence, registered one step behind so a
+        lookup never matches the tail itself)."""
+        h = self.history[slot]
+        ix = self._ngram_ix[slot]
+        n = self.spec_ngram
+        for tok in toks:
+            h.append(tok)
+            if len(h) > n:
+                ix[tuple(h[-n - 1 : -1])] = len(h) - 1 - n
+
+    def _find_draft(self, slot: int) -> list:
+        """Prompt-lookup draft: the tokens that followed the most recent
+        earlier occurrence of the history's trailing n-gram."""
+        if not self.spec_draft or self._spec_off[slot]:
+            return []
+        h = self.history[slot]
+        n = self.spec_ngram
+        if len(h) <= n:
+            return []
+        j = self._ngram_ix[slot].get(tuple(h[-n:]))
+        if j is None:
+            return []
+        return h[j + n : j + n + self.spec_draft]
+
     def step(self) -> dict:
-        """Advance every active slot one token → {slot: [token]}. Slots
-        that hit EOS, their budget or the cache end deactivate."""
+        """Advance every active slot → {slot: [tokens]}. Slots that hit
+        EOS, their budget or the cache end deactivate. A speculative or
+        turbo step may emit several tokens a slot; a plain step one."""
+        t0 = time.perf_counter()
+        out = self._step_dispatch()
+        if out:
+            kind = self._last_step_phase
+            self.stats[f"{kind}_tokens"] += sum(len(v) for v in out.values())
+            self.stats[f"{kind}_seconds"] += time.perf_counter() - t0
+        return out
+
+    def _step_dispatch(self) -> dict:
         live = [i for i in range(self.max_batch) if self.active[i]]
         if not live:
             return {}
+        if self.spec_draft > 0 and self._all_greedy(live):
+            drafts = {i: self._find_draft(i) for i in live}
+            drafting = sum(1 for d in drafts.values() if d)
+            # non-drafting slots pay ~S x the decode compute for nothing:
+            # speculate only when at least half the batch drafts
+            if drafting and drafting * 2 >= len(live):
+                self._last_step_phase = "spec"
+                return self._spec_step(live, drafts)
+        if self.turbo_steps > 1 and not self._prefilling and self._all_greedy(live):
+            self._last_step_phase = "turbo"
+            return self._turbo_step(live)
+        self._last_step_phase = "decode"
         return {i: [tok] for i, tok in self._plain_step(live).items()}
+
+    def _spec_step(self, live: list, drafts: dict) -> dict:
+        """One verify_step call emits 1 .. spec_draft + 1 tokens a slot."""
+        self._invalidate_decode_cache()  # advancing outside the turbo replay
+        sdraft = self.spec_draft + 1
+        rows = []
+        for i in range(self.max_batch):
+            row = [self.last_token[i]] + drafts.get(i, [])
+            rows.append((row + [0] * (sdraft - len(row)))[:sdraft])
+        dev = self.device
+        logits, self.cache = verify_step(
+            self.params, self.cache,
+            torch.tensor(rows, dtype=torch.long, device=dev),
+            torch.tensor(self.lengths, dtype=torch.int32, device=dev),
+            self.config,
+            write_mask=torch.tensor(self.active, dtype=torch.bool, device=dev),
+            decode_kernel=self.decode_kernel,
+        )
+        preds = logits.argmax(dim=-1).tolist()  # [B, S]: one device-to-host copy
+        self.stats["spec_steps"] += 1
+        out: dict = {}
+        for i in live:
+            draft = drafts.get(i, [])
+            emitted = [preds[i][0]]
+            for j, dtok in enumerate(draft):
+                if preds[i][j] != dtok:
+                    break
+                emitted.append(preds[i][j + 1])
+            if draft:
+                self._spec_tries[i] += 1
+                self._spec_accepted[i] += len(emitted) - 1
+                self.stats["spec_draft_tokens"] += len(draft)
+                self.stats["spec_accepted_tokens"] += len(emitted) - 1
+                if self._spec_tries[i] >= 4 and self._spec_accepted[i] < self._spec_tries[i]:
+                    # < 1 accepted draft token a try: drafting this slot
+                    # costs more than it saves
+                    self._spec_off[i] = True
+            toks = []
+            for tok in emitted:
+                toks.append(tok)
+                if not self._advance_slot(i, tok):
+                    break
+            if toks:
+                out[i] = toks
+            # _seen is not updated: the spec path is gated to requests
+            # without penalties, where the counts have no effect
+        return out
+
+    def _arrival_busy(self) -> bool:
+        """Requests waiting or recently admitted: the regime where long
+        device loops tax a newcomer's first token."""
+        return (
+            self.waiting_requests > 0
+            or (time.monotonic() - self._last_admit) < self.turbo_quiet_s
+        )
+
+    def _adaptive_turbo_cap(self) -> int:
+        """Current macro-step budget: the floor (8) while requests arrive
+        or wait, doubling toward ``turbo_steps`` once arrival-quiet."""
+        if self.turbo_steps <= 1:
+            return self.turbo_steps
+        floor = min(8, self.turbo_steps)
+        if self._arrival_busy():
+            self._turbo_k = floor
+        else:
+            self._turbo_k = min(self._turbo_k * 2, self.turbo_steps)
+        return self._turbo_k
+
+    def _turbo_step(self, live: list) -> dict:
+        """One decode_loop macro-step (or ``depth`` chained ones) →
+        {slot: [tokens]}. The host replays the device's per-step
+        deactivation rules token by token, so lengths/remaining/
+        finish_reason end as ``steps`` plain steps would leave them."""
+        # cap the loop by the widest live budget, bucketed to powers of two
+        budget = max(self.remaining[i] for i in live)
+        needed = min(self._adaptive_turbo_cap(), budget)
+        steps = 1
+        while steps < needed:
+            steps *= 2
+        steps = min(steps, self.turbo_steps)
+        # pipelined segments only when saturated: cap fully open AND
+        # arrival-quiet, and never past the widest remaining budget
+        depth = 1
+        if (
+            self.turbo_depth > 1
+            and steps == self.turbo_steps
+            and self._turbo_k == self.turbo_steps
+            and not self._arrival_busy()
+        ):
+            depth = min(self.turbo_depth, -(-budget // steps))
+        tok_d, pos_d, rem_d, act_d, eos_d = self._decode_state()
+        segs = []
+        for _ in range(depth):
+            toks_dev, self.cache, tok_d, pos_d, rem_d, act_d = decode_loop(
+                self.params, self.cache, tok_d, pos_d, rem_d, act_d, eos_d, self.config,
+                steps=steps, max_seq=self.max_seq, decode_kernel=self.decode_kernel,
+            )
+            segs.append(toks_dev)
+        self.stats["turbo_dispatches"] += 1
+        self.stats["turbo_device_steps"] += steps * depth
+        # ONE device-to-host copy for every segment ([depth * steps, B])
+        toks = torch.cat(segs).tolist()
+        out: dict = {}
+        for i in live:
+            emitted: list = []
+            for k in range(depth * steps):
+                tok = toks[k][i]
+                if tok < 0:  # the row deactivated on an earlier step
+                    break
+                emitted.append(tok)
+                if not self._advance_slot(i, tok):
+                    break
+            if emitted:
+                out[i] = emitted
+        # the host replay applied the device's transitions, so the
+        # advanced arrays are the valid next inputs
+        self._decode_mirror = (tok_d, pos_d, rem_d, act_d, eos_d)
+        return out
 
     def _invalidate_decode_cache(self) -> None:
         """EVERY host-side slot-state mutation must call this, or the
@@ -704,7 +1290,8 @@ class InferenceEngine:
         return self._sampling_state
 
     def _decode_state(self) -> tuple:
-        """Device mirrors of (token, position, budget, active, eos)."""
+        """Device mirrors of (token, position, budget, active, eos),
+        shared by the plain and turbo paths."""
         if self._decode_mirror is None:
             eos = [e if e is not None else -1 for e in self.eos]
             dev = self.device
@@ -718,7 +1305,9 @@ class InferenceEngine:
         return self._decode_mirror
 
     def _all_greedy(self, live: list) -> bool:
-        """Every live slot plain-greedy with no penalties or bias."""
+        """Every live slot plain-greedy with no penalties or bias: the
+        gate of the speculative and turbo paths and the argmax fast
+        path."""
         return all(
             self.temps[i] <= 0.0
             and self.rep_pens[i] == 1.0
@@ -730,7 +1319,6 @@ class InferenceEngine:
         )
 
     def _plain_step(self, live: list) -> dict[int, int]:
-        t0 = time.perf_counter()
         tok_d, pos_d, rem_d, act_d, eos_d = self._decode_state()
         logits, self.cache = decode_step(
             self.params, self.cache, tok_d, pos_d, self.config,
@@ -757,8 +1345,6 @@ class InferenceEngine:
         )
         out = self._emit(live, sampled.tolist())
         self.stats["decode_steps"] += 1
-        self.stats["decode_tokens"] += len(live)
-        self.stats["decode_seconds"] += time.perf_counter() - t0
         # the host replay applied the same transition as the device
         # advance, so the advanced arrays are the valid next inputs
         self._decode_mirror = (*adv, eos_d)
@@ -767,12 +1353,14 @@ class InferenceEngine:
         return out
 
     def _advance_slot(self, i: int, tok: int) -> bool:
-        """Publish ONE sampled token for slot ``i`` (length/budget
-        accounting and the eos→stop / budget→length finish rules).
-        Returns whether the slot is still active."""
+        """Publish ONE sampled token for slot ``i``, shared by the plain,
+        speculative and turbo paths: length/budget accounting, the n-gram
+        history, and the eos→stop / budget→length finish rules. Returns
+        whether the slot is still active."""
         self.lengths[i] += 1
         self.remaining[i] -= 1
         self.last_token[i] = tok
+        self._record_tokens(i, [tok])
         if tok == self.eos[i]:
             self.active[i] = False
             self.finish_reason[i] = "stop"
@@ -796,6 +1384,35 @@ class InferenceEngine:
         self._prefilling.pop(slot, None)
         self._admit_t0.pop(slot, None)
 
+    def reset_prefix_cache(self) -> None:
+        """Forget every registered reusable prompt prefix (no device
+        work: the rows just stop being reuse candidates)."""
+        self._prefix_registry.clear()
+
+    def kv_cache_utilization(self) -> float:
+        """Cached tokens across live (active or prefilling) slots as a
+        fraction of the cache's capacity. The server reads it on its
+        event loop while the scheduler mutates slots on a worker thread:
+        the prefill dict is snapshotted first."""
+        prefilling = list(self._prefilling.values())
+        live_tokens = sum(
+            self.lengths[i] for i in range(self.max_batch) if self.active[i]
+        ) + sum(st["next"] for st in prefilling)
+        return live_tokens / float(self.max_batch * self.max_seq)
+
+    def prefix_stats(self) -> dict:
+        """Prefix-cache registry occupancy for ``/health``: lifetime hit
+        count, occupied registry slots, occupancy ratio, and the cached
+        prompt tokens still reusable (snapshotted like
+        :meth:`kv_cache_utilization`)."""
+        cached = list(self._prefix_registry.values())
+        return {
+            "prefix_hits": self.stats["prefix_hits"],
+            "prefix_slots": len(cached),
+            "prefix_occupancy": round(len(cached) / float(self.max_batch), 6),
+            "prefix_tokens": sum(len(p) for p in cached),
+        }
+
     def generate(self, prompt: list[int], gen: GenParams) -> list[int]:
         """Convenience single-prompt generation (tests, CLI)."""
         slot, tok = self.add_request(prompt, gen)
@@ -809,4 +1426,3 @@ class InferenceEngine:
                 out.append(tok)
         self.release(slot)
         return out
-

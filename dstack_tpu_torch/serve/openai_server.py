@@ -7,9 +7,11 @@ cuda``, the default) with the byte tokenizer.
 
 Endpoints: ``/health``, ``/v1/models``, ``/v1/completions`` and
 ``/v1/chat/completions``, whole and streamed (SSE). One scheduler task
-admits requests into engine slots, runs one prefill chunk and one decode
+admits requests into engine slots, runs one prefill wave and one engine
 step per tick on a worker thread, and routes tokens to each request with
-eos, ``max_tokens`` and stop strings.
+eos, ``max_tokens`` and stop strings. The engine runs the JAX server's
+defaults: ``--prefill-pack 4``, ``--spec-draft 4``, ``--turbo-steps 8``
+and the prefix cache; ``--kv-quant int8`` halves the cache.
 
 Not in this slice (each answers 400 when asked for): ``n > 1``, token
 logprobs, tools and ``response_format``. QoS, tracing, SLO windows, the
@@ -142,12 +144,16 @@ class Scheduler:
                 continue
             self.by_prefill[slot] = req
             free -= 1
+        # a request still waiting for a slot is arrival pressure: the
+        # engine keeps its macro-steps short so that request soon gets one
+        self.engine.waiting_requests = int(any(not r.cancelled for r in self.pending))
         for slot in [s for s, r in self.by_prefill.items() if r.cancelled]:
             self.engine.release(slot)
             del self.by_prefill[slot]
         if self.by_prefill:
-            # ONE prefill chunk per tick, so decode steps for running
-            # slots interleave between the chunks of a long prompt
+            # ONE prefill wave per tick (a chunk of up to prefill_pack
+            # prompts), so decode steps for running slots interleave
+            # between the chunks of a long prompt
             try:
                 firsts = await asyncio.to_thread(self.engine.prefill_wave)
             except Exception as e:  # noqa: BLE001 - reported per request
@@ -302,24 +308,37 @@ def build_app(engine: InferenceEngine, tokenizer, model_name: str) -> web.Applic
     app.on_cleanup.append(on_cleanup)
 
     async def health(request):
-        """Liveness, load, and the counts a run reads to show which path
-        it took: prefill chunks and decode steps dispatched, and each
-        hand-written kernel's launches in this process."""
+        """Liveness, load, the engine's configuration, and the counts a
+        run reads to show which path it took: prefill chunks and packed
+        waves, plain, speculative and turbo steps, prefix hits, and each
+        hand-written kernel's launches in this process (K4's also by
+        variant)."""
         e = sched.engine
         return web.json_response({
             "status": "ok",
             "model": model_name,
             "device": str(e.device),
             "decode_kernel": e.decode_kernel,
+            "engine": {
+                "prefill_pack": e.prefill_pack,
+                "spec_draft": e.spec_draft,
+                "turbo_steps": e.turbo_steps,
+                "turbo_depth": e.turbo_depth,
+                "prefix_cache": e.prefix_cache,
+                "kv_quant": e.kv_quant,
+            },
             "queue_depth": len(sched.pending),
             "inflight": len(sched.by_slot) + len(sched.by_prefill),
             "active_slots": sum(1 for a in e.active if a),
             "max_slots": e.max_batch,
+            "kv_cache_utilization": e.kv_cache_utilization(),
+            **e.prefix_stats(),
             "stats": dict(e.stats),
             "kernel_launches": {
                 "flash_fwd": flash.LAUNCHES,
                 "flash_decode": flash_decode.LAUNCHES,
             },
+            "flash_decode_launches": dict(flash_decode.LAUNCHES_BY_VARIANT),
         })
 
     async def models(request):
@@ -511,6 +530,36 @@ def main(argv=None) -> int:
     p.add_argument("--max-seq", type=int, default=2048)
     p.add_argument("--prefill-chunk", type=int, default=256)
     p.add_argument(
+        "--prefill-pack", type=int, default=4,
+        help="max concurrent prompt chunks packed into one prefill dispatch "
+             "(floored to a power of two; 0/1 = serial per-prompt prefill)",
+    )
+    p.add_argument(
+        "--spec-draft", type=int, default=4,
+        help="prompt-lookup speculative decoding draft length for greedy "
+             "requests (0 disables)",
+    )
+    p.add_argument(
+        "--turbo-steps", type=int, default=8,
+        help="device-side decode steps per host round trip for all-greedy "
+             "batches (0/1 disables)",
+    )
+    p.add_argument(
+        "--turbo-depth", type=int, default=1,
+        help="macro-steps chained per host round trip once the adaptive "
+             "turbo cap is fully open",
+    )
+    p.add_argument(
+        "--no-prefix-cache", action="store_true",
+        help="disable automatic prefix caching (KV-row reuse across "
+             "requests sharing a chunk-aligned prompt prefix)",
+    )
+    p.add_argument(
+        "--kv-quant", default=None, choices=["int8"],
+        help="int8 KV cache with per-(token, head) f32 scales: half the "
+             "cache bytes a decode step reads",
+    )
+    p.add_argument(
         "--decode-kernel", default="flash", choices=["flash", "einsum"],
         help="decode attention: the ragged flash-decode kernel, or the "
              "plain masked attention over the whole row (reference)",
@@ -531,7 +580,9 @@ def main(argv=None) -> int:
     params = llama.init_params(config, generator, device=device)
     engine = InferenceEngine(
         config, params, max_batch=args.max_batch, max_seq=args.max_seq,
-        seed=args.seed, prefill_chunk=args.prefill_chunk,
+        seed=args.seed, prefill_chunk=args.prefill_chunk, prefill_pack=args.prefill_pack,
+        spec_draft=args.spec_draft, turbo_steps=args.turbo_steps, turbo_depth=args.turbo_depth,
+        prefix_cache=not args.no_prefix_cache, kv_quant=args.kv_quant,
         decode_kernel=args.decode_kernel, device=device,
     )
     app = build_app(engine, ByteTokenizer(), args.model)

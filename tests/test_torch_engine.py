@@ -1,8 +1,8 @@
 """The port's InferenceEngine against the JAX engine on the CPU.
 
 Both engines run LLAMA_TINY_64 with the same weights (params_from_jax)
-on the serial path (prefill_pack=1, spec_draft=0, turbo_steps=0,
-prefix_cache=False) with the flash decode path, and both are driven by
+on the serial path, pinned (prefill_pack=1, spec_draft=0, turbo_steps=0,
+prefix_cache=False), with the flash decode path, and both are driven by
 the same call sequence the server's scheduler makes: one prefill chunk
 per tick, then one decode step. Greedy output must match token for
 token, and every prefill and decode logit row within 1e-4 (f32), so a
@@ -23,6 +23,9 @@ from dstack_tpu_torch.serve import engine as tengine
 ATOL = 1e-4
 MAX_SEQ = 256
 CHUNK = 64
+# the serial path, pinned: the engine's defaults are the packed, speculative
+# and turbo path (tests/test_torch_serve_breadth.py)
+SERIAL = dict(prefill_pack=1, spec_draft=0, turbo_steps=0, prefix_cache=False)
 
 
 @pytest.fixture(scope="module")
@@ -37,8 +40,7 @@ def weights():
 def _jax_engine(jp):
     eng = jengine.InferenceEngine(
         jllama.LLAMA_TINY_64, jp, max_batch=2, max_seq=MAX_SEQ,
-        prefill_chunk=CHUNK, prefill_pack=1, spec_draft=0, turbo_steps=0,
-        prefix_cache=False, decode_kernel="flash",
+        prefill_chunk=CHUNK, decode_kernel="flash", **SERIAL,
     )
     logs = []
     decode, activate = eng._decode, eng._activate
@@ -59,7 +61,7 @@ def _jax_engine(jp):
 def _torch_engine(tp, monkeypatch):
     eng = tengine.InferenceEngine(
         tllama.LLAMA_TINY_64, tp, max_batch=2, max_seq=MAX_SEQ,
-        prefill_chunk=CHUNK, device="cpu",
+        prefill_chunk=CHUNK, device="cpu", **SERIAL,
     )
     logs = []
     decode = tengine.decode_step
@@ -133,7 +135,7 @@ class TestGreedyParity:
         outs = [
             tengine.InferenceEngine(
                 tllama.LLAMA_TINY_64, tp, max_batch=2, max_seq=MAX_SEQ,
-                prefill_chunk=CHUNK, decode_kernel=k, device="cpu",
+                prefill_chunk=CHUNK, decode_kernel=k, device="cpu", **SERIAL,
             ).generate(prompt, tengine.GenParams(max_new_tokens=8))
             for k in ("flash", "einsum")
         ]
@@ -148,7 +150,7 @@ class TestSampling:
         def run(p, n, skip=0):
             eng = tengine.InferenceEngine(
                 tllama.LLAMA_TINY_64, tp, max_batch=2, max_seq=MAX_SEQ,
-                prefill_chunk=CHUNK, device="cpu",
+                prefill_chunk=CHUNK, device="cpu", **SERIAL,
             )
             g = tengine.GenParams(
                 max_new_tokens=n, temperature=1.0, seed=7, seed_skip=skip
@@ -193,15 +195,10 @@ class TestSampling:
 
 
 class TestRefusals:
-    @pytest.mark.parametrize(
-        "kw",
-        [{"prefill_pack": 4}, {"spec_draft": 4}, {"turbo_steps": 8},
-         {"prefix_cache": True}, {"kv_quant": "int8"}],
-    )
-    def test_unported_switches_raise(self, weights, kw):
+    def test_unknown_kv_quant_raises(self, weights):
         _, tp = weights
-        with pytest.raises(NotImplementedError):
-            tengine.InferenceEngine(tllama.LLAMA_TINY_64, tp, device="cpu", **kw)
+        with pytest.raises(ValueError, match="unknown kv_quant 'fp8'"):
+            tengine.InferenceEngine(tllama.LLAMA_TINY_64, tp, device="cpu", kv_quant="fp8")
 
     def test_cwrite_at_drops_out_of_range_rows(self):
         ck = torch.zeros(3, 2, 8, 4)

@@ -84,9 +84,24 @@ class TestFlashForwardPlain:
         o, lse = tflash.flash_attention_with_lse(q, k, v, kv_offset=100)
         assert not o.any() and bool((lse == tflash.NEG_INF).all())
 
-    @pytest.mark.parametrize(
-        "kw", [{"chunk": 64}, {"sinks": torch.zeros(2)}, {"q_offset": torch.tensor([0, 1])}]
-    )
+    @pytest.mark.parametrize("window,softcap", [(0, 0.0), (24, 0.0), (0, 30.0)])
+    def test_vector_q_offset_matches_xla_attention(self, window, softcap):
+        # packed prefill: each row's chunk at its own start over its own row
+        rng = np.random.default_rng(5)
+        q = _rand(rng, 3, 4, 16, 64)
+        k = _rand(rng, 3, 2, 96, 64)
+        v = _rand(rng, 3, 2, 96, 64)
+        off = np.array([0, 40, 80], np.int32)
+        j = _xla_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True, scale=0.125,
+            q_offset=jnp.asarray(off), window=window, softcap=softcap,
+        )
+        t = tattention.attention(
+            _t(q), _t(k), _t(v), scale=0.125, q_offset=_t(off).long(), window=window, softcap=softcap
+        )
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL, rtol=TOL)
+
+    @pytest.mark.parametrize("kw", [{"chunk": 64}, {"sinks": torch.zeros(2)}])
     def test_unported_attention_options_raise(self, kw):
         x = torch.zeros(1, 2, 4, 64)
         with pytest.raises(NotImplementedError):
@@ -114,10 +129,7 @@ class TestFlashDecodePlain:
         )
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL, rtol=TOL)
 
-    @pytest.mark.parametrize(
-        "kw",
-        [{"sinks": torch.zeros(2, 4)}, {"k_scale": torch.ones(1)}, {"rows_per_slot": 2}],
-    )
+    @pytest.mark.parametrize("kw", [{"sinks": torch.zeros(2, 4)}])
     def test_unported_variants_raise(self, kw):
         x = torch.zeros(2, 2, 4, 64)
         with pytest.raises(NotImplementedError):
@@ -128,7 +140,7 @@ class TestFlashDecodePlain:
 
 @pytest.mark.cuda
 class TestKernelsOnTheCard:
-    """bf16 kernels vs their plain versions at the serving shapes."""
+    """Kernels vs their plain versions at the serving shapes (bf16)."""
 
     @pytest.mark.parametrize(
         "d,chunk,q_offset,window,softcap",
@@ -157,4 +169,27 @@ class TestKernelsOnTheCard:
         pos = torch.tensor([0, 1, 63, 64, 700, 1500, 2046, 2047], dtype=torch.int32, device=cuda)
         o = tflash_decode.flash_decode(q, k, v, pos, scale=d**-0.5, window=window)
         po = tflash_decode.flash_decode_plain(q, k, v, pos, scale=d**-0.5, window=window)
+        torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
+
+    @pytest.mark.parametrize("quant", [False, True])
+    @pytest.mark.parametrize("group,rows_per_slot", [(1, 3), (4, 5), (8, 8), (4, 1)])
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_flash_decode_int8_and_verify(self, cuda, quant, group, rows_per_slot, d):
+        """R = G x S rows of 3, 20, 64 (and the int8 decode form at 4),
+        positions where pos + S - 1 reaches the row's end and crosses
+        tiles, the int8 cache quantized as the engine writes it."""
+        from dstack_tpu_torch.serve.engine import kv_quantize
+
+        g = torch.Generator(device=cuda).manual_seed(2)
+        q = torch.randn(8, 8, group * rows_per_slot, d, generator=g, device=cuda).bfloat16()
+        k, v = (torch.randn(8, 8, 2048, d, generator=g, device=cuda).bfloat16() for _ in range(2))
+        kw = {}
+        if quant:
+            (k, ks), (v, vs) = kv_quantize(k), kv_quantize(v)
+            kw = dict(k_scale=ks, v_scale=vs)
+        last = 2048 - rows_per_slot
+        pos = torch.tensor([0, 1, 62, 63, 700, 1500, last - 1, last], dtype=torch.int32, device=cuda)
+        kw.update(scale=d**-0.5, rows_per_slot=rows_per_slot)
+        o = tflash_decode.flash_decode(q, k, v, pos, **kw)
+        po = tflash_decode.flash_decode_plain(q, k, v, pos, **kw)
         torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)

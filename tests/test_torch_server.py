@@ -1,6 +1,9 @@
-"""The port's OpenAI server on the CPU answers with the same tokens as
-the engine's ``generate`` for the same weights and prompt: completions
-whole and streamed, chat completions whole and streamed."""
+"""The port's OpenAI server on the CPU, at the engine's defaults (packed
+prefill, speculative verify, turbo macro-steps, the prefix cache),
+answers with the same tokens as the engine's ``generate`` for the same
+weights and prompt: completions whole and streamed, chat completions
+whole and streamed; with ``kv_quant="int8"`` too. ``/health`` carries the
+engine's configuration and path counts."""
 
 import json
 
@@ -17,26 +20,27 @@ from dstack_tpu_torch.serve.tokenizer import ByteTokenizer
 CONFIG = llama.LLAMA_TINY_64
 
 
-def _engine():
+def _engine(kv_quant=None):
     params = llama.init_params(CONFIG, torch.Generator().manual_seed(0), device="cpu")
     return InferenceEngine(
-        CONFIG, params, max_batch=4, max_seq=256, prefill_chunk=64, device="cpu"
+        CONFIG, params, max_batch=4, max_seq=256, prefill_chunk=64, kv_quant=kv_quant,
+        device="cpu",
     )
 
 
-def _expected(prompt: str, n: int, streamed: bool = False) -> str:
+def _expected(prompt: str, n: int, streamed: bool = False, kv_quant=None) -> str:
     """generate()'s tokens as the server renders them: a stream holds
     back a trailing partial UTF-8 character it never completes."""
     tok = ByteTokenizer()
-    ids = _engine().generate(
+    ids = _engine(kv_quant).generate(
         tok.encode(prompt), GenParams(max_new_tokens=n, eos_id=tok.eos_id)
     )
     text = tok.decode([i for i in ids if i != tok.eos_id])
     return text.rstrip("\ufffd") if streamed else text
 
 
-async def _client():
-    client = TestClient(TestServer(build_app(_engine(), ByteTokenizer(), "llama-tiny-64")))
+async def _client(kv_quant=None):
+    client = TestClient(TestServer(build_app(_engine(kv_quant), ByteTokenizer(), "llama-tiny-64")))
     await client.start_server()
     return client
 
@@ -62,6 +66,14 @@ class TestOpenAIServer:
             assert h["device"] == "cpu" and h["decode_kernel"] == "flash"
             assert h["stats"]["decode_steps"] == 0
             assert set(h["kernel_launches"]) == {"flash_fwd", "flash_decode"}
+            assert h["engine"] == {
+                "prefill_pack": 4, "spec_draft": 4, "turbo_steps": 8, "turbo_depth": 1,
+                "prefix_cache": True, "kv_quant": None,
+            }
+            assert set(h["flash_decode_launches"]) == {
+                "bf16_decode", "bf16_verify", "int8_decode", "int8_verify",
+            }
+            assert h["prefix_hits"] == 0 and h["kv_cache_utilization"] == 0.0
             m = await (await client.get("/v1/models")).json()
             assert m["data"][0]["id"] == "llama-tiny-64"
         finally:
@@ -125,6 +137,38 @@ class TestOpenAIServer:
             ))
             texts = [(await r.json())["choices"][0]["text"] for r in rs]
             assert texts == [_expected(p, 8) for p in prompts]
+        finally:
+            await client.close()
+
+    @pytest.mark.parametrize("kv_quant", [None, "int8"])
+    async def test_default_path_counts_on_health(self, kv_quant):
+        """Four concurrent completions and one stream at the defaults: a
+        packed wave and turbo steps run, every answer matches generate(),
+        and a repeat of the long prompt hits the prefix cache."""
+        import asyncio
+
+        prompts = ["alpha " * 3, "beta " * 30, "gamma", PROMPT]
+        client = await _client(kv_quant)
+        try:
+            rs = await asyncio.gather(*(
+                client.post("/v1/completions", json={"prompt": p, "max_tokens": 8})
+                for p in prompts
+            ))
+            texts = [(await r.json())["choices"][0]["text"] for r in rs]
+            assert texts == [_expected(p, 8, kv_quant=kv_quant) for p in prompts]
+            r = await client.post(
+                "/v1/completions", json={"prompt": PROMPT + "again", "max_tokens": 8, "stream": True}
+            )
+            events = await _sse(r)
+            text = "".join(e["choices"][0]["text"] for e in events)
+            assert text == _expected(PROMPT + "again", 8, streamed=True, kv_quant=kv_quant)
+            h = await (await client.get("/health")).json()
+            st = h["stats"]
+            assert h["engine"]["kv_quant"] == kv_quant
+            assert st["packed_dispatches"] >= 1 and st["turbo_dispatches"] >= 1
+            assert h["prefix_hits"] == st["prefix_hits"] == 1 and h["prefix_slots"] >= 1
+            # the plain versions run on the CPU: no kernel launches
+            assert not any(h["flash_decode_launches"].values())
         finally:
             await client.close()
 
