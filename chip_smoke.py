@@ -25,14 +25,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    backward for K2+K3: yardsticks the port never calls; none reads an int8
    cache, so the int8 forms have none) with CUDA events, L2 flushed before
    each launch, and reckons each call's bound from the bytes it must move
-   at 3.35 TB/s and its FLOPs at 989 TFLOP/s.
+   at 3.35 TB/s and its FLOPs at 989 TFLOP/s. Then the gpt-oss forms at
+   gpt-oss-20b's shapes (64/8 heads, G = 8): K1 at q [1,64,256,64],
+   q_offset 512, over k/v [1,8,2048,64] with windows 128 and 0 (o, lse
+   and the sink-rescaled output against the plain versions), and K4's
+   four attention-sinks forms (q [8,8,8,64] and verify q [8,8,40,64],
+   cache [8,8,2048,64], positions 0..2047, sinks drawn from N(0, 1)) with
+   windows 0 and 128. Their SDPA yardstick has no sink column.
 3. Path phase: start ``python -m dstack_tpu_torch.serve.openai_server
-   --model llama-3.2-1b --device cuda --decode-kernel flash`` (full width,
-   random weights from seed 0) on a free port three times: on the serial
-   path (``--prefill-pack 1 --spec-draft 0 --turbo-steps 0
+   --device cuda --decode-kernel flash`` (full width and depth, random
+   weights from seed 0) on a free port four times: llama-3.2-1b on the
+   serial path (``--prefill-pack 1 --spec-draft 0 --turbo-steps 0
    --no-prefix-cache``), at the engine's defaults (packed prefill,
    speculative verify, turbo macro-steps, the prefix cache), and at the
-   defaults with ``--kv-quant int8``. Each time check every launch count
+   defaults with ``--kv-quant int8``; then gpt-oss-20b at the defaults
+   (24 layers, 32 experts with 4 a token, attention sinks, windows of 128
+   on even layers). Each time check every launch count
    reads 0, send 4 concurrent greedy ``/v1/completions`` (prompts of 40,
    200, 300 and 700 byte tokens) and one streamed
    ``/v1/chat/completions``, 32 tokens each; the default servers then get
@@ -43,12 +51,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    ran n_layers times per serial chunk (packed waves take the masked
    attention), K4 n_layers times per plain, verify and turbo device step,
    packed, turbo and prefix-cache dispatches all ran, and K4 ran only the
-   forms of the server's cache. Then, in this process, a teacher-forced
+   forms of the server's cache (on gpt-oss, only its sinks forms). Then,
+   in this process, a teacher-forced
    comparison on one prompt over the prefill, 8 decode steps and one
    verify of 5 tokens, on the bf16 and on the int8 cache: the kernel
    path's logits against the plain path's, both held to the plain path
    in f32 (the kernel path's relative RMS logit error may be at most 1.5
-   times the plain bf16 path's).
+   times the plain bf16 path's). It runs on llama-3.2-1b and on
+   gpt-oss-20b at full width and 4 of its 24 layers (2 sliding, 2 global:
+   an f32 copy of all 24 would not fit the card) with sinks and biases
+   drawn nonzero; on gpt-oss it launches all four sinks forms of K4.
+   Last, one gpt-oss decode step at the server's batch of 8 on those 4
+   layers, traced with torch.profiler: device time by kernel family and
+   the device's busy share of the step.
 4. Training path phase: ``python -m dstack_tpu_torch.train.finetune
    --model llama-3.2-1b --full --steps 6`` and then the default LoRA mode
    for 4 steps (full width and depth, random weights from seed 0,
@@ -65,9 +80,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    bf16, plain in f32): for every parameter leaf the kernel path's
    relative RMS gradient error against f32 may be at most 1.5 times the
    plain bf16 path's, and the three losses agree within 2e-2.
-6. Print the ``kernels`` JSON line (K4 as one row per form, each with
-   its launches on every path; a form launched on no path fails the
-   run), then the card line, then the last line
+6. Print the ``kernels`` JSON line (K1 at the llama and at the gpt-oss
+   shape, K4 as one row per form, eight in all, each with its launches on
+   every path; a form launched on no path fails the run), then the card
+   line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -86,6 +102,7 @@ import torch
 
 from dstack_tpu_torch.models import llama
 from dstack_tpu_torch.ops import cuda_build, flash, flash_decode
+from dstack_tpu_torch.ops.attention import attention
 from dstack_tpu_torch.serve import engine
 from dstack_tpu_torch.serve.chat_template import render_chat
 from dstack_tpu_torch.train import step as train_step
@@ -99,6 +116,14 @@ TOL = 2e-2  # bf16: atol = rtol, the JAX package's own bf16 tolerance
 # teacher_forced_phase)
 KERNEL_RMS_MARGIN = 1.5
 MODEL = "llama-3.2-1b"
+GPT_OSS = "gpt-oss-20b"
+GPT_OSS_TF_LAYERS = 4  # depth of the in-process gpt-oss comparison: 2 sliding, 2 global
+# std of the seeded values drawn over init_params' zero sinks and biases
+# in the gpt-oss comparison (JAX's init leaves them 0, which hides them)
+GPT_OSS_NONZERO = {
+    "sinks": 1.0, "b_router": 0.5, "bq": 0.05, "bk": 0.05, "bv": 0.05, "bo": 0.02,
+    "b_gate": 0.05, "b_up_e": 0.05, "b_down_e": 0.02,
+}
 PROMPT_LENS = (40, 200, 300, 700)
 PREFIX_LEN = 512  # the shared prefix of the prefix-cache pair: two 256-token chunks
 MAX_TOKENS = 32
@@ -106,12 +131,15 @@ CHUNK = 256  # the server's --prefill-chunk default
 TRAIN_STEPS = {"full": 6, "lora": 4}
 BWD_SHAPE = (4, 32, 8, 2048, 64)  # B, H, Hkv, T, D of the backward kernel phase
 SPEC_ROWS = 5  # rows a query head verifies: the server's --spec-draft 4, plus one
-# the server runs: the serial path of the first slice, then the JAX
-# server's default engine on the bf16 and on the int8 cache
+# the server runs (mode → model, flags): the serial path of the first
+# slice, the JAX server's default engine on the bf16 and on the int8
+# cache, then gpt-oss-20b at the defaults
 SERVER_MODES = {
-    "serial": ["--prefill-pack", "1", "--spec-draft", "0", "--turbo-steps", "0", "--no-prefix-cache"],
-    "default": [],
-    "int8": ["--kv-quant", "int8"],
+    "serial": (MODEL, ["--prefill-pack", "1", "--spec-draft", "0", "--turbo-steps", "0",
+                       "--no-prefix-cache"]),
+    "default": (MODEL, []),
+    "int8": (MODEL, ["--kv-quant", "int8"]),
+    "gptoss": (GPT_OSS, []),
 }
 
 
@@ -234,20 +262,30 @@ def kernel_phase() -> dict:
 def decode_row(name: str, q, k, v, pos, kw: dict) -> dict:
     """One K4 variant against its plain version, then timed with its
     bound: every live key's K and V read once (bf16, or int8 plus its f32
-    scale), q read and o written once; 4 D FLOP per live (row, key) pair.
-    The library yardstick is SDPA with the explicit per-row mask; no
-    single PyTorch call reads an int8 cache with per-token scales."""
+    scale; with a window only the keys inside it), q (and the sinks) read
+    and o written once; 4 D FLOP per live (row, key) pair. The library
+    yardstick is SDPA with the explicit per-row mask and no sink column
+    (no PyTorch call takes a sink logit); no single PyTorch call reads an
+    int8 cache with per-token scales."""
     o = flash_decode.flash_decode(q, k, v, pos, **kw)
     po = flash_decode.flash_decode_plain(q, k, v, pos, **kw)
     torch.cuda.synchronize()
     b, hkv, r, d = q.shape
     t, s_rows, quant = k.shape[2], kw["rows_per_slot"], "k_scale" in kw
+    window, sinks = kw.get("window", 0), kw.get("sinks")
     err = assert_close(o, po, name)
     qpos = pos.long()[:, None] + torch.arange(r, device="cuda")[None, :] % s_rows  # [B, R]
-    mask = torch.arange(t, device="cuda")[None, None, :] <= qpos[:, :, None]  # [B, R, T]
-    keys = int((pos.long() + s_rows).clamp(max=t).sum())  # keys each KV head of a slot reads
-    pairs = hkv * int((qpos + 1).clamp(max=t).sum())
+    kj = torch.arange(t, device="cuda")[None, None, :]
+    mask = kj <= qpos[:, :, None]  # [B, R, T]
+    if window:
+        mask = mask & (qpos[:, :, None] - kj < window)
+    # keys each KV head of a slot reads: its rows' union
+    lo = (pos.long() - window + 1).clamp(min=0) if window else torch.zeros_like(pos.long())
+    keys = int(((pos.long() + s_rows).clamp(max=t) - lo).sum())
+    pairs = hkv * int(mask.sum())
     nbytes = 2 * q.numel() * 2 + pos.numel() * 4 + 2 * keys * hkv * (d + 4 if quant else 2 * d)
+    if sinks is not None:
+        nbytes += sinks.numel() * 4
     b_ms, b_by = bound_ms(nbytes, 4 * d * pairs)
     row = {
         "ms": time_ms(lambda: flash_decode.flash_decode(q, k, v, pos, **kw)),
@@ -261,9 +299,97 @@ def decode_row(name: str, q, k, v, pos, kw: dict) -> dict:
     }
     if quant:
         row["library_note"] = "no single PyTorch call reads an int8 cache with per-token scales"
-    log(f"kernel {name} q {list(q.shape)} cache {list(k.shape)} {k.dtype} positions={pos.tolist()}: "
-        + json.dumps(row))
+    elif sinks is not None:
+        row["library_note"] = "SDPA over the same keys without the sink column: no PyTorch call takes sinks"
+    log(f"kernel {name} q {list(q.shape)} cache {list(k.shape)} {k.dtype} window={window} "
+        f"positions={pos.tolist()}: " + json.dumps(row))
     return row
+
+
+def gpt_oss_kernel_phase() -> dict:
+    """K1 and K4's sinks forms at gpt-oss-20b's shapes (64 query heads, 8
+    KV heads, G = 8), sinks drawn from N(0, 1) (JAX's init sets them to 0).
+    K1: a middle chunk of a long prompt (q [1,64,256,64] at q_offset 512
+    over k/v [1,8,2048,64]) on a sliding (window 128, the reported row)
+    and on a global layer; its o and lse against the plain versions, and
+    the serving route (K1 then ``sink_postscale``) against the plain
+    attention with ``sink_softmax``. K4: its four sinks forms at q
+    [8,8,8,64] and verify q [8,8,40,64] (G 8 x S 5) over an [8,8,2048,64]
+    cache at positions 0..2047, each with window 0 (the reported row) and
+    128."""
+    c = llama.CONFIGS[GPT_OSS]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    h, hkv, d, t = c.n_heads, c.n_kv_heads, c.head_dim, 2048
+    scale, win, q_offset = c.attention_scale, c.sliding_window, 512
+    rows = {}
+
+    q = torch.randn(1, h, CHUNK, d, generator=g, device="cuda").bfloat16()
+    k = torch.randn(1, hkv, t, d, generator=g, device="cuda").bfloat16()
+    v = torch.randn(1, hkv, t, d, generator=g, device="cuda").bfloat16()
+    sinks = torch.randn(h, generator=g, device="cuda")
+    err, k1 = 0.0, {}
+    for window in (win, 0):
+        kw = dict(scale=scale, q_offset=q_offset, window=window)
+        what = f"flash_fwd gpt-oss window={window}"
+        o, lse = flash.flash_attention_with_lse(q, k, v, **kw)
+        po, plse = flash.flash_attention_plain(q, k, v, **kw)
+        so = attention(q, k, v, sinks=sinks, sinks_forward_only=True, **kw)
+        pso = flash.flash_attention_plain(q, k, v, sinks=sinks, **kw)[0]
+        torch.cuda.synchronize()
+        err = max(err, assert_close(o, po, what), assert_close(so, pso, what + " with sinks"))
+        assert_close(lse, plse, what + " lse")
+        qi = q_offset + torch.arange(CHUNK, device="cuda")[:, None]
+        kj = torch.arange(t, device="cuda")[None, :]
+        mask = qi >= kj
+        if window:
+            mask = mask & (qi - kj < window)
+        lo = max(0, q_offset - window + 1) if window else 0
+        nbytes = 2 * q.numel() * 2 + lse.numel() * 4 + 2 * (q_offset + CHUNK - lo) * hkv * d * 2
+        b_ms, b_by = bound_ms(nbytes, 4 * d * h * int(mask.sum()))
+        k1[window] = {
+            "ms": time_ms(lambda: flash.flash_attention_with_lse(q, k, v, **kw)),
+            "route_ms": time_ms(lambda: attention(q, k, v, sinks=sinks, sinks_forward_only=True, **kw)),
+            "plain_ms": time_ms(lambda: flash.flash_attention_plain(q, k, v, sinks=sinks, **kw)),
+            "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+        }
+        log(f"kernel {what} q {list(q.shape)} q_offset={q_offset} k/v {list(k.shape)}: "
+            + json.dumps(k1[window]))
+    rows["flash_fwd_gpt_oss"] = {
+        **k1[win], "max_abs_err": err, "window_0": k1[0],
+        "library_note": "SDPA with the explicit causal and window mask, without the sink column",
+    }
+
+    b, grp = 8, h // hkv
+    kc = torch.randn(b, hkv, t, d, generator=g, device="cuda").bfloat16()
+    vc = torch.randn(b, hkv, t, d, generator=g, device="cuda").bfloat16()
+    int8 = (*engine.kv_quantize(kc), *engine.kv_quantize(vc))  # k, k_s, v, v_s
+    pos = torch.tensor([0, 40, 200, 300, 700, 1024, 1500, 2047], dtype=torch.int32, device="cuda")
+    pos_v = torch.tensor([0, 40, 200, 300, 700, 1024, 1500, 2043], dtype=torch.int32, device="cuda")
+    for name, s_rows, quant in (
+        ("flash_decode_sinks", 1, False),
+        ("flash_decode_verify_sinks", SPEC_ROWS, False),
+        ("flash_decode_int8_sinks", 1, True),
+        ("flash_decode_int8_verify_sinks", SPEC_ROWS, True),
+    ):
+        qq = torch.randn(b, hkv, grp * s_rows, d, generator=g, device="cuda").bfloat16()
+        row_sinks = torch.randn(hkv, grp * s_rows, generator=g, device="cuda")
+        k_, v_ = (int8[0], int8[2]) if quant else (kc, vc)
+        by_window = {}
+        for window in (0, win):
+            kw = dict(scale=scale, rows_per_slot=s_rows, window=window, sinks=row_sinks)
+            if quant:
+                kw.update(k_scale=int8[1], v_scale=int8[3])
+            by_window[window] = decode_row(f"{name} window={window}", qq, k_, v_,
+                                           pos_v if s_rows > 1 else pos, kw)
+        rows[name] = {
+            **by_window[0],
+            "max_abs_err": max(r["max_abs_err"] for r in by_window.values()),
+            f"window_{win}": {n: x for n, x in by_window[win].items() if n != "library_note"},
+        }
+    return rows
 
 
 def live_pairs(t: int, causal: bool, window: int) -> int:
@@ -394,7 +520,8 @@ def path_phase(mode: str) -> dict:
     """One server process in ``mode`` (SERVER_MODES), driven and checked
     → its counts and serving metrics. A fresh process: every count
     starts at 0."""
-    c = llama.CONFIGS[MODEL]
+    model, flags = SERVER_MODES[mode]
+    c = llama.CONFIGS[model]
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
     server_log = ROOT / "build" / f"chip_smoke_server_{mode}.log"
@@ -402,8 +529,8 @@ def path_phase(mode: str) -> dict:
     with open(server_log, "w") as log_f:
         proc = subprocess.Popen(
             [sys.executable, "-m", "dstack_tpu_torch.serve.openai_server",
-             "--model", MODEL, "--device", "cuda", "--decode-kernel", "flash",
-             "--port", str(port), "--seed", "0", *SERVER_MODES[mode]],
+             "--model", model, "--device", "cuda", "--decode-kernel", "flash",
+             "--port", str(port), "--seed", "0", *flags],
             cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT,
         )
         try:
@@ -543,10 +670,12 @@ def _drive_server(c, base: str, proc, mode: str) -> dict:
             raise AssertionError(f"flash_decode launches {launches} != {n} x device steps: {st}")
         if not (st["packed_dispatches"] >= 1 and st["turbo_dispatches"] >= 1 and st["prefix_hits"] >= 1):
             raise AssertionError(f"[{mode}] packed, turbo and prefix-cache dispatches must all run: {st}")
-        own, other = ("int8", "bf16") if mode == "int8" else ("bf16", "int8")
-        if (sum(v for k, v in variants.items() if k.startswith(other))
-                or sum(v for k, v in variants.items() if k.startswith(own)) != launches["flash_decode"]
-                or variants[f"{own}_verify"] != n * st["spec_steps"]):
+        # only the forms of the server's cache, and of its model's sinks
+        own = ("int8" if mode == "int8" else "bf16", "_sinks" if c.attn_sinks else "")
+        ours = {f"{own[0]}_decode{own[1]}", f"{own[0]}_verify{own[1]}"}
+        if (sum(v for k, v in variants.items() if k not in ours)
+                or sum(variants[k] for k in ours) != launches["flash_decode"]
+                or variants[f"{own[0]}_verify{own[1]}"] != n * st["spec_steps"]):
             raise AssertionError(f"[{mode}] K4 variants {variants} vs stats {st}")
     path = {
         "launches": {**launches, **variants},
@@ -563,14 +692,44 @@ def _drive_server(c, base: str, proc, mode: str) -> dict:
     return path
 
 
-def teacher_forced_phase(kv_quant=None) -> dict:
+def llama_tf_params() -> tuple:
+    """llama-3.2-1b at full width and depth, random weights from seed 0."""
+    c = llama.CONFIGS[MODEL]
+    return c, llama.init_params(c, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+
+
+def gpt_oss_tf_params() -> tuple:
+    """gpt-oss-20b at full width and GPT_OSS_TF_LAYERS layers, random
+    weights from seed 0, with the sinks and biases drawn nonzero."""
+    c = dataclasses.replace(llama.CONFIGS[GPT_OSS], n_layers=GPT_OSS_TF_LAYERS)
+    params = llama.init_params(c, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for name, std in GPT_OSS_NONZERO.items():
+        leaf = params["layers"][name]
+        leaf.copy_(torch.randn(leaf.shape, generator=g, device="cuda") * std)
+    return c, params
+
+
+def reset_counts() -> None:
+    flash.LAUNCHES = flash.LAUNCHES_DQ = flash.LAUNCHES_DKV = flash_decode.LAUNCHES = 0
+    for key in flash_decode.LAUNCHES_BY_VARIANT:
+        flash_decode.LAUNCHES_BY_VARIANT[key] = 0
+
+
+def read_counts() -> dict:
+    return {"flash_fwd": flash.LAUNCHES, "flash_decode": flash_decode.LAUNCHES,
+            **flash_decode.LAUNCHES_BY_VARIANT}
+
+
+def teacher_forced_phase(c, params, kv_quant=None) -> dict:
     """Kernel path vs plain path on the card, teacher-forced: one
     300-token prompt (two chunks, the second at q_offset 256), then 8
     decode steps fed the kernel path's greedy tokens, then one
     speculative verify of S = 5 tokens whose draft is the kernel path's
     own next 4 greedy tokens (decoded on a copy of its cache). With
     ``kv_quant="int8"`` every path keeps the int8 cache (the f32 path
-    dequantizes to f32).
+    dequantizes to f32). The counts are set to 0 first; the report
+    carries the kernel launches of the run.
 
     Through 16 bf16 layers the two paths drift apart by the model's own
     bf16 noise (each attention call agrees within one bf16 ulp, yet
@@ -580,9 +739,8 @@ def teacher_forced_phase(kv_quant=None) -> dict:
     relative RMS error is not, and at every step the kernel path's may
     be at most KERNEL_RMS_MARGIN times the plain bf16 path's. A wrong
     mask or a dropped key shows as a multiple of that noise."""
-    c = llama.CONFIGS[MODEL]
+    reset_counts()
     c32 = dataclasses.replace(c, dtype=torch.float32)
-    params = llama.init_params(c, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     params32 = {
         k: {n: w.float() for n, w in v.items()} if isinstance(v, dict) else v.float()
         for k, v in params.items()
@@ -609,6 +767,7 @@ def teacher_forced_phase(kv_quant=None) -> dict:
         "max_kernel_vs_plain": 0.0, "max_kernel_vs_f32": 0.0, "max_plain_vs_f32": 0.0,
         "rel_rms_kernel_vs_f32": 0.0, "rel_rms_plain_vs_f32": 0.0, "argmax_agree": 0,
     }
+    by_check = report["rel_rms_by_check"] = {}  # check → [kernel, plain] vs f32
 
     def rel_rms(a, ref):
         return ((a - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
@@ -623,7 +782,9 @@ def teacher_forced_phase(kv_quant=None) -> dict:
             "rel_rms_plain_vs_f32": rel_rms(p, f),
         }
         if not e["rel_rms_kernel_vs_f32"] <= KERNEL_RMS_MARGIN * e["rel_rms_plain_vs_f32"]:
-            raise AssertionError(f"{what} [{kv_quant or 'bf16'} cache]: kernel path drifts from the f32 path: {e}")
+            raise AssertionError(f"{what} [{c.n_layers} layers, {kv_quant or 'bf16'} cache]: "
+                                 f"kernel path drifts from the f32 path: {e}")
+        by_check[what] = [e["rel_rms_kernel_vs_f32"], e["rel_rms_plain_vs_f32"]]
         for name, v in e.items():
             report[name] = max(report[name], v)
         report["argmax_agree"] += int(
@@ -661,8 +822,10 @@ def teacher_forced_phase(kv_quant=None) -> dict:
     # them, up to bf16 ties between the decode and verify computations)
     preds = logits["kernel"].argmax(dim=-1)[0, :-1]
     report["verify_accepts"] = int((preds == tokens[0, 1:]).cumprod(0).sum())
-    log(f"teacher-forced logits [{kv_quant or 'bf16'} cache] over prefill + 8 decode steps "
-        "+ one verify of S = 5 (max |err|): " + json.dumps(report))
+    report["launches"] = read_counts()
+    log(f"teacher-forced logits [{c.n_layers}-layer {c.vocab_size}-vocab model, "
+        f"{kv_quant or 'bf16'} cache] over prefill + 8 decode steps + one verify of S = 5: "
+        + json.dumps(report))
     return report
 
 
@@ -706,7 +869,8 @@ def _finetune(mode: str) -> dict:
 
 def _kernel_family(name: str) -> str:
     for key, fam in (("flash_fwd_kernel", "K1 flash_fwd"), ("flash_bwd_dq_kernel", "K2 flash_bwd_dq"),
-                     ("flash_bwd_dkv_kernel", "K3 flash_bwd_dkv")):
+                     ("flash_bwd_dkv_kernel", "K3 flash_bwd_dkv"),
+                     ("flash_decode_kernel", "K4 flash_decode")):
         if key in name:
             return fam
     low = name.lower()
@@ -721,28 +885,18 @@ def _kernel_family(name: str) -> str:
     return "elementwise and other"
 
 
-def train_profile_phase() -> dict:
-    """One full fine-tune step at the fine-tune defaults (batch 8 x 2048),
-    traced with torch.profiler after a warm-up step in this process:
-    device time by kernel family, and the device's busy share of the
-    step's host-clock time (kernel intervals merged). The profiler's own
-    host cost lengthens the step, so the busy share is a lower bound."""
+def profile_step(fn) -> dict:
+    """``fn()`` once as a warm-up, then traced with torch.profiler: device
+    time by kernel family, and the device's busy share of the call's
+    host-clock time (kernel intervals merged). The profiler's own host
+    cost lengthens the call, so the busy share is a lower bound."""
     from torch.profiler import ProfilerActivity, profile
 
-    c = llama.CONFIGS[MODEL]
-    opt = train_step.default_optimizer(lr=2e-4, decay_steps=10)
-    state = train_step.init_train_state(c, opt, seed=0, device="cuda")
-    fn = train_step.make_train_step(c, opt)
-    g = torch.Generator(device="cuda").manual_seed(3)
-    tok = torch.randint(0, c.vocab_size, (8, 2048), generator=g, device="cuda")
-    mask = torch.ones_like(tok)
-    mask[:, -1] = 0
-    batch = {"tokens": tok, "targets": torch.roll(tok, -1, dims=1), "mask": mask}
-    fn(state, batch)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(state, batch)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -763,7 +917,7 @@ def train_profile_phase() -> dict:
         elif b > end:
             busy += b - end
             end = b
-    report = {
+    return {
         "step_ms_profiled": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
         "device_busy_share": busy / wall_us if wall_us else None,
@@ -771,9 +925,52 @@ def train_profile_phase() -> dict:
         "kernels_seen": len(kernels),
         "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12]),
     }
+
+
+def train_profile_phase() -> dict:
+    """One full fine-tune step at the fine-tune defaults (batch 8 x 2048),
+    traced after a warm-up step in this process (``profile_step``)."""
+    c = llama.CONFIGS[MODEL]
+    opt = train_step.default_optimizer(lr=2e-4, decay_steps=10)
+    state = train_step.init_train_state(c, opt, seed=0, device="cuda")
+    fn = train_step.make_train_step(c, opt)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tok = torch.randint(0, c.vocab_size, (8, 2048), generator=g, device="cuda")
+    mask = torch.ones_like(tok)
+    mask[:, -1] = 0
+    batch = {"tokens": tok, "targets": torch.roll(tok, -1, dims=1), "mask": mask}
+    report = profile_step(lambda: fn(state, batch))
     log("train step profile (full fine-tune, batch 8 x 2048): " + json.dumps(report))
     del state, fn, batch
     torch.cuda.empty_cache()
+    return report
+
+
+def decode_profile_phase(c, params) -> dict:
+    """One gpt-oss ``decode_step`` at the server's batch (8 slots, the
+    bf16 cache, positions 300-1700, K4's sinks form), traced with
+    ``profile_step``, and its host-clock time untraced (median of 10):
+    where a gpt-oss decode step's time goes, per layer of ``c`` (the
+    comparison's depth; the server runs 24)."""
+    b = 8
+    cache = engine.init_cache(c, b, 2048, device="cuda")
+    tok = torch.arange(b, device="cuda") + 97
+    positions = torch.arange(300, 1900, 200, dtype=torch.int32, device="cuda")
+
+    def step():
+        engine.decode_step(params, cache, tok, positions, c)
+
+    report = profile_step(step)
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    report["step_ms"] = 1e3 * sorted(times)[len(times) // 2]
+    report["layers"] = c.n_layers
+    log(f"decode step profile ({c.n_layers}-layer gpt-oss-20b, batch {b}): " + json.dumps(report))
     return report
 
 
@@ -839,32 +1036,53 @@ def main() -> int:
 
     rows = kernel_phase()
     rows.update(backward_kernel_phase())
+    rows.update(gpt_oss_kernel_phase())
+    torch.cuda.empty_cache()  # the servers need the card's memory
     serve = {mode: path_phase(mode) for mode in SERVER_MODES}
-    for kv_quant in (None, "int8"):
-        teacher_forced_phase(kv_quant)
+    teacher = {}
+    for name, make in ((MODEL, llama_tf_params), (GPT_OSS, gpt_oss_tf_params)):
+        c, params = make()
+        for kv_quant in (None, "int8"):
+            teacher[f"{name}_{kv_quant or 'bf16'}"] = teacher_forced_phase(c, params, kv_quant)
+        if name == GPT_OSS:
+            decode_profile_phase(c, params)
+        del params
+        torch.cuda.empty_cache()
     train = {mode: _finetune(mode) for mode in TRAIN_STEPS}
     train_profile_phase()
     grad_parity_phase()
 
+    # path → (its model, its launch counts)
     by_path = {
-        **{f"serve_{mode}": path["launches"] for mode, path in serve.items()},
-        **{f"train_{mode}": summary["launches"] for mode, summary in train.items()},
+        **{f"serve_{mode}": (SERVER_MODES[mode][0], path["launches"]) for mode, path in serve.items()},
+        **{f"teacher_forced_{key}": (key.rsplit("_", 1)[0], report["launches"])
+           for key, report in teacher.items()},
+        **{f"train_{mode}": (MODEL, summary["launches"]) for mode, summary in train.items()},
     }
+    k1 = ("dstack_tpu_torch/csrc/flash_fwd.cu", "dstack_tpu/ops/flash.py:190", "flash_fwd")
     k4 = ("dstack_tpu_torch/csrc/flash_decode.cu", "dstack_tpu/ops/flash_decode.py:266")
-    meta = {  # kernel row → (source, replaces, its count in by_path)
-        "flash_fwd": ("dstack_tpu_torch/csrc/flash_fwd.cu", "dstack_tpu/ops/flash.py:190", "flash_fwd"),
+    meta = {  # kernel row → (source, replaces, its count in by_path, the model whose paths count)
+        "flash_fwd": (*k1, MODEL),
+        "flash_fwd_gpt_oss": (*k1, GPT_OSS),
         "flash_bwd_dq": ("dstack_tpu_torch/csrc/flash_bwd_dq.cu", "dstack_tpu/ops/flash.py:467",
-                         "flash_bwd_dq"),
+                         "flash_bwd_dq", None),
         "flash_bwd_dkv": ("dstack_tpu_torch/csrc/flash_bwd_dkv.cu", "dstack_tpu/ops/flash.py:523",
-                          "flash_bwd_dkv"),
-        "flash_decode": (*k4, "bf16_decode"),
-        "flash_decode_verify": (*k4, "bf16_verify"),
-        "flash_decode_int8": (*k4, "int8_decode"),
-        "flash_decode_int8_verify": (*k4, "int8_verify"),
+                          "flash_bwd_dkv", None),
+        **{name: (*k4, form, None) for name, form in (
+            ("flash_decode", "bf16_decode"),
+            ("flash_decode_verify", "bf16_verify"),
+            ("flash_decode_int8", "int8_decode"),
+            ("flash_decode_int8_verify", "int8_verify"),
+            ("flash_decode_sinks", "bf16_decode_sinks"),
+            ("flash_decode_verify_sinks", "bf16_verify_sinks"),
+            ("flash_decode_int8_sinks", "int8_decode_sinks"),
+            ("flash_decode_int8_verify_sinks", "int8_verify_sinks"),
+        )},
     }
     kernels = []
-    for name, (src, rep, count) in meta.items():
-        counts = {p: n[count] for p, n in by_path.items() if n.get(count)}
+    for name, (src, rep, count, model) in meta.items():
+        counts = {p: n[count] for p, (m, n) in by_path.items()
+                  if n.get(count) and model in (None, m)}
         if not counts:
             raise AssertionError(f"{name} was launched on no path: {by_path}")
         kernels.append({

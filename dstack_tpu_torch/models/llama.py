@@ -6,9 +6,13 @@ dstack_tpu/models/llama.py:548), so one JAX leaf maps to exactly one
 tensor and :func:`params_from_jax` is a key-for-key copy. The serving
 engine loops over layers in Python where JAX runs ``lax.scan``.
 
-Only the dense Llama path is here: the JAX config's model-family deltas
-(MoE, MLA, sliding windows, softcaps, qk norms, ...) arrive with the
-serving-breadth slice, so the port's config has no fields for them.
+Of the JAX config's model-family deltas the port carries the gpt-oss
+ones (llama.py:45-59,160-174): sparse experts (``models/moe.py``), q/k/v
+and output biases, attention sinks, alternating sliding windows, the
+linear top-k-softmax router with expert biases, the clamped GLU and
+yarn rope. Serving runs them all; the whole-sequence :func:`forward`
+(training) runs the dense Llama only and refuses a gpt-oss config. The
+other families (MLA, softcaps, qk norms, ...) have no fields yet.
 
 :func:`forward` is the whole-sequence forward the trainer differentiates
 (counterpart of ``forward``, dstack_tpu/models/llama.py:1431): attention
@@ -51,6 +55,29 @@ class LlamaConfig:
     attn_scale: Optional[float] = None  # override 1/sqrt(head_dim)
     # recompute each layer's activations in the backward (training only)
     remat: bool = True
+    # Mixture-of-Experts (models/moe.py): n_experts == 0 → dense MLP
+    n_experts: int = 0
+    experts_per_token: int = 2
+    capacity_factor: float = 1.25
+    # --- gpt-oss deltas (all default to Llama behavior) ---
+    qkv_bias: bool = False  # biases bq/bk/bv on the q/k/v projections
+    proj_bias: bool = False  # bias bo on the o projection
+    # learned per-head sink logits joining the softmax denominator only
+    # (params["layers"]["sinks"], f32)
+    attn_sinks: bool = False
+    sliding_window: int = 0  # 0 = full attention
+    # every `sliding_pattern` layers the LAST is global, the rest use the
+    # window (pattern 2: layers 0, 2, ... sliding); 0/1 = uniform window
+    sliding_pattern: int = 0
+    # linear router (f32 bias b_router), gates softmaxed over the top-k
+    # logits only
+    router_topk_softmax: bool = False
+    # biases on every expert matmul (b_gate/b_up_e [E,F], b_down_e [E,H])
+    moe_bias: bool = False
+    # expert activation: "silu" (SwiGLU) | "oai_glu" (clamped glu:
+    # (up+1) * gate * sigmoid(1.702 * gate), inputs clamped to act_limit)
+    moe_act: str = "silu"
+    act_limit: float = 7.0
 
     def __post_init__(self):
         if self.n_heads % self.n_kv_heads:
@@ -76,11 +103,21 @@ class LlamaConfig:
         return self.attn_scale if self.attn_scale is not None else self.head_dim**-0.5
 
     def num_params(self) -> int:
-        """Parameter count of the dense model (the JAX ``num_params`` with
-        every family delta off)."""
-        e, h = self.vocab_size * self.hidden_size, self.hidden_size
-        attn = 2 * h * self.q_dim + 2 * h * self.kv_dim
-        per_layer = attn + 2 * h + 3 * h * self.intermediate_size
+        """Parameter count (the JAX ``num_params`` for the deltas the port
+        carries): attention with its biases, every expert's FFN and
+        biases, the router, the sinks."""
+        e, h, f = self.vocab_size * self.hidden_size, self.hidden_size, self.intermediate_size
+        attn = (
+            2 * h * self.q_dim + 2 * h * self.kv_dim
+            + (self.q_dim + 2 * self.kv_dim if self.qkv_bias else 0)
+            + (h if self.proj_bias else 0)
+        )
+        mlp_bias = f + h if self.proj_bias and not self.n_experts else 0
+        moe_bias = self.n_experts * (1 + 2 * f + h) if self.moe_bias else 0
+        per_layer = (
+            attn + 2 * h + max(1, self.n_experts) * 3 * h * f + mlp_bias
+            + h * self.n_experts + moe_bias + (self.n_heads if self.attn_sinks else 0)
+        )
         return e + self.n_layers * per_layer + h + (0 if self.tie_embeddings else e)
 
 
@@ -100,48 +137,93 @@ LLAMA_TINY_64 = LlamaConfig(  # head_dim-64 tiny: kernel-eligible shapes
     remat=False,
 )
 
+_GPT_OSS_COMMON = dict(
+    vocab_size=201088, hidden_size=2880, n_heads=64, n_kv_heads=8,
+    head_dim=64, intermediate_size=2880, rope_theta=150000.0,
+    norm_eps=1e-5, max_seq_len=131072,
+    rope_scaling=("yarn", 32.0, 32.0, 1.0, 4096.0, 1.3465735902799727, False),
+    qkv_bias=True, proj_bias=True, attn_sinks=True,
+    sliding_window=128, sliding_pattern=2,
+    experts_per_token=4, router_topk_softmax=True, moe_bias=True,
+    moe_act="oai_glu",
+)
+GPT_OSS_20B = LlamaConfig(  # openai/gpt-oss-20b (20.9B, 3.6B active)
+    **_GPT_OSS_COMMON, n_layers=24, n_experts=32,
+)
+GPT_OSS_120B = LlamaConfig(  # openai/gpt-oss-120b (116.8B; does not fit one 80 GB card)
+    **_GPT_OSS_COMMON, n_layers=36, n_experts=128,
+)
+
 CONFIGS = {
     "llama-3-8b": LLAMA_3_8B,
     "llama-3.2-1b": LLAMA_32_1B,
     "llama-tiny": LLAMA_TINY,
     "llama-tiny-64": LLAMA_TINY_64,
+    "gpt-oss-20b": GPT_OSS_20B,
+    "gpt-oss-120b": GPT_OSS_120B,
 }
+
+# leaves kept in f32 whatever the model dtype (JAX ``init_params`` makes
+# them f32: the router's logit bias and the sink logits)
+F32_LEAVES = ("b_router", "sinks")
 
 
 def param_shapes(config: LlamaConfig) -> dict:
-    """Shape tree of the dense parameters, matching the JAX package's
-    ``init_params`` output key for key (stacked ``[L, ...]`` layers)."""
+    """Shape tree of the parameters, matching the JAX package's
+    ``init_params`` output key for key (stacked ``[L, ...]`` layers): the
+    dense MLP, or with ``n_experts`` the router and the stacked expert
+    FFNs, plus the gpt-oss biases and sinks when the config has them."""
     c = config
     L, E, F_ = c.n_layers, c.hidden_size, c.intermediate_size
-    shapes = {
-        "embed": (c.vocab_size, E),
-        "layers": {
-            "wq": (L, E, c.q_dim),
-            "wk": (L, E, c.kv_dim),
-            "wv": (L, E, c.kv_dim),
-            "wo": (L, c.q_dim, E),
-            "w_gate": (L, E, F_),
-            "w_up": (L, E, F_),
-            "w_down": (L, F_, E),
-            "attn_norm": (L, E),
-            "mlp_norm": (L, E),
-        },
-        "final_norm": (E,),
+    layers = {
+        "wq": (L, E, c.q_dim),
+        "wk": (L, E, c.kv_dim),
+        "wv": (L, E, c.kv_dim),
+        "wo": (L, c.q_dim, E),
+        "attn_norm": (L, E),
+        "mlp_norm": (L, E),
     }
+    if c.n_experts:
+        X = c.n_experts
+        layers.update(w_router=(L, E, X), w_gate=(L, X, E, F_), w_up=(L, X, E, F_),
+                      w_down=(L, X, F_, E))
+        if c.moe_bias:
+            layers.update(b_router=(L, X), b_gate=(L, X, F_), b_up_e=(L, X, F_),
+                          b_down_e=(L, X, E))
+    else:
+        layers.update(w_gate=(L, E, F_), w_up=(L, E, F_), w_down=(L, F_, E))
+        if c.proj_bias:
+            raise NotImplementedError(
+                "dense-MLP biases (b_up/b_down, StarCoder2) come with a later families slice"
+            )
+    if c.qkv_bias:
+        layers.update(bq=(L, c.q_dim), bk=(L, c.kv_dim), bv=(L, c.kv_dim))
+    if c.proj_bias:
+        layers["bo"] = (L, E)
+    if c.attn_sinks:
+        layers["sinks"] = (L, c.n_heads)
+    shapes = {"embed": (c.vocab_size, E), "layers": layers, "final_norm": (E,)}
     if not c.tie_embeddings:
         shapes["lm_head"] = (E, c.vocab_size)
     return shapes
 
 
+def _leaf_dtype(name: str, config: LlamaConfig, dtype=None):
+    return torch.float32 if name in F32_LEAVES else (dtype or config.dtype)
+
+
 def init_params(
     config: LlamaConfig, generator: torch.Generator, device="cuda"
 ) -> dict:
-    """Random dense parameters with the JAX ``init_params`` shapes and
+    """Random parameters with the JAX ``init_params`` shapes and
     distributions: N(0, 0.02) projections (``wo``/``w_down`` scaled by
-    1/sqrt(2L)), unit norms. Drawn in f32 from ``generator`` (which must
-    live on ``device``) and cast to the config dtype; the streams differ
-    from JAX's, so parity tests carry weights across with
-    :func:`params_from_jax` instead."""
+    1/sqrt(2L)), unit norms, zero biases and sinks. Drawn in f32 from
+    ``generator`` (which must live on ``device``) and cast to the config
+    dtype; the streams differ from JAX's, so parity tests carry weights
+    across with :func:`params_from_jax` instead. The stacked expert
+    leaves ``[L, E, ...]`` are drawn one layer at a time into a
+    preallocated tensor, so the f32 transient is one layer's (1.06 GB
+    for gpt-oss-20b's ``w_gate``, not 25.5 GB)."""
     c = config
     std = 0.02
     down = std / math.sqrt(2 * c.n_layers)
@@ -154,17 +236,23 @@ def init_params(
         )
         return (x * scale).to(c.dtype)
 
-    def ones(shape):
-        return torch.ones(shape, device=device, dtype=c.dtype)
+    def layer_leaf(name, shape):
+        if name.endswith("norm"):
+            return torch.ones(shape, device=device, dtype=c.dtype)
+        if name.startswith("b") or name == "sinks":
+            return torch.zeros(shape, device=device, dtype=_leaf_dtype(name, c))
+        if len(shape) == 4:  # [L, E, ...] experts: one layer's draw at a time
+            out = torch.empty(shape, device=device, dtype=c.dtype)
+            for i in range(shape[0]):
+                out[i] = normal(shape[1:], scales.get(name, std))
+            return out
+        return normal(shape, scales.get(name, std))
 
-    layers = {
-        name: ones(s) if name.endswith("norm") else normal(s, scales.get(name, std))
-        for name, s in shapes["layers"].items()
-    }
+    layers = {name: layer_leaf(name, s) for name, s in shapes["layers"].items()}
     params = {
         "embed": normal(shapes["embed"]),
         "layers": layers,
-        "final_norm": ones(shapes["final_norm"]),
+        "final_norm": torch.ones(shapes["final_norm"], device=device, dtype=c.dtype),
     }
     if "lm_head" in shapes:
         params["lm_head"] = normal(shapes["lm_head"])
@@ -175,15 +263,15 @@ def params_from_jax(
     tree: dict, config: LlamaConfig, device="cuda", dtype=None
 ) -> dict:
     """Carry a JAX parameter tree (its leaves as numpy arrays) across:
-    same keys, same stacked layout, one tensor per leaf. Raises on a
-    missing, extra or misshapen leaf rather than guessing."""
-    dtype = dtype or config.dtype
+    same keys, same stacked layout, one tensor per leaf, in ``dtype`` (the
+    config's by default) but for the f32 leaves (:data:`F32_LEAVES`).
+    Raises on a missing, extra or misshapen leaf rather than guessing."""
     shapes = param_shapes(config)
 
     def convert(sub_tree, sub_shapes, path):
         if set(sub_tree) != set(sub_shapes):
             raise ValueError(
-                f"params{path}: keys {sorted(sub_tree)} != dense Llama "
+                f"params{path}: keys {sorted(sub_tree)} != the config's "
                 f"keys {sorted(sub_shapes)}"
             )
         out = {}
@@ -200,7 +288,7 @@ def params_from_jax(
             if a.dtype not in (np.float16, np.float32, np.float64):
                 a = a.astype(np.float32)  # bfloat16 numpy has no torch view
             out[key] = torch.from_numpy(np.require(a, requirements=["C", "W"])).to(
-                device=device, dtype=dtype
+                device=device, dtype=_leaf_dtype(key, config, dtype)
             )
         return out
 
@@ -230,6 +318,21 @@ def act_fn(config: LlamaConfig):
     return F.silu
 
 
+def layer_windows(config: LlamaConfig) -> list[int]:
+    """Per-layer attention window (0 = global), the JAX ``layer_windows``
+    (llama.py:937): ``sliding_pattern == p`` makes the last layer of
+    every group of ``p`` global and the others sliding (gpt-oss, p = 2:
+    even layers slide, odd layers are global); otherwise the window is
+    uniform."""
+    c = config
+    if not c.sliding_window:
+        return [0] * c.n_layers
+    p = c.sliding_pattern
+    if p > 1:
+        return [0 if i % p == p - 1 else c.sliding_window for i in range(c.n_layers)]
+    return [c.sliding_window] * c.n_layers
+
+
 def rope_freqs(
     positions: torch.Tensor,
     head_dim: int,
@@ -237,7 +340,11 @@ def rope_freqs(
     scaling: Optional[tuple] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """positions [T] → (cos, sin) each [T, head_dim//2], f32, with the
-    "llama3" / "linear" rescalings of the JAX ``rope_freqs``."""
+    "llama3", "linear" and "yarn" rescalings of the JAX ``rope_freqs``
+    (llama.py:1008-1045). Yarn is NTK-by-parts: ``("yarn", factor,
+    beta_fast, beta_slow, orig_ctx, attention_factor[, truncate])``;
+    gpt-oss passes ``truncate=False`` (the raw correction boundaries) and
+    ``attention_factor`` multiplies cos and sin."""
     dev = positions.device
     inv = 1.0 / (
         theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=dev) / head_dim)
@@ -245,7 +352,25 @@ def rope_freqs(
     if scaling is not None and scaling[0] == "linear":
         inv = inv / float(scaling[1])
     elif scaling is not None and scaling[0] == "yarn":
-        raise NotImplementedError("yarn rope scaling comes with the families slice")
+        _, factor, beta_fast, beta_slow, orig_ctx, att_f = scaling[:6]
+        truncate = scaling[6] if len(scaling) > 6 else True
+
+        def corr_dim(rot):  # dim whose wavelength fits `rot` rotations
+            return (head_dim * math.log(orig_ctx / (rot * 2 * math.pi))) / (2 * math.log(theta))
+
+        if truncate:
+            low = max(math.floor(corr_dim(beta_fast)), 0)
+            high = min(math.ceil(corr_dim(beta_slow)), head_dim - 1)
+        else:
+            low = max(corr_dim(beta_fast), 0)
+            high = min(corr_dim(beta_slow), head_dim - 1)
+        if low == high:
+            high += 0.001  # HF's singularity guard
+        ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=dev) - low)
+                / (high - low)).clamp(0.0, 1.0)
+        inv = (inv / factor) * ramp + inv * (1.0 - ramp)
+        ang = positions.to(torch.float32)[:, None] * inv[None, :]
+        return torch.cos(ang) * att_f, torch.sin(ang) * att_f
     elif scaling is not None:
         if scaling[0] == "llama3":
             scaling = scaling[1:]
@@ -258,8 +383,9 @@ def rope_freqs(
 
 
 def dual_rope_freqs(config: LlamaConfig, positions: torch.Tensor) -> tuple:
-    """→ ((cos, sin), (cos_local, sin_local)); dense Llama has one rope,
-    so both pairs are the same tensors."""
+    """→ ((cos, sin), (cos_local, sin_local)); the port's families have
+    one rope (yarn included) for every layer, so both pairs are the same
+    tensors."""
     g = rope_freqs(positions, config.rope_dim, config.rope_theta, config.rope_scaling)
     return g, g
 
@@ -399,6 +525,11 @@ def forward(
     under ``torch.utils.checkpoint``: its activations, flash output and
     logsumexp included, are recomputed in the backward."""
     c = config
+    if c.n_experts or c.attn_sinks or c.qkv_bias or c.proj_bias or c.sliding_window:
+        raise NotImplementedError(
+            "forward: the gpt-oss deltas (experts, sinks, biases, windows) are "
+            "served but not trained yet: gpt-oss training is a later slice"
+        )
     x = embed_tokens(params, tokens, c)
     pos = positions if positions is not None else torch.arange(tokens.shape[1], device=tokens.device)
     cos, sin = rope_freqs(pos, c.rope_dim, c.rope_theta, c.rope_scaling)

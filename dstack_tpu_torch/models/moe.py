@@ -1,0 +1,155 @@
+"""Sparse Mixture-of-Experts MLP (counterpart of dstack_tpu.models.moe).
+
+The same function as the JAX ``moe_mlp`` (dstack_tpu/models/moe.py:159),
+capacity drops included. Each batch row is a routing group: every
+expert has ``capacity`` slots a row, assigned in sequence order by a
+cumsum over the row's tokens, and a token's earlier (higher-gate)
+choices take priority over every token's later ones. A choice that
+finds its expert full is dropped (its combine weight is 0; the residual
+stream carries the token). Pad tokens route like any other, so the
+caller must pass the shapes the JAX engine does: ``[B, 1, H]`` at
+decode, ``[B, S, H]`` at verify, ``[1, C, H]`` for a serial chunk and
+``[G, C, H]`` for a packed wave.
+
+JAX builds one-hot dispatch and combine tensors ``[B, T, E, C]`` and
+runs three einsums. Here the router returns each choice's expert and
+slot, the dispatch is a scatter of token rows into ``[E, B, C, H]``,
+the expert FFNs are batched matmuls over the stacked expert axis, and
+the combine is a gather: the same arithmetic without the one-hot
+products. The FFNs still run on every expert's ``C`` slots, used or
+not, so a step reads every expert's weights, as JAX's dense form does.
+The JAX module has no Pallas kernel, so this is plain PyTorch.
+
+Ported branches: the softmax top-k router (optionally renormalized) and
+the gpt-oss router (a linear layer with an f32 logit bias, selecting by
+raw logit and softmaxing over the selected logits), SwiGLU and gpt-oss's
+clamped GLU, the expert biases. The Llama4 sigmoid router, DeepSeek's
+sigmoid scores, selection bias, group limit and routed scale, the shared
+expert and the aux losses (training) raise ``NotImplementedError``.
+"""
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from dstack_tpu_torch.models.llama import matmul_f32
+
+
+def expert_capacity(
+    seq_len: int, n_experts: int, experts_per_token: int, capacity_factor: float
+) -> int:
+    """Per-expert token slots a batch row (a multiple of 8, at least 8,
+    at most ``seq_len``): the JAX ``expert_capacity``."""
+    raw = capacity_factor * seq_len * experts_per_token / n_experts
+    cap = max(8, int(-(-raw // 8) * 8))
+    return min(cap, seq_len)
+
+
+def router(
+    x: torch.Tensor,  # [B, T, H] (model dtype)
+    w_router: torch.Tensor,  # [H, E]
+    n_experts: int,
+    experts_per_token: int,
+    capacity: int,
+    renorm: bool = False,
+    sigmoid: bool = False,
+    score: str = "softmax",
+    groups: tuple = (),
+    bias: Optional[torch.Tensor] = None,
+    routed_scale: float = 1.0,
+    pre_bias: Optional[torch.Tensor] = None,  # gpt-oss linear router bias [E]
+    topk_softmax: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k routing with capacity → (expert [B, T, k] int64, slot
+    [B, T, k] int64, combine [B, T, k] in x's dtype). ``combine`` is the
+    gate rounded to x's dtype for a kept choice and 0 for a dropped one
+    (``slot >= capacity``); JAX's ``dispatch[b, t, e, c]`` is 1 exactly
+    where some choice of token t has expert e, slot c and a nonzero
+    keep. Logits are f32 products of the model-dtype inputs (JAX's
+    ``preferred_element_type=f32``): rounding them to bf16 flips choices."""
+    if sigmoid:
+        raise NotImplementedError("router: the Llama4 sigmoid router comes with the Llama4 families slice")
+    if score != "softmax" or groups or bias is not None or routed_scale != 1.0:
+        raise NotImplementedError(
+            "router: DeepSeek's sigmoid scores, selection bias, group limit and "
+            "routed scale come with the DeepSeek families slice"
+        )
+    k = experts_per_token
+    logits = matmul_f32(x, w_router.to(x.dtype))  # [B, T, E] f32
+    if pre_bias is not None:
+        logits = logits + pre_bias.float()
+    if topk_softmax:
+        top_logits, expert = torch.topk(logits, k, dim=-1)
+        gates = torch.softmax(top_logits, dim=-1)
+    else:
+        gates, expert = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
+    if renorm:
+        gates = gates / gates.sum(dim=-1, keepdim=True)
+    # slot of choice j of token t in its expert's buffer: the row's tokens
+    # before t with the same choice-j expert, past every assignment of the
+    # row's earlier choices (JAX's cumsum(onehot_j) - 1 + used.sum)
+    onehot = F.one_hot(expert, n_experts)  # [B, T, k, E]
+    per_choice = onehot.sum(dim=1, keepdim=True)  # [B, 1, k, E]
+    earlier = per_choice.cumsum(dim=2) - per_choice  # choices before j, whole row
+    pos = onehot.cumsum(dim=1) - 1 + earlier  # [B, T, k, E]
+    slot = pos.gather(-1, expert[..., None])[..., 0]
+    combine = torch.where(slot < capacity, gates, torch.zeros_like(gates)).to(x.dtype)
+    return expert, slot, combine
+
+
+def _oai_glu(g: torch.Tensor, u: torch.Tensor, limit: float) -> torch.Tensor:
+    """gpt-oss clamped GLU: (up + 1) * gate * sigmoid(1.702 * gate), gate
+    clamped above and up on both sides (moe.py:221-226)."""
+    g = g.clamp(max=limit)
+    u = u.clamp(-limit, limit)
+    return (u + 1.0) * (g * torch.sigmoid(1.702 * g))
+
+
+def moe_mlp(
+    x: torch.Tensor,  # [B, T, H]: the normed hidden states
+    layer: dict,  # w_router [H,E], w_gate/w_up [E,H,F], w_down [E,F,H] (+ biases)
+    n_experts: int,
+    experts_per_token: int,
+    capacity_factor: float,
+    renorm: bool = False,
+    topk_softmax: bool = False,
+    act: str = "silu",  # "silu" SwiGLU | "oai_glu" gpt-oss clamped glu
+    act_limit: float = 7.0,
+) -> torch.Tensor:
+    """Sparse FFN → [B, T, H] in x's dtype. Expert products in x's dtype
+    (each a matmul with f32 accumulation), biases added in that dtype,
+    the k weighted expert outputs summed in f32 and rounded once, as
+    JAX's combine einsum does."""
+    if "w_shared_gate" in layer or "router_bias" in layer:
+        raise NotImplementedError("moe_mlp: shared experts and selection bias come with later families slices")
+    if act not in ("silu", "oai_glu"):
+        raise ValueError(f"moe_mlp: unknown act {act!r}")
+    b, t, h = x.shape
+    e, k = n_experts, experts_per_token
+    cap = expert_capacity(t, e, k, capacity_factor)
+    expert, slot, combine = router(
+        x, layer["w_router"], e, k, cap, renorm=renorm,
+        pre_bias=layer.get("b_router"), topk_softmax=topk_softmax,
+    )
+    # flat row of each choice in [E, B, C]; a dropped choice goes to the
+    # extra row E*B*C (zeros in, discarded out)
+    bi = torch.arange(b, device=x.device)[:, None, None]
+    keep = slot < cap
+    dump = e * b * cap
+    row = torch.where(keep, (expert * b + bi) * cap + slot.clamp(max=cap - 1), dump)
+    xe = x.new_zeros(dump + 1, h)
+    xe.index_copy_(0, row.reshape(-1), x[:, :, None, :].expand(b, t, k, h).reshape(-1, h))
+    xe = xe[:dump].view(e, b * cap, h)
+    g = torch.matmul(xe, layer["w_gate"])  # [E, B*C, F]
+    u = torch.matmul(xe, layer["w_up"])
+    if "b_gate" in layer:  # gpt-oss expert biases [E, F]
+        g = g + layer["b_gate"][:, None, :].to(g.dtype)
+        u = u + layer["b_up_e"][:, None, :].to(u.dtype)
+    inner = _oai_glu(g, u, act_limit) if act == "oai_glu" else F.silu(g) * u
+    y = torch.matmul(inner, layer["w_down"])  # [E, B*C, H]
+    if "b_down_e" in layer:
+        y = y + layer["b_down_e"][:, None, :].to(y.dtype)
+    y = torch.cat([y.reshape(dump, h), y.new_zeros(1, h)])
+    picked = y.index_select(0, row.reshape(-1)).view(b, t, k, h)
+    return (picked.float() * combine.float()[..., None]).sum(dim=2).to(x.dtype)

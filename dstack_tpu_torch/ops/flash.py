@@ -74,13 +74,17 @@ def flash_attention_plain(
     kv_offset: int = 0,
     window: int = 0,
     softcap: float = 0.0,
+    sinks: Optional[torch.Tensor] = None,  # [H] per-head sink logits
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Masked-einsum attention → (o [B, H, Tq, D], lse [B, H, Tq] f32):
     the JAX ``_xla_attention`` (dstack_tpu/ops/attention.py:44) with the
     logsumexp beside it. Scores in f32, softmax in f32, probabilities
     cast to v's dtype before the P·V product. A row with no live key
     gives 0 and lse NEG_INF, the flash kernels' convention (JAX's
-    averages v there; no serving or training row has no live key)."""
+    averages v there; no serving or training row has no live key).
+    With ``sinks`` the softmax is :func:`sink_softmax` (the sink joins
+    the denominator only; a row with no live key gives 0 there in JAX
+    too); ``lse`` stays the sink-less scores' logsumexp."""
     b, h, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     scale = float(scale) if scale is not None else d**-0.5
@@ -101,12 +105,36 @@ def flash_attention_plain(
             keep = keep & (qi - kj < window)
         s = torch.where(keep[:, None], s, torch.full_like(s, NEG_INF))  # over heads
     live = s.amax(dim=-1) > NEG_INF / 2  # [B, H, Tq]
-    p = torch.softmax(s, dim=-1)
+    if sinks is not None:
+        p = sink_softmax(s, sinks.float().reshape(1, -1, 1, 1))
+    else:
+        p = torch.softmax(s, dim=-1)
     o = torch.matmul(p.to(v.dtype), v)
     lse = torch.logsumexp(s, dim=-1)
     o = torch.where(live[..., None], o, torch.zeros_like(o))
     lse = torch.where(live, lse, torch.full_like(lse, NEG_INF))
     return o, lse
+
+
+def sink_softmax(s: torch.Tensor, sink: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis with a learned sink logit joining the
+    DENOMINATOR only (gpt-oss attention sinks; the JAX ``sink_softmax``,
+    dstack_tpu/ops/attention.py:32). ``s`` is the masked f32 scores;
+    ``sink`` broadcasts against it with a trailing singleton key axis."""
+    m = torch.maximum(s.amax(dim=-1, keepdim=True), sink)
+    e = torch.exp(s - m)
+    return e / (e.sum(dim=-1, keepdim=True) + torch.exp(sink - m))
+
+
+def sink_postscale(o: torch.Tensor, lse: torch.Tensor, sinks: torch.Tensor) -> torch.Tensor:
+    """Apply attention sinks AFTER a sink-less softmax (the JAX
+    ``sink_postscale``, attention.py:94): the sink joins the denominator
+    only, so the sinked output is the exact rescale ``o · σ(lse - sink)``
+    of the sink-less one. o [B, H, Tq, D], lse [B, H, Tq] f32 of the same
+    call (natural log; NEG_INF for a row with no live key, whose o is 0),
+    sinks [H] → o in its dtype."""
+    gate = torch.sigmoid(lse - sinks.float().reshape(1, -1, 1))[..., None]
+    return (o.float() * gate).to(o.dtype)
 
 
 def _check_kernel_args(q, k, v, **like_q) -> None:

@@ -1,5 +1,5 @@
-"""KV-cache inference engine for dense Llama on PyTorch (counterpart of
-dstack_tpu.serve.engine).
+"""KV-cache inference engine on PyTorch for dense Llama and gpt-oss
+(counterpart of dstack_tpu.serve.engine).
 
 The engine owns a fixed pool of ``max_batch`` sequence slots over
 preallocated KV caches ``[L, B, Hkv, T_max, D]``; a request prefills its
@@ -17,6 +17,12 @@ macro-step and speculative verify through the ragged flash-decode kernel
 attention with per-row offsets, as JAX's does. On the CPU the kernels
 take their plain versions, which is what the parity tests run.
 
+gpt-oss runs through the same functions: per-layer windows from
+``layer_windows``, q/k/v and output biases, attention sinks (K1 with the
+exact σ(lse - sink) rescale in a serial chunk, the sinks form of K4 at
+decode and verify, ``sink_softmax`` on the plain paths) and the sparse
+MoE MLP (``models/moe.py``) wherever a layer carries ``w_router``.
+
 The engine runs the JAX engine's default configuration: packed
 multi-slot prefill (``prefill_pack``), prompt-lookup speculative decoding
 (``spec_draft``), device-side greedy macro-steps (``turbo_steps``), the
@@ -30,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from dstack_tpu_torch.models import moe
 from dstack_tpu_torch.models.llama import (
     LlamaConfig,
     _proj,
@@ -39,6 +46,7 @@ from dstack_tpu_torch.models.llama import (
     embed_tokens,
     head_matmul,
     layer_params,
+    layer_windows,
     model_norm,
 )
 from dstack_tpu_torch.ops.attention import attention
@@ -259,14 +267,31 @@ def _mlp(x: torch.Tensor, layer: dict, c: LlamaConfig) -> torch.Tensor:
 
 
 def _mlp_out(x: torch.Tensor, layer: dict, c: LlamaConfig) -> torch.Tensor:
+    """The MLP sublayer's output: the sparse experts when the layer
+    carries a router (routed on x's own [B, T, H] shape: each batch row
+    is a routing group), else the dense SwiGLU."""
     m = model_norm(x, layer["mlp_norm"], c)
+    if "w_router" in layer:
+        return moe.moe_mlp(
+            m, layer, c.n_experts, c.experts_per_token, c.capacity_factor,
+            topk_softmax=c.router_topk_softmax, act=c.moe_act, act_limit=c.act_limit,
+        )
     u = _proj(layer, "w_up", m)
     g = _proj(layer, "w_gate", m)
     return _proj(layer, "w_down", act_fn(c)(g) * u)
 
 
 def _qkv(h: torch.Tensor, layer: dict, c: LlamaConfig) -> tuple:
-    return _proj(layer, "wq", h), _proj(layer, "wk", h), _proj(layer, "wv", h)
+    q, k, v = _proj(layer, "wq", h), _proj(layer, "wk", h), _proj(layer, "wv", h)
+    if c.qkv_bias:
+        q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
+    return q, k, v
+
+
+def _attn_out(o: torch.Tensor, layer: dict, c: LlamaConfig) -> torch.Tensor:
+    """The o projection of the attention output [..., q_dim] (+ ``bo``)."""
+    ao = _proj(layer, "wo", o)
+    return ao + layer["bo"] if c.proj_bias else ao
 
 
 def _embed_lookup(params: dict, tokens: torch.Tensor, c: LlamaConfig) -> torch.Tensor:
@@ -293,12 +318,12 @@ def _rope_rows(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 def _scan_layers_kv(params: dict, cache: dict, x: torch.Tensor, one_layer, c: LlamaConfig):
     """Drive ``one_layer(x, layer, ck, cv, window) -> x`` over the layers
-    (the Python loop where JAX runs ``lax.scan``); ``ck``/``cv`` are the
-    layer's cache views (or int8 view pairs), updated in place → (final
-    hidden, cache)."""
-    for i in range(c.n_layers):
+    (the Python loop where JAX runs ``lax.scan``) with each layer's window
+    from ``layer_windows``; ``ck``/``cv`` are the layer's cache views (or
+    int8 view pairs), updated in place → (final hidden, cache)."""
+    for i, window in enumerate(layer_windows(c)):
         ck, cv = _cache_layer(cache, i)
-        x = one_layer(x, layer_params(params, i), ck, cv, 0)
+        x = one_layer(x, layer_params(params, i), ck, cv, window)
     return x, cache
 
 
@@ -323,12 +348,15 @@ def _prefill_one_layer(c: LlamaConfig, ropes: tuple, *, rope_apply, kv_update, q
         # whole rows: keys past each causal frontier are masked (and the
         # kernel never reads their tiles), so stale data is never used
         row_k, row_v = kv_update(ck, cv, k, v)
+        # serving never differentiates: a sinks model rides K1 with the
+        # exact σ(lse - sink) rescale in a serial chunk
         o = attention(
             q.contiguous(), row_k, row_v, causal=True, scale=scale,
             q_offset=q_offset, window=window, impl=impl,
+            sinks=layer["sinks"] if c.attn_sinks else None, sinks_forward_only=True,
         )
         o = o.transpose(1, 2).reshape(b, cl, c.q_dim)
-        x = x + _proj(layer, "wo", o)
+        x = x + _attn_out(o, layer, c)
         return _mlp(x, layer, c)
 
     return one_layer
@@ -415,16 +443,35 @@ def prefill_packed_step(
     return _head_logits(params, last, c), cache
 
 
-def _flash_attend(q_rows, ck, cv, positions, window, *, config, scale, rows_per_slot):
-    """The ragged kernel dispatch shared by decode_step (one row group a
-    slot) and verify_step (``rows_per_slot`` = S): the int8 tuple
-    unpacked into values and scales (the ``mesh=None``, sink-less form of
-    the JAX ``_flash_attend``)."""
+def _row_sinks(layer: dict, c: LlamaConfig, rows_per_slot: int) -> Optional[torch.Tensor]:
+    """The layer's [H] sink leaf expanded to K4's [Hkv, G * S] rows: row
+    g*S + s carries group g's sink (dstack_tpu/serve/engine.py:1037-1042);
+    None for a model without sinks."""
+    if not c.attn_sinks:
+        return None
+    grp = c.n_heads // c.n_kv_heads
+    snk = layer["sinks"].float().view(c.n_kv_heads, grp, 1)
+    return snk.expand(c.n_kv_heads, grp, rows_per_slot).reshape(c.n_kv_heads, grp * rows_per_slot)
+
+
+def _attend_cache(q_rows, ck, cv, positions, window, *, config, scale, rows_per_slot,
+                  sinks, decode_kernel):
+    """The cache attention of decode_step (one row group a slot) and
+    verify_step (``rows_per_slot`` = S): the ragged kernel with the int8
+    tuple unpacked into values and scales (the ``mesh=None`` form of the
+    JAX ``_flash_attend``), or with ``decode_kernel="einsum"`` the plain
+    masked attention over the whole (dequantized) row."""
+    if decode_kernel != "flash":
+        dtype = q_rows.dtype
+        return flash_decode_plain(
+            q_rows, _cfull(ck, dtype), _cfull(cv, dtype), positions, scale=scale,
+            window=window, rows_per_slot=rows_per_slot, sinks=sinks,
+        )
     kq, ks = ck if isinstance(ck, tuple) else (ck, None)
     vq, vs = cv if isinstance(cv, tuple) else (cv, None)
     return flash_decode(
         q_rows, kq, vq, positions, scale=scale, window=window,
-        k_scale=ks, v_scale=vs, rows_per_slot=rows_per_slot,
+        k_scale=ks, v_scale=vs, rows_per_slot=rows_per_slot, sinks=sinks,
     )
 
 
@@ -457,9 +504,8 @@ def decode_step(
     batch_ix = torch.arange(b, device=tokens.device)
     scale = c.attention_scale
     grp = c.n_heads // c.n_kv_heads
-    window = 0  # dense Llama: full attention on every layer
 
-    for i in range(c.n_layers):
+    for i, window in enumerate(layer_windows(c)):
         layer = layer_params(params, i)
         ck, cv = _cache_layer(cache, i)  # [B, Hkv, Tmax, D] views (or int8 pairs)
         h = model_norm(x, layer["attn_norm"], c)
@@ -474,18 +520,13 @@ def decode_step(
         # q regrouped [B, Hkv, G, D] against the [B, Hkv, T, D] cache:
         # the cache is read once at KV width, never G times
         qg = q[:, :, 0, :].reshape(b, c.n_kv_heads, grp, c.head_dim).contiguous()
-        if decode_kernel == "flash":
-            o = _flash_attend(
-                qg, ck, cv, positions, window, config=c, scale=scale, rows_per_slot=1
-            )
-        else:
-            o = flash_decode_plain(
-                qg, _cfull(ck, k.dtype), _cfull(cv, v.dtype), positions,
-                scale=scale, window=window,
-            )
+        o = _attend_cache(
+            qg, ck, cv, positions, window, config=c, scale=scale, rows_per_slot=1,
+            sinks=_row_sinks(layer, c, 1), decode_kernel=decode_kernel,
+        )
         # [B, Hkv, G, D] row-major flatten == query-head order
         o = o.reshape(b, 1, c.q_dim)
-        x = x + _proj(layer, "wo", o)
+        x = x + _attn_out(o, layer, c)
         x = _mlp(x, layer, c)
     x = model_norm(x, params["final_norm"], c)
     return _head_logits(params, x[:, 0], c), cache
@@ -520,11 +561,10 @@ def verify_step(
     batch_ix = torch.arange(b, device=tokens.device)
     scale = c.attention_scale
     grp = c.n_heads // c.n_kv_heads
-    window = 0
     tmax = cache["k"].shape[3]
     write_pos = torch.where(write_mask[:, None], pos_grid, torch.full_like(pos_grid, tmax))
 
-    for i in range(c.n_layers):
+    for i, window in enumerate(layer_windows(c)):
         layer = layer_params(params, i)
         ck, cv = _cache_layer(cache, i)
         h = model_norm(x, layer["attn_norm"], c)
@@ -538,19 +578,15 @@ def verify_step(
         _cwrite_at(ck, batch_ix, write_pos, k.transpose(1, 2))
         _cwrite_at(cv, batch_ix, write_pos, v.transpose(1, 2))
         # rows flatten [G, S] row-major; row g*S+s attends keys <= pos+s
+        # (verify attends with the same sink column as decode)
         qr = q.reshape(b, c.n_kv_heads, grp * sdraft, c.head_dim)
-        if decode_kernel == "flash":
-            o = _flash_attend(
-                qr, ck, cv, positions, window, config=c, scale=scale, rows_per_slot=sdraft
-            )
-        else:
-            o = flash_decode_plain(
-                qr, _cfull(ck, k.dtype), _cfull(cv, v.dtype), positions,
-                scale=scale, window=window, rows_per_slot=sdraft,
-            )
+        o = _attend_cache(
+            qr, ck, cv, positions, window, config=c, scale=scale, rows_per_slot=sdraft,
+            sinks=_row_sinks(layer, c, sdraft), decode_kernel=decode_kernel,
+        )
         o = o.view(b, c.n_kv_heads, grp, sdraft, c.head_dim)
         o = o.permute(0, 3, 1, 2, 4).reshape(b, sdraft, c.q_dim)
-        x = x + _proj(layer, "wo", o)
+        x = x + _attn_out(o, layer, c)
         x = _mlp(x, layer, c)
     x = model_norm(x, params["final_norm"], c)
     return _head_logits(params, x, c), cache

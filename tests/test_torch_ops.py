@@ -101,7 +101,9 @@ class TestFlashForwardPlain:
         )
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL, rtol=TOL)
 
-    @pytest.mark.parametrize("kw", [{"chunk": 64}, {"sinks": torch.zeros(2)}])
+    # sinks are served now (test_torch_gpt_oss.py); a chunk mask is not,
+    # with or without them
+    @pytest.mark.parametrize("kw", [{"chunk": 64}, {"chunk": 64, "sinks": torch.zeros(2)}])
     def test_unported_attention_options_raise(self, kw):
         x = torch.zeros(1, 2, 4, 64)
         with pytest.raises(NotImplementedError):
@@ -129,10 +131,13 @@ class TestFlashDecodePlain:
         )
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL, rtol=TOL)
 
-    @pytest.mark.parametrize("kw", [{"sinks": torch.zeros(2, 4)}])
+    # every form of the TPU kernel is served now (sinks included, in
+    # test_torch_gpt_oss.py); a form the kernel cannot take still raises:
+    # sinks that are not one logit per query row [Hkv, R]
+    @pytest.mark.parametrize("kw", [{"sinks": torch.zeros(2, 5)}])
     def test_unported_variants_raise(self, kw):
         x = torch.zeros(2, 2, 4, 64)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="sinks"):
             tflash_decode.flash_decode(
                 x, x, x, torch.zeros(2, dtype=torch.int32), scale=0.125, **kw
             )
