@@ -19,7 +19,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    (q [8,8,4,64]) and speculative verify (S = 5: q [8,8,20,64]); and the
    backward kernels K2 (dq) and K3 (dk, dv) at the training shape q/dO
    [4,32,2048,64], k/v [4,8,2048,64] (causal; window 512 with softcap 30;
-   a ragged T = 1000), where K1 is timed once more. Times each kernel,
+   a ragged T = 1000), where K1 is timed once more, and K2, K3 and the
+   SDPA backward are timed again at the trainer's shape q/dO
+   [8,32,2048,64], k/v [8,8,2048,64]; each backward kernel's registers and
+   spill bytes are read from its ``-Xptxas -v`` log, and a spill fails the
+   run. Times each kernel,
    its plain version and one PyTorch library call of the same function
    (``scaled_dot_product_attention`` forward with an explicit mask, or its
    backward for K2+K3: yardsticks the port never calls; none reads an int8
@@ -82,7 +86,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain bf16 path's, and the three losses agree within 2e-2.
 6. Print the ``kernels`` JSON line (K1 at the llama and at the gpt-oss
    shape, K4 as one row per form, eight in all, each with its launches on
-   every path; a form launched on no path fails the run), then the card
+   every path; a form launched on no path fails the run; K2 and K3 carry
+   their trainer-shape times and ptxas reports beside), then the card
    line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -90,6 +95,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 import dataclasses
 import json
 import math
+import re
 import socket
 import subprocess
 import sys
@@ -130,6 +136,7 @@ MAX_TOKENS = 32
 CHUNK = 256  # the server's --prefill-chunk default
 TRAIN_STEPS = {"full": 6, "lora": 4}
 BWD_SHAPE = (4, 32, 8, 2048, 64)  # B, H, Hkv, T, D of the backward kernel phase
+BWD_TRAIN_BATCH = 8  # the trainer's batch: K2 and K3 are timed again at it
 SPEC_ROWS = 5  # rows a query head verifies: the server's --spec-draft 4, plus one
 # the server runs (mode → model, flags): the serial path of the first
 # slice, the JAX server's default engine on the bf16 and on the int8
@@ -402,11 +409,59 @@ def live_pairs(t: int, causal: bool, window: int) -> int:
     return sum(min(i + 1, window) for i in range(t))
 
 
+def ptxas_report(name: str) -> dict:
+    """Registers and spill bytes of each compiled form of ``csrc/<name>.cu``
+    (form = its head width), from the ``-Xptxas -v`` log that
+    ``cuda_build.build_all`` writes. The registers are the launch
+    allocation: warp-specialised kernels move them between warpgroups
+    with setmaxnreg at run time."""
+    text = (cuda_build.BUILD_DIR / f"{name}.ptxas.log").read_text()
+    forms = {}
+    for m in re.finditer(r"Compiling entry function '([^']+)'.*?(\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads.*?Used (\d+) registers", text, re.S):
+        form = re.search(r"kernelILi(\d+)E", m.group(1))
+        forms[f"D={form.group(1) if form else m.group(1)}"] = {
+            "registers": int(m.group(4)), "spill_stores": int(m.group(2)),
+            "spill_loads": int(m.group(3)),
+        }
+    if not forms:
+        raise AssertionError(f"no ptxas report for {name} in {cuda_build.BUILD_DIR}")
+    return forms
+
+
+def _bwd_bounds(q, k, lse) -> dict:
+    """Bound of K2 and K3 on causal square inputs: each reads q, k, v, dO,
+    lse and delta once; K2 writes dq (3 causal products), K3 dk and dv (4)."""
+    b, h, t, d = q.shape
+    gemm = 2 * b * h * live_pairs(t, True, 0) * d  # FLOPs of one causal [T, T] x [T, D] product
+    qb, kvb, rowb = q.numel() * 2, k.numel() * 2, lse.numel() * 4
+    return {
+        "flash_bwd_dq": bound_ms(2 * qb + 2 * kvb + 2 * rowb + qb, 3 * gemm),
+        "flash_bwd_dkv": bound_ms(2 * qb + 2 * kvb + 2 * rowb + 2 * kvb, 4 * gemm),
+    }
+
+
+def _sdpa_bwd_ms(q, k, v, do) -> float:
+    """The SDPA backward (dq, dk, dv together): the yardstick for K2 + K3."""
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    so = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    return time_ms(lambda: torch.autograd.grad(so, (qs, ks, vs), do, retain_graph=True))
+
+
 def backward_kernel_phase() -> dict:
     """K2 and K3 against flash_bwd_plain at the training shape, then
     timed: each kernel alone (delta computed beforehand), the plain
     version (dq, dk, dv together) and the SDPA backward (dq, dk, dv
-    together: the yardstick for K2 + K3)."""
+    together: the yardstick for K2 + K3); then K2, K3 and the SDPA
+    backward again at the trainer's batch. First, each backward kernel's
+    registers and spills from ptxas: a spill fails the run."""
+    ptxas = {}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        ptxas[name] = ptxas_report(name)
+        log(f"ptxas {name}: {json.dumps(ptxas[name])}")
+        spilled = {f: r for f, r in ptxas[name].items() if r["spill_stores"] or r["spill_loads"]}
+        if spilled:
+            raise AssertionError(f"{name} spills registers: {spilled}")
     b, h, hkv, t, d = BWD_SHAPE
     g = torch.Generator(device="cuda").manual_seed(2)
     err = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
@@ -429,15 +484,7 @@ def backward_kernel_phase() -> dict:
         del dq, dk, dv, pdq, pdk, pdv
     q, k, v, o, lse, do = main
     delta = flash.bwd_delta(o, do)
-    pairs = live_pairs(t, True, 0)
-    gemm = 2 * b * h * pairs * d  # FLOPs of one causal [T, T] x [T, D] product
-    qb, kvb, rowb = q.numel() * 2, k.numel() * 2, lse.numel() * 4
-    bounds = {
-        # reads q, k, v, dO, lse, delta; writes dq
-        "flash_bwd_dq": bound_ms(2 * qb + 2 * kvb + 2 * rowb + qb, 3 * gemm),
-        # reads the same; writes dk, dv
-        "flash_bwd_dkv": bound_ms(2 * qb + 2 * kvb + 2 * rowb + 2 * kvb, 4 * gemm),
-    }
+    bounds = _bwd_bounds(q, k, lse)
     # K1 at the shape the trainer gives it (its kernels-line row stays at
     # the serving shape): 2 causal GEMMs, reads q, k, v, writes o and lse
     fwd = {
@@ -446,13 +493,12 @@ def backward_kernel_phase() -> dict:
         "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)),
     }
-    b_ms, b_by = bound_ms(2 * qb + 2 * kvb + rowb, 2 * gemm)
+    gemm = 2 * b * h * live_pairs(t, True, 0) * d
+    b_ms, b_by = bound_ms(2 * q.numel() * 2 + 2 * k.numel() * 2 + lse.numel() * 4, 2 * gemm)
     fwd.update(bound_ms=b_ms, bound_by=b_by)
     log(f"kernel flash_fwd (training shape) q [{b},{h},{t},{d}] k/v [{b},{hkv},{t},{d}] causal: {json.dumps(fwd)}")
     plain_ms = time_ms(lambda: flash.flash_bwd_plain(q, k, v, o, lse, do), iters=10)
-    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
-    so = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
-    sdpa_ms = time_ms(lambda: torch.autograd.grad(so, (qs, ks, vs), do, retain_graph=True))
+    sdpa_ms = _sdpa_bwd_ms(q, k, v, do)
     rows = {
         "flash_bwd_dq": {"ms": time_ms(lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta))},
         "flash_bwd_dkv": {"ms": time_ms(lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta))},
@@ -460,9 +506,28 @@ def backward_kernel_phase() -> dict:
     for name, row in rows.items():
         row.update(
             plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bounds[name][0],
-            bound_by=bounds[name][1], max_abs_err=err[name],
+            bound_by=bounds[name][1], max_abs_err=err[name], ptxas=ptxas[name],
         )
         log(f"kernel {name} q/dO [{b},{h},{t},{d}] k/v [{b},{hkv},{t},{d}] causal: {json.dumps(row)}")
+    del main, q, k, v, o, lse, do, delta
+    torch.cuda.empty_cache()
+
+    # the trainer's shape: twice the batch (the plain version, ~4 GB a
+    # [B, H, T, T] f32 intermediate here, is not timed again)
+    b = BWD_TRAIN_BATCH
+    q, do = (torch.randn(b, h, t, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, hkv, t, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+    o, lse = flash.flash_attention_with_lse(q, k, v)
+    delta = flash.bwd_delta(o, do)
+    bounds = _bwd_bounds(q, k, lse)
+    sdpa_ms = _sdpa_bwd_ms(q, k, v, do)
+    for name, fn in (("flash_bwd_dq", lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta)),
+                     ("flash_bwd_dkv", lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta))):
+        row = {"shape": [b, h, hkv, t, d], "ms": time_ms(fn), "library_ms": sdpa_ms,
+               "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+        rows[name]["trainer_shape"] = row
+        log(f"kernel {name} q/dO [{b},{h},{t},{d}] k/v [{b},{hkv},{t},{d}] causal (trainer's shape): "
+            + json.dumps(row))
     return rows
 
 
@@ -1090,6 +1155,7 @@ def main() -> int:
             "launches": sum(counts.values()), "launches_by_path": counts,
             **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms")},
+            **{k: rows[name][k] for k in ("trainer_shape", "ptxas") if k in rows[name]},
         })
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

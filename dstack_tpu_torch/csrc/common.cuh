@@ -12,6 +12,22 @@ namespace dtpu {
 // means "no live key seen yet".
 constexpr float NEG_INF = -1e30f;
 
+// exp(x) = exp2(x * LOG2E): one multiply-add and the hardware's exp2.
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The scalar arguments of the flash-backward launchers (K2, K3).
+struct BwdParams {
+  int H, Hkv, Tq, Tk;
+  float scale, softcap;
+  int causal, q_offset, kv_offset, window;
+};
+
+// Whether query position `qpos` sees key position `kpos` under the causal
+// and window masks (dstack_tpu/ops/flash.py:293-299, 388-394).
+__device__ __forceinline__ bool sees(int qpos, int kpos, const BwdParams& p) {
+  return (!p.causal || qpos >= kpos) && (p.window <= 0 || qpos - kpos < p.window);
+}
+
 // Two bf16 values in one 32-bit register, `lo` in the low half: the
 // element order mma.sync expects for a pair of adjacent columns.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -49,37 +65,6 @@ __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Fragment loads from bf16 tiles kept row-major in shared memory with row
-// stride `ld` (elements); g = lane / 4, t = lane % 4.
-//
-// A operand, rows row0 .. row0+15, k columns 16*kk .. 16*kk+15.
-__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* s, int ld, int row0, int kk,
-                                       int g, int t) {
-  const __nv_bfloat16* base = s + (row0 + g) * ld + kk * 16 + 2 * t;
-  a[0] = *reinterpret_cast<const uint32_t*>(base);
-  a[1] = *reinterpret_cast<const uint32_t*>(base + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(base + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(base + 8 * ld + 8);
-}
-
-// B operand with B[k][n] = M[n0 + n][16*kk + k]: the tile's rows are the
-// product's columns (K in S = Q K^T).
-__device__ __forceinline__ void load_b_nk(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* s, int ld,
-                                          int n0, int kk, int g, int t) {
-  const __nv_bfloat16* base = s + (n0 + g) * ld + kk * 16 + 2 * t;
-  b0 = *reinterpret_cast<const uint32_t*>(base);
-  b1 = *reinterpret_cast<const uint32_t*>(base + 8);
-}
-
-// B operand with B[k][n] = M[k0 + k][n0 + n]: the tile's rows are the
-// contraction (V in O = P V).
-__device__ __forceinline__ void load_b_kn(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* s, int ld,
-                                          int k0, int n0, int g, int t) {
-  const int r = k0 + 2 * t, c = n0 + g;
-  b0 = pack_bf16_raw(s[r * ld + c], s[(r + 1) * ld + c]);
-  b1 = pack_bf16_raw(s[(r + 8) * ld + c], s[(r + 9) * ld + c]);
-}
-
 // Two f32 accumulator tiles (columns 0-7 and 8-15 of a 16x16 block),
 // rounded to bf16 as one A operand: the accumulator and A layouts share
 // their rows, so a product feeds the next one without shared memory.
@@ -88,21 +73,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t* a, const float* lo, const flo
   a[1] = pack_bf16(lo[2], lo[3]);
   a[2] = pack_bf16(hi[0], hi[1]);
   a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// Copy rows lo .. lo+rows-1 of a row-major [T, D] bf16 matrix into a
-// shared tile with row stride `ld`, 16 bytes per thread per step; rows at
-// or past T are zero (0 * garbage could be NaN).
-template <int D, int NT>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src,
-                                           int lo, int rows, int T, int tid) {
-  constexpr int VEC = 8;  // bf16 per 16-byte vector
-  for (int i = tid; i < rows * D / VEC; i += NT) {
-    const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (lo + r < T) val = *reinterpret_cast<const uint4*>(src + (size_t)(lo + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
 }
 
 __device__ __forceinline__ float warp_max(float x) {

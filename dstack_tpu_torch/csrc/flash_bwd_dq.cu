@@ -1,7 +1,7 @@
 // Flash-attention backward, dQ (K2), for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel `_dq_kernel` driven by `_flash_bwd`
-// (dstack_tpu/ops/flash.py:248,429; pallas_call at flash.py:467). For one
+// (dstack_tpu/ops/flash.py:248,429; pallas_call at flash.py:467). For a
 // tile of query rows it walks the KV tiles the rows can see, recomputes
 // S = Q K^T * scale (tanh-capped under softcap), masks it, and forms
 //   P  = exp(S - lse)            (0 where masked; lse <= NEG_INF/2 read as 0)
@@ -10,215 +10,334 @@
 //   dQ += dS K                   (dS rounded to bf16 first, flash.py:308-311)
 // with lse from the forward and delta = rowsum(dO * O) from the wrapper.
 // dQ stays in f32 registers across the whole KV walk and is written once,
-// in bf16.
+// in bf16. exp(x) is taken as exp2(x log2 e), one multiply-add per element.
 //
-// What bounds it on an H100: at the training shape (T = 2048, D = 64,
-// causal) it does 3 causal GEMMs (S, dP, dQ) on 4 * T * D bytes per head:
-// ~30 FLOP per byte of K/V read per q tile, and it re-reads K/V once per
-// q tile from L2, so it is bound by operations. The design is the
-// FlashAttention-2 dQ pass in K1's fragment layout: one block per
-// (64-row q tile, head, batch), 4 warps of 16 rows, mma.sync m16n8k16
-// (bf16 in, f32 accumulate); Q and dO live in registers as A fragments,
-// the S and dP accumulators re-pack into the bf16 A fragment of dS K with
-// no trip through shared memory. Only the KV tiles between the window
-// floor and the causal frontier are read (`_causal_kv_clamp`,
-// flash.py:223). The ragged edge (T not a multiple of 64) is masked and
-// zero-filled. No wgmma/TMA or copy/compute overlap yet: a first, simple,
-// right kernel.
+// What bounds it on an H100: three causal products over the same tiles
+// (S, dP, dQ): at T = 2048, D = 64 that is ~30 FLOP per byte of K/V, and
+// the K/V tiles are re-read once per query tile from L2, so it is bound by
+// operations. What the design does about it:
+// - wgmma for all three products, one 64-row m64 tile per consumer
+//   warpgroup: S and dP read Q/dO (stationary) and K/V (streamed) from
+//   shared memory as K-major operands; dQ += dS K takes dS from registers
+//   (the S accumulator re-packed as bf16, acc_to_a) and the same K tile
+//   through an MN-major descriptor. S and dP are two wgmma groups, so P =
+//   exp(S - lse) is formed while the dP product runs.
+// - Warp specialisation: warpgroup 0 is the producer (one thread issues
+//   TMA loads; setmaxnreg.dec to 24 registers), warpgroups 1-2 consume
+//   (setmaxnreg.inc to 240). K and V stream through a ring of STAGES
+//   buffers with full/empty mbarriers, so the next tile lands while the
+//   current one is multiplied.
+// - TMA from 3-D tensor maps over [B*H, T, D] in the 128-byte swizzle the
+//   wgmma descriptors read; rows past T arrive as zeros (the ragged edge),
+//   never the next head's rows. At D = 128 a row is two 64-column boxes.
+// - The causal/window compare runs only on tiles that straddle the
+//   diagonal, the window edge or T; fully masked tiles are never loaded
+//   (the walk is `_causal_kv_clamp`, flash.py:223) or skipped per warpgroup.
+// - The grid lists the query tile slowest and the last (longest) tile
+//   first, so the longest walks start in the first wave.
+// No atomics: each dQ element is written once, and two launches on the same
+// inputs give identical bits.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using dtpu::acc_to_a;
-using dtpu::load_a;
-using dtpu::load_b_kn;
-using dtpu::load_b_nk;
-using dtpu::mma_16816;
+using dtpu::LOG2E;
 using dtpu::NEG_INF;
+using dtpu::sees;
+using Params = dtpu::BwdParams;
 
-constexpr int BQ = 64;  // query rows per block: 4 warps x 16 rows
-constexpr int NTHREADS = 128;
+constexpr int BM = 64;             // query rows a consumer warpgroup owns
+constexpr int NCONS = 2;           // consumer warpgroups
+constexpr int BQ = BM * NCONS;     // query rows a block
+constexpr int BK = 64;             // keys a streamed tile
+constexpr int STAGES = 2;          // ring depth
+constexpr int NTHREADS = 128 * (1 + NCONS);
 
-template <int D, int BK>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(
-    const __nv_bfloat16* __restrict__ q,    // [B, H, Tq, D]
-    const __nv_bfloat16* __restrict__ k,    // [B, Hkv, Tk, D]
-    const __nv_bfloat16* __restrict__ v,    // [B, Hkv, Tk, D]
-    const __nv_bfloat16* __restrict__ dout, // [B, H, Tq, D]
-    const float* __restrict__ lse,          // [B, H, Tq]
-    const float* __restrict__ delta,        // [B, H, Tq]
-    __nv_bfloat16* __restrict__ dq,         // [B, H, Tq, D]
-    int H, int Hkv, int Tq, int Tk, float scale, int causal, int q_offset, int kv_offset,
-    int window, float softcap) {
-  constexpr int LD = D + 8;  // padded rows: fragment loads hit 32 banks
-  // one buffer: first the Q and dO tiles (read once into registers), then
-  // the K and V tiles of each step of the KV walk
-  constexpr int SROWS = 2 * BQ > 2 * BK ? 2 * BQ : 2 * BK;
-  __shared__ __align__(16) __nv_bfloat16 smem[SROWS * LD];
-  __nv_bfloat16* sK = smem;
-  __nv_bfloat16* sV = smem + BK * LD;
+// Shared memory, byte offsets from a 1024-aligned base. A 64-row tile is
+// D/64 column boxes of 64 rows x 128 bytes, one after the other.
+template <int D>
+struct Smem {
+  static constexpr int TILE = BM * D * 2;
+  static constexpr int Q = 0;                                // NCONS tiles
+  static constexpr int DO = Q + NCONS * TILE;                // NCONS tiles
+  static constexpr int KV = DO + NCONS * TILE;               // stage s: K at +2s TILE, V after
+  static constexpr int BAR = KV + STAGES * 2 * TILE;         // full[], empty[], stationary
+  static constexpr int BYTES = BAR + 8 * (2 * STAGES + 1);
+};
 
-  const int q_lo = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+// Element i of a warpgroup tile is this thread's row (i >> 1) & 1 (g or
+// g + 8 of its warp) and the tile's column 8 (i >> 2) + 2t + (i & 1).
 
-  const size_t row0 = (size_t)(b * H + h) * Tq;  // this head's first query row
-  const __nv_bfloat16* kb = k + (size_t)(b * Hkv + hk) * Tk * D;
-  const __nv_bfloat16* vb = v + (size_t)(b * Hkv + hk) * Tk * D;
-
-  dtpu::stage_rows<D, NTHREADS>(smem, LD, q + row0 * D, q_lo, BQ, Tq, tid);
-  dtpu::stage_rows<D, NTHREADS>(smem + BQ * LD, LD, dout + row0 * D, q_lo, BQ, Tq, tid);
-  __syncthreads();
-
-  const int r0 = warp * 16;
-  uint32_t qf[D / 16][4], dof[D / 16][4];
+// P = exp(S - lse) in place of S, 0 where masked (flash.py:287-301).
+template <bool MASKED>
+__device__ __forceinline__ void p_tile(float (&s)[32], const float (&lse2)[2], const int (&qpos)[2],
+                                       int k_lo, int t, const Params& p) {
+  const float sl2 = p.scale * LOG2E;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a(qf[kk], smem, LD, r0, kk, g, t);
-    load_a(dof[kk], smem + BQ * LD, LD, r0, kk, g, t);
-  }
-
-  // this thread's two rows (g and g + 8 of the warp's 16)
-  float lse_r[2], delta_r[2];
-  int qpos[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q_lo + r0 + g + 8 * r;
-    qpos[r] = q_offset + row;
-    lse_r[r] = 0.f;
-    delta_r[r] = 0.f;
-    if (row < Tq) {
-      const float l = lse[row0 + row];
-      lse_r[r] = l <= NEG_INF / 2 ? 0.f : l;
-      delta_r[r] = delta[row0 + row];
-    }
-  }
-
-  // KV tiles this q tile can see (flash.py _causal_kv_clamp)
-  const int q_last = min(q_lo + BQ, Tq) - 1;
-  const int num_k = (Tk + BK - 1) / BK;
-  int kt_end = num_k;
-  if (causal) {
-    const int last_col = q_offset + q_last - kv_offset;
-    kt_end = last_col < 0 ? 0 : min(num_k, last_col / BK + 1);
-  }
-  int kt_begin = 0;
-  if (window > 0) {
-    const int first_col = q_offset + q_lo - (window - 1) - kv_offset;
-    if (first_col > 0) kt_begin = first_col / BK;
-  }
-
-  const bool warp_live = q_lo + r0 < Tq;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k_lo = kt * BK;
-    __syncthreads();  // every warp is done with the previous tiles (or Q/dO)
-    dtpu::stage_rows<D, NTHREADS>(sK, LD, kb, k_lo, BK, Tk, tid);
-    dtpu::stage_rows<D, NTHREADS>(sV, LD, vb, k_lo, BK, Tk, tid);
-    __syncthreads();
-    if (!warp_live) continue;
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x BK keys
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b0, b1;
-        load_b_nk(b0, b1, sK, LD, 8 * j, kk, g, t);
-        mma_16816(s[j], qf[kk], b0, b1);
-        load_b_nk(b0, b1, sV, LD, 8 * j, kk, g, t);
-        mma_16816(dp[j], dof[kk], b0, b1);
-      }
-    }
-    // dS in place of S (flash.py:287-307)
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k_lo + 8 * j + 2 * t + (e & 1);
-        const int kpos = kv_offset + col;
-        const int r = e >> 1;
-        float x = s[j][e] * scale;
-        float th = 0.f;
-        if (softcap > 0.f) {
-          th = tanhf(x / softcap);
-          x = softcap * th;
-        }
-        bool keep = col < Tk;
-        if (causal) keep = keep && qpos[r] >= kpos;
-        if (window > 0) keep = keep && qpos[r] - kpos < window;
-        const float p = keep ? expf(x - lse_r[r]) : 0.f;
-        float ds = p * (dp[j][e] - delta_r[r]) * scale;
-        if (softcap > 0.f) ds *= 1.f - th * th;
-        s[j][e] = ds;
-      }
-    }
-    // dQ += dS K: dS re-packs as bf16 A fragments; K is the B operand
-    // with the keys as the contraction
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        load_b_kn(b0, b1, sK, LD, kk * 16, 8 * n, g, t);
-        mma_16816(acc[n], a, b0, b1);
-      }
-    }
-  }
-
-  if (!warp_live) return;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q_lo + r0 + g + 8 * r;
-    if (row >= Tq) continue;
-    __nv_bfloat16* out = dq + (row0 + row) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    const float pr = exp2f(fmaf(s[i], sl2, -lse2[r]));
+    if (MASKED) {
+      const int col = k_lo + 8 * (i >> 2) + 2 * t + (i & 1);
+      s[i] = col < p.Tk && sees(qpos[r], p.kv_offset + col, p) ? pr : 0.f;
+    } else {
+      s[i] = pr;
     }
   }
 }
 
+// dS = P (dP - delta) scale in place of P (flash.py:305-307).
+__device__ __forceinline__ void ds_from_p(float (&s)[32], const float (&dp)[32], const float (&dl)[2],
+                                          float scale) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]) * scale;
+}
+
+// Under softcap, dS in place of S in one pass: the tanh serves P and
+// dS's (1 - tanh^2) factor.
+template <bool MASKED>
+__device__ __forceinline__ void softcap_ds_tile(float (&s)[32], const float (&dp)[32],
+                                                const float (&lse2)[2], const float (&dl)[2],
+                                                const int (&qpos)[2], int k_lo, int t,
+                                                const Params& p) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    const float th = tanhf(s[i] * p.scale / p.softcap);
+    const float pr = exp2f(p.softcap * th * LOG2E - lse2[r]);
+    const float ds = pr * (dp[i] - dl[r]) * p.scale * (1.f - th * th);
+    if (MASKED) {
+      const int col = k_lo + 8 * (i >> 2) + 2 * t + (i & 1);
+      s[i] = col < p.Tk && sees(qpos[r], p.kv_offset + col, p) ? ds : 0.f;
+    } else {
+      s[i] = ds;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dq_kernel(
+    const __grid_constant__ CUtensorMap tm_q,   // [B*H, Tq, D]
+    const __grid_constant__ CUtensorMap tm_do,  // [B*H, Tq, D]
+    const __grid_constant__ CUtensorMap tm_k,   // [B*Hkv, Tk, D]
+    const __grid_constant__ CUtensorMap tm_v,   // [B*Hkv, Tk, D]
+    const float* __restrict__ lse,              // [B, H, Tq]
+    const float* __restrict__ delta,            // [B, H, Tq]
+    __nv_bfloat16* __restrict__ dq,             // [B, H, Tq, D]
+    const Params p) {
+  using S = Smem<D>;
+  constexpr int CB = D / 64;  // 64-column boxes a row
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (dtpu::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full0 = base + S::BAR, empty0 = full0 + 8 * STAGES, stat = empty0 + 8 * STAGES;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q_lo = (gridDim.z - 1 - blockIdx.z) * BQ;  // the longest walks first
+  const int bh = b * p.H + h;
+
+  // KV tiles the block's rows can see (flash.py _causal_kv_clamp)
+  const int q_last = min(q_lo + BQ, p.Tq) - 1;
+  const int num_k = (p.Tk + BK - 1) / BK;
+  int kt_end = num_k, kt_begin = 0;
+  if (p.causal) {
+    const int last_col = p.q_offset + q_last - p.kv_offset;
+    kt_end = last_col < 0 ? 0 : min(num_k, last_col / BK + 1);
+  }
+  if (p.window > 0) {
+    const int first_col = p.q_offset + q_lo - (p.window - 1) - p.kv_offset;
+    if (first_col > 0) kt_begin = first_col / BK;
+  }
+  const int n_k = max(0, kt_end - kt_begin);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      dtpu::mbar_init(full0 + 8 * s, 1);
+      dtpu::mbar_init(empty0 + 8 * s, NCONS * 128);
+    }
+    dtpu::mbar_init(stat, 1);
+    dtpu::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread keeps the ring full
+    dtpu::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      const int bkv = b * p.Hkv + h / (p.H / p.Hkv);
+      dtpu::mbar_arrive_expect_tx(stat, 2 * NCONS * S::TILE);
+      for (int c = 0; c < NCONS; ++c) {
+        for (int cb = 0; cb < CB; ++cb) {
+          const uint32_t off = c * S::TILE + cb * BM * 128;
+          dtpu::tma_load_3d(base + S::Q + off, &tm_q, cb * 64, q_lo + c * BM, bh, stat);
+          dtpu::tma_load_3d(base + S::DO + off, &tm_do, cb * 64, q_lo + c * BM, bh, stat);
+        }
+      }
+      for (int i = 0; i < n_k; ++i) {
+        const int s = i % STAGES;
+        dtpu::mbar_wait(empty0 + 8 * s, ((i / STAGES) & 1) ^ 1);
+        dtpu::mbar_arrive_expect_tx(full0 + 8 * s, 2 * S::TILE);
+        const uint32_t sk = base + S::KV + s * 2 * S::TILE;
+        const int k_row = (kt_begin + i) * BK;
+        for (int cb = 0; cb < CB; ++cb) {
+          dtpu::tma_load_3d(sk + cb * BK * 128, &tm_k, cb * 64, k_row, bkv, full0 + 8 * s);
+          dtpu::tma_load_3d(sk + S::TILE + cb * BK * 128, &tm_v, cb * 64, k_row, bkv, full0 + 8 * s);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup c owns query rows r_lo .. r_lo + 63
+    dtpu::setmaxnreg_inc<240>();
+    const int c = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_lo = q_lo + c * BM;
+    const int row0 = r_lo + 16 * warp + g;  // this thread's rows: row0 and row0 + 8
+
+    float lse2[2], dl[2];
+    int qpos[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      qpos[r] = p.q_offset + row;
+      lse2[r] = 0.f;
+      dl[r] = 0.f;
+      if (row < p.Tq) {
+        const float l = lse[(size_t)bh * p.Tq + row];
+        lse2[r] = (l <= NEG_INF / 2 ? 0.f : l) * LOG2E;
+        dl[r] = delta[(size_t)bh * p.Tq + row];
+      }
+    }
+    // this warpgroup's query positions, for the per-tile mask decision
+    const int qp_lo = p.q_offset + r_lo, qp_hi = p.q_offset + min(r_lo + BM, p.Tq) - 1;
+
+    float acc[CB][32];
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
+    }
+    const uint32_t sq = base + S::Q + c * S::TILE, sdo = base + S::DO + c * S::TILE;
+    dtpu::mbar_wait(stat, 0);
+
+    for (int i = 0; i < n_k; ++i) {
+      const int s = i % STAGES;
+      dtpu::mbar_wait(full0 + 8 * s, (i / STAGES) & 1);
+      const int k_lo = (kt_begin + i) * BK;
+      const int kp_lo = p.kv_offset + k_lo, kp_hi = kp_lo + BK - 1;
+      const bool skip = r_lo >= p.Tq || (p.causal && qp_hi < kp_lo) ||
+                        (p.window > 0 && qp_lo - kp_hi >= p.window);
+      if (!skip) {
+        const bool masked = k_lo + BK > p.Tk || (p.causal && qp_lo < kp_hi) ||
+                            (p.window > 0 && qp_hi - kp_lo >= p.window);
+        const uint32_t sk = base + S::KV + s * 2 * S::TILE, sv = sk + S::TILE;
+        float st[32], dp[32];
+        // S = Q K^T, then dP = dO V^T, two groups: contraction over D, 16
+        // columns a step
+        dtpu::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk / 4) * BM * 128 + (kk % 4) * 32;
+          dtpu::wgmma_ss(st, dtpu::desc_k_major(sq + off), dtpu::desc_k_major(sk + off), kk > 0);
+        }
+        dtpu::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk / 4) * BM * 128 + (kk % 4) * 32;
+          dtpu::wgmma_ss(dp, dtpu::desc_k_major(sdo + off), dtpu::desc_k_major(sv + off), kk > 0);
+        }
+        dtpu::wgmma_commit();
+        if (p.softcap > 0.f) {
+          dtpu::wgmma_wait<0>();
+          dtpu::fence_regs(st);
+          dtpu::fence_regs(dp);
+          if (masked) softcap_ds_tile<true>(st, dp, lse2, dl, qpos, k_lo, t, p);
+          else softcap_ds_tile<false>(st, dp, lse2, dl, qpos, k_lo, t, p);
+        } else {
+          // P while the dP product runs
+          dtpu::wgmma_wait<1>();
+          dtpu::fence_regs(st);
+          if (masked) p_tile<true>(st, lse2, qpos, k_lo, t, p);
+          else p_tile<false>(st, lse2, qpos, k_lo, t, p);
+          dtpu::wgmma_wait<0>();
+          dtpu::fence_regs(dp);
+          ds_from_p(st, dp, dl, p.scale);
+        }
+        uint32_t a[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) dtpu::acc_to_a(a[kk], st + 8 * kk, st + 8 * kk + 4);
+
+        // dQ += dS K: contraction over the tile's keys, 16 a step; K read
+        // MN-major, one 64-column box a product
+        dtpu::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+          for (int cb = 0; cb < CB; ++cb) {
+            dtpu::wgmma_rs(acc[cb], a[kk], dtpu::desc_mn_major(sk + cb * BK * 128 + kk * 2048));
+          }
+        }
+        dtpu::wgmma_commit();
+        dtpu::wgmma_wait<0>();
+#pragma unroll
+        for (int cb = 0; cb < CB; ++cb) dtpu::fence_regs(acc[cb]);
+      }
+      dtpu::mbar_arrive(empty0 + 8 * s);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= p.Tq) continue;
+      __nv_bfloat16* out = dq + ((size_t)bh * p.Tq + row) * D;
+#pragma unroll
+      for (int cb = 0; cb < CB; ++cb) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(out + cb * 64 + 8 * j + 2 * t) =
+              __floats2bfloat162_rn(acc[cb][4 * j + 2 * r], acc[cb][4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+           const float* delta, __nv_bfloat16* dq, int B, const Params& p, cudaStream_t stream) {
+  CUtensorMap tq, tdo, tk, tv;
+  if (!dtpu::rows_tensor_map(&tq, q, B * p.H, p.Tq, D, BM) ||
+      !dtpu::rows_tensor_map(&tdo, dout, B * p.H, p.Tq, D, BM) ||
+      !dtpu::rows_tensor_map(&tk, k, B * p.Hkv, p.Tk, D, BK) ||
+      !dtpu::rows_tensor_map(&tv, v, B * p.Hkv, p.Tk, D, BK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem = Smem<D>::BYTES + 1024;  // + room to align the base to 1024
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(p.H, B, (p.Tq + BQ - 1) / BQ);
+  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(tq, tdo, tk, tv, lse, delta, dq, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched).
+// Launch on `stream`; returns cudaGetLastError() (0 = launched), or
+// cudaErrorInvalidValue for a head width other than 64 or 128 or a tensor
+// map that cuTensorMapEncodeTiled refuses.
 extern "C" int dtpu_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, int B, int H,
                                  int Hkv, int Tq, int Tk, int D, float scale, int causal,
                                  int q_offset, int kv_offset, int window, float softcap,
                                  void* stream) {
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
+  const Params p{H, Hkv, Tq, Tk, scale, softcap, causal, q_offset, kv_offset, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* dop = static_cast<const __nv_bfloat16*>(dout);
   const auto* lp = static_cast<const float*>(lse);
   const auto* dlp = static_cast<const float*>(delta);
   auto* dqp = static_cast<__nv_bfloat16*>(dq);
-  if (D == 64) {
-    flash_bwd_dq_kernel<64, 64><<<grid, NTHREADS, 0, s>>>(
-        qp, kp, vp, dop, lp, dlp, dqp, H, Hkv, Tq, Tk, scale, causal, q_offset, kv_offset,
-        window, softcap);
-  } else if (D == 128) {
-    flash_bwd_dq_kernel<128, 32><<<grid, NTHREADS, 0, s>>>(
-        qp, kp, vp, dop, lp, dlp, dqp, H, Hkv, Tq, Tk, scale, causal, q_offset, kv_offset,
-        window, softcap);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (D == 64) return launch<64>(q, k, v, dout, lp, dlp, dqp, B, p, s);
+  if (D == 128) return launch<128>(q, k, v, dout, lp, dlp, dqp, B, p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,8 +18,15 @@ The backward kernels replace the Pallas ``_dq_kernel`` (K2,
 :523), driven by ``_flash_bwd`` (flash.py:429). At the training shapes
 (T = 2048, D = 64) both are bound by operations: K2 recomputes S and dP
 and forms dQ (3 causal GEMMs), K3 recomputes S^T and dP^T and forms dV
-and dK (4). delta = rowsum(dO*O) stays one PyTorch expression, as it is
-one XLA expression in JAX (flash.py:457).
+and dK (4). Both are built for Hopper: wgmma for every product (the
+stationary tile and the streamed one in shared memory, the re-packed
+P or dS from registers), a producer warpgroup that feeds K/V (K2) or
+Q/dO with their lse and delta rows (K3) through a two-stage TMA ring with
+mbarriers, and the causal/window compare only on the tiles that straddle
+the diagonal or the window edge. Neither uses atomics: two launches give
+identical bits. delta = rowsum(dO*O) stays one PyTorch expression, as it
+is one XLA expression in JAX (flash.py:457). The wrappers are unchanged:
+the launchers build the TMA tensor maps themselves.
 
 Each wrapper takes the plain version only for tensors on the CPU (the
 CPU tests); for a CUDA tensor it launches the kernel or raises.

@@ -143,9 +143,28 @@ class TestFlashAttentionFunction:
         assert (tflash.LAUNCHES, tflash.LAUNCHES_DQ, tflash.LAUNCHES_DKV) == before
 
 
+def _card_case(dev, b, h, hkv, tq, tk, d, seed=0, **kw):
+    """K2/K3 on the card and flash_bwd_plain on the same bf16 inputs →
+    ((dq, dk, dv) of the kernels, of the plain version)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b, h, tq, d, generator=g, device=dev).bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, hkv, tk, d, generator=g, device=dev).bfloat16() for _ in range(2))
+    o, lse = tflash.flash_attention_with_lse(q, k, v, **kw)
+    got = tflash.flash_bwd(q, k, v, o, lse, do, **kw)
+    want = tflash.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+    return got, want
+
+
+def _assert_card_close(got, want):
+    # each gradient on its own: a wrong descriptor shows in one of them
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2, msg=lambda m: f"{name}: {m}")
+
+
 @pytest.mark.cuda
 class TestBackwardKernelsOnTheCard:
-    """bf16 K2/K3 vs flash_bwd_plain at the training shapes."""
+    """bf16 K2/K3 vs flash_bwd_plain at the training shapes and at every
+    tile edge, each gradient on its own (atol = rtol = 2e-2)."""
 
     @pytest.mark.parametrize(
         "d,t,causal,window,softcap",
@@ -158,23 +177,46 @@ class TestBackwardKernelsOnTheCard:
         ],
     )
     def test_flash_backward(self, cuda, d, t, causal, window, softcap):
-        g = torch.Generator(device=cuda).manual_seed(0)
-        q, do = (torch.randn(4, 32, t, d, generator=g, device=cuda).bfloat16() for _ in range(2))
-        k, v = (torch.randn(4, 8, t, d, generator=g, device=cuda).bfloat16() for _ in range(2))
-        kw = dict(causal=causal, window=window, softcap=softcap)
-        o, lse = tflash.flash_attention_with_lse(q, k, v, **kw)
-        got = tflash.flash_bwd(q, k, v, o, lse, do, **kw)
-        want = tflash.flash_bwd_plain(q, k, v, o, lse, do, **kw)
-        for a, b in zip(got, want):
-            torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2)
+        _assert_card_close(*_card_case(cuda, 4, 32, 8, t, t, d, causal=causal, window=window, softcap=softcap))
 
     def test_offsets(self, cuda):
-        g = torch.Generator(device=cuda).manual_seed(1)
-        q, do = (torch.randn(1, 32, 256, 64, generator=g, device=cuda).bfloat16() for _ in range(2))
-        k, v = (torch.randn(1, 8, 512, 64, generator=g, device=cuda).bfloat16() for _ in range(2))
-        kw = dict(q_offset=256, kv_offset=0)
-        o, lse = tflash.flash_attention_with_lse(q, k, v, **kw)
-        got = tflash.flash_bwd(q, k, v, o, lse, do, **kw)
-        want = tflash.flash_bwd_plain(q, k, v, o, lse, do, **kw)
-        for a, b in zip(got, want):
-            torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2)
+        got, want = _card_case(cuda, 1, 32, 8, 256, 512, 64, seed=1, q_offset=256, kv_offset=0)
+        _assert_card_close(got, want)
+
+    @pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 129, 1000])
+    def test_tile_edges(self, cuda, t):
+        # T around the 32/64-row streamed tiles and the 128-row blocks
+        _assert_card_close(*_card_case(cuda, 2, 8, 2, t, t, 64, seed=t))
+
+    @pytest.mark.parametrize("h,hkv", [(8, 8), (64, 8)], ids=["group1", "group8"])
+    def test_gqa_groups(self, cuda, h, hkv):
+        _assert_card_close(*_card_case(cuda, 2, h, hkv, 384, 384, 64, seed=h))
+
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_offsets_with_window(self, cuda, d):
+        # queries at positions 320..511 over keys at 64..511, window 128
+        got, want = _card_case(cuda, 2, 8, 2, 192, 448, d, seed=2, q_offset=320, kv_offset=64, window=128)
+        _assert_card_close(got, want)
+
+    def test_no_live_key(self, cuda):
+        # kv_offset 64: query rows 0..63 see no key, and keys 64..127 sit
+        # past every query's causal frontier
+        got, want = _card_case(cuda, 2, 8, 2, 128, 128, 64, seed=3, kv_offset=64)
+        _assert_card_close(got, want)
+        dq, dk, dv = got
+        assert not dq[:, :, :64].any()
+        assert not dk[:, :, 64:].any() and not dv[:, :, 64:].any()
+
+    def test_head_dim_128_window_softcap(self, cuda):
+        got, want = _card_case(cuda, 2, 16, 4, 1000, 1000, 128, seed=4, window=256, softcap=30.0)
+        _assert_card_close(got, want)
+
+    def test_two_launches_are_bit_identical(self, cuda):
+        g = torch.Generator(device=cuda).manual_seed(5)
+        q, do = (torch.randn(2, 32, 1000, 64, generator=g, device=cuda).bfloat16() for _ in range(2))
+        k, v = (torch.randn(2, 8, 1000, 64, generator=g, device=cuda).bfloat16() for _ in range(2))
+        o, lse = tflash.flash_attention_with_lse(q, k, v)
+        first = tflash.flash_bwd(q, k, v, o, lse, do)
+        second = tflash.flash_bwd(q, k, v, o, lse, do)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)

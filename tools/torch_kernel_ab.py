@@ -1,0 +1,130 @@
+"""A/B the port's flash-backward kernels K2 and K3 against another build of
+the same two sources, in turns on one NVIDIA GPU, and the full fine-tune
+step with each.
+
+    python3 tools/torch_kernel_ab.py --other DIR
+
+``DIR`` holds the other version of ``flash_bwd_dq.cu`` and
+``flash_bwd_dkv.cu`` with the headers they include, for example the
+parent commit's sources unpacked into a directory ``.gitignore`` lists:
+
+    git archive <commit> dstack_tpu_torch/csrc | tar -x -C build/other --strip-components=2
+
+Both versions keep the launchers' C signatures, so swapping the loaded
+libraries swaps the kernels under the same Python wrappers. Prints one
+JSON line per measurement, each with the card's name and power limit:
+
+1. K2 and K3 ms (``chip_smoke.time_ms``: CUDA events, L2 flushed) at q/dO
+   [B,32,2048,64] over k/v [B,8,2048,64], causal, for B = 4 and 8, in the
+   order other, this, this, other;
+2. the full fine-tune step of llama-3.2-1b at batch 8 x 2048 (random
+   weights from seed 0; host clock around each step, synchronised): 4
+   steps a turn in the order other, this, this, other, other, this; the
+   median, tokens/s and MFU (``flops_per_token`` over 989 TFLOP/s) of each.
+"""
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from dstack_tpu_torch.models import llama  # noqa: E402
+from dstack_tpu_torch.ops import cuda_build, flash  # noqa: E402
+from dstack_tpu_torch.train import step as train_step  # noqa: E402
+
+SOURCES = ("flash_bwd_dq", "flash_bwd_dkv")
+KERNEL_TURNS = ("other", "this", "this", "other")
+STEP_TURNS = ("other", "this", "this", "other", "other", "this")
+STEPS_A_TURN = 4
+
+
+def build_other(src: Path) -> dict:
+    """nvcc each source of ``src`` with the port's flags → {name: CDLL}."""
+    libs, procs = {}, {}
+    for name in SOURCES:
+        out = src / f"{name}.so"
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out), str(src / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+    for name, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc {src / name}.cu failed:\n{log}")
+        libs[name] = ctypes.CDLL(str(out))
+    return libs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", type=Path, required=True, help="directory with the other K2/K3 sources")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: CUDA is not available", file=sys.stderr)
+        return 2
+    card = chip_smoke.card_line()
+    cuda_build.build_all(SOURCES)
+    libs = {"this": {n: cuda_build.load(n) for n in SOURCES}, "other": build_other(args.other.resolve())}
+
+    def use(tag: str) -> None:
+        cuda_build._libs.update(libs[tag])
+
+    h, hkv, t, d = 32, 8, 2048, 64
+    for b in (4, 8):
+        g = torch.Generator(device="cuda").manual_seed(2)
+        q, do = (torch.randn(b, h, t, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+        k, v = (torch.randn(b, hkv, t, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+        o, lse = flash.flash_attention_with_lse(q, k, v)
+        delta = flash.bwd_delta(o, do)
+        ms: dict = {}
+        for tag in KERNEL_TURNS:
+            use(tag)
+            ms.setdefault(tag, []).append({
+                "flash_bwd_dq": chip_smoke.time_ms(lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta)),
+                "flash_bwd_dkv": chip_smoke.time_ms(lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta)),
+            })
+        print(json.dumps({"card": card, "kernels_ms": ms, "q": [b, h, t, d], "kv": [b, hkv, t, d]}), flush=True)
+        del q, do, k, v, o, lse, delta
+    torch.cuda.empty_cache()
+
+    c = llama.CONFIGS["llama-3.2-1b"]
+    opt = train_step.default_optimizer(lr=2e-4, decay_steps=10)
+    state = train_step.init_train_state(c, opt, seed=0, device="cuda")
+    fn = train_step.make_train_step(c, opt)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tok = torch.randint(0, c.vocab_size, (8, 2048), generator=g, device="cuda")
+    mask = torch.ones_like(tok)
+    mask[:, -1] = 0
+    batch = {"tokens": tok, "targets": torch.roll(tok, -1, dims=1), "mask": mask}
+    for _ in range(2):  # CUDA and cuBLAS start-up
+        fn(state, batch)
+    times: dict = {}
+    for tag in STEP_TURNS:
+        use(tag)
+        for _ in range(STEPS_A_TURN):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(state, batch)
+            torch.cuda.synchronize()
+            times.setdefault(tag, []).append(time.perf_counter() - t0)
+    tokens = tok.numel()
+    ftok = train_step.flops_per_token(c, tok.shape[1])
+    steps = {}
+    for tag, ts in times.items():
+        med = statistics.median(ts)
+        steps[tag] = {"median_step_s": med, "tokens_per_s": tokens / med,
+                      "mfu": ftok * tokens / med / chip_smoke.PEAK_BF16_FLOPS, "step_s": ts}
+    print(json.dumps({"card": card, "full_step_batch_8x2048": steps}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
