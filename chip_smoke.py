@@ -10,20 +10,21 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Print the card's name and power limit (``nvidia-smi``), build the
    hand-written kernels from ``dstack_tpu_torch/csrc`` (one ``nvcc`` per
-   source, in parallel) and print the build time.
+   source, in parallel) and print the build time; read every compiled
+   form's registers and spill bytes from its ``-Xptxas -v`` log (all four
+   kernels): a spill fails the run.
 2. Kernel phase: each kernel against its plain PyTorch version on the
    card in bf16, within atol = rtol = 2e-2: flash prefill (K1) at the
    serving shapes (C = 16 and 256 with q_offset 0 and 512); ragged flash
    decode (K4) with positions from 0 to 2047 in its four forms: the bf16
    and the int8 cache (f32 per-token scales), one row group a slot
-   (q [8,8,4,64]) and speculative verify (S = 5: q [8,8,20,64]); and the
+   (q [8,8,4,64]) and speculative verify (S = 5: q [8,8,20,64]), each row with
+   the NSPLIT and row groups of its split plan; and the
    backward kernels K2 (dq) and K3 (dk, dv) at the training shape q/dO
    [4,32,2048,64], k/v [4,8,2048,64] (causal; window 512 with softcap 30;
-   a ragged T = 1000), where K1 is timed once more, and K2, K3 and the
-   SDPA backward are timed again at the trainer's shape q/dO
-   [8,32,2048,64], k/v [8,8,2048,64]; each backward kernel's registers and
-   spill bytes are read from its ``-Xptxas -v`` log, and a spill fails the
-   run. Times each kernel,
+   a ragged T = 1000), where K1 is timed once more, and K1, K2, K3 and
+   the SDPA forward and backward are timed again at the trainer's shape
+   q/dO [8,32,2048,64], k/v [8,8,2048,64]. Times each kernel,
    its plain version and one PyTorch library call of the same function
    (``scaled_dot_product_attention`` forward with an explicit mask, or its
    backward for K2+K3: yardsticks the port never calls; none reads an int8
@@ -86,8 +87,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain bf16 path's, and the three losses agree within 2e-2.
 6. Print the ``kernels`` JSON line (K1 at the llama and at the gpt-oss
    shape, K4 as one row per form, eight in all, each with its launches on
-   every path; a form launched on no path fails the run; K2 and K3 carry
-   their trainer-shape times and ptxas reports beside), then the card
+   every path; a form launched on no path fails the run; every row
+   carries its kernel's ptxas report, K1 its training- and trainer-shape
+   times, K2 and K3 their trainer-shape times, K4 its NSPLIT), then the card
    line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -106,7 +108,7 @@ from pathlib import Path
 
 import torch
 
-from dstack_tpu_torch.models import llama
+from dstack_tpu_torch.models import llama, moe
 from dstack_tpu_torch.ops import cuda_build, flash, flash_decode
 from dstack_tpu_torch.ops.attention import attention
 from dstack_tpu_torch.serve import engine
@@ -294,7 +296,11 @@ def decode_row(name: str, q, k, v, pos, kw: dict) -> dict:
     if sinks is not None:
         nbytes += sinks.numel() * 4
     b_ms, b_by = bound_ms(nbytes, 4 * d * pairs)
+    rows_per_block, nsplit = flash_decode.decode_plan(
+        b, hkv, r, t, d, window, s_rows, quant, torch.cuda.get_device_properties(0).multi_processor_count)
     row = {
+        "nsplit": nsplit,
+        "rows_per_block": rows_per_block,
         "ms": time_ms(lambda: flash_decode.flash_decode(q, k, v, pos, **kw)),
         "plain_ms": time_ms(lambda: flash_decode.flash_decode_plain(q, k, v, pos, **kw)),
         "library_ms": None if quant else time_ms(
@@ -411,16 +417,21 @@ def live_pairs(t: int, causal: bool, window: int) -> int:
 
 def ptxas_report(name: str) -> dict:
     """Registers and spill bytes of each compiled form of ``csrc/<name>.cu``
-    (form = its head width), from the ``-Xptxas -v`` log that
-    ``cuda_build.build_all`` writes. The registers are the launch
-    allocation: warp-specialised kernels move them between warpgroups
-    with setmaxnreg at run time."""
+    (form = the kernel's name and template arguments, e.g.
+    ``flash_decode_kernel<64,1,3>``: D, int8, M-tiles), from the
+    ``-Xptxas -v`` log that ``cuda_build.build_all`` writes. The registers
+    are the launch allocation: warp-specialised kernels move them between
+    warpgroups with setmaxnreg at run time."""
     text = (cuda_build.BUILD_DIR / f"{name}.ptxas.log").read_text()
     forms = {}
     for m in re.finditer(r"Compiling entry function '([^']+)'.*?(\d+) bytes spill stores, "
                          r"(\d+) bytes spill loads.*?Used (\d+) registers", text, re.S):
-        form = re.search(r"kernelILi(\d+)E", m.group(1))
-        forms[f"D={form.group(1) if form else m.group(1)}"] = {
+        mangled = m.group(1)
+        base = re.search(r"(flash_[a-z_]*?_kernel)(?=I|E)", mangled)
+        args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[base.end():]) if base else None
+        form = (base.group(1) if base else mangled) + (
+            "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">" if args else "")
+        forms[form] = {
             "registers": int(m.group(4)), "spill_stores": int(m.group(2)),
             "spill_loads": int(m.group(3)),
         }
@@ -448,20 +459,26 @@ def _sdpa_bwd_ms(q, k, v, do) -> float:
     return time_ms(lambda: torch.autograd.grad(so, (qs, ks, vs), do, retain_graph=True))
 
 
-def backward_kernel_phase() -> dict:
-    """K2 and K3 against flash_bwd_plain at the training shape, then
-    timed: each kernel alone (delta computed beforehand), the plain
-    version (dq, dk, dv together) and the SDPA backward (dq, dk, dv
-    together: the yardstick for K2 + K3); then K2, K3 and the SDPA
-    backward again at the trainer's batch. First, each backward kernel's
-    registers and spills from ptxas: a spill fails the run."""
+def ptxas_gate() -> dict:
+    """Each kernel's registers and spills, every compiled form, from
+    ptxas: a spill fails the run."""
     ptxas = {}
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for name in cuda_build.KERNEL_SOURCES:
         ptxas[name] = ptxas_report(name)
         log(f"ptxas {name}: {json.dumps(ptxas[name])}")
         spilled = {f: r for f, r in ptxas[name].items() if r["spill_stores"] or r["spill_loads"]}
         if spilled:
             raise AssertionError(f"{name} spills registers: {spilled}")
+    return ptxas
+
+
+def backward_kernel_phase() -> dict:
+    """K2 and K3 against flash_bwd_plain at the training shape, then
+    timed: each kernel alone (delta computed beforehand), the plain
+    version (dq, dk, dv together) and the SDPA backward (dq, dk, dv
+    together: the yardstick for K2 + K3); then K2, K3 and the SDPA
+    backward again at the trainer's batch. K1 is timed at both shapes
+    beside them (its ``training_shape`` and ``trainer_shape``)."""
     b, h, hkv, t, d = BWD_SHAPE
     g = torch.Generator(device="cuda").manual_seed(2)
     err = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
@@ -495,18 +512,20 @@ def backward_kernel_phase() -> dict:
     }
     gemm = 2 * b * h * live_pairs(t, True, 0) * d
     b_ms, b_by = bound_ms(2 * q.numel() * 2 + 2 * k.numel() * 2 + lse.numel() * 4, 2 * gemm)
-    fwd.update(bound_ms=b_ms, bound_by=b_by)
+    fwd.update(bound_ms=b_ms, bound_by=b_by, shape=[b, h, hkv, t, d])
     log(f"kernel flash_fwd (training shape) q [{b},{h},{t},{d}] k/v [{b},{hkv},{t},{d}] causal: {json.dumps(fwd)}")
     plain_ms = time_ms(lambda: flash.flash_bwd_plain(q, k, v, o, lse, do), iters=10)
     sdpa_ms = _sdpa_bwd_ms(q, k, v, do)
     rows = {
         "flash_bwd_dq": {"ms": time_ms(lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta))},
         "flash_bwd_dkv": {"ms": time_ms(lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta))},
+        "flash_fwd": {"training_shape": fwd},
     }
-    for name, row in rows.items():
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        row = rows[name]
         row.update(
             plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bounds[name][0],
-            bound_by=bounds[name][1], max_abs_err=err[name], ptxas=ptxas[name],
+            bound_by=bounds[name][1], max_abs_err=err[name],
         )
         log(f"kernel {name} q/dO [{b},{h},{t},{d}] k/v [{b},{hkv},{t},{d}] causal: {json.dumps(row)}")
     del main, q, k, v, o, lse, do, delta
@@ -521,6 +540,14 @@ def backward_kernel_phase() -> dict:
     delta = flash.bwd_delta(o, do)
     bounds = _bwd_bounds(q, k, lse)
     sdpa_ms = _sdpa_bwd_ms(q, k, v, do)
+    gemm = 2 * b * h * live_pairs(t, True, 0) * d
+    b_ms, b_by = bound_ms(2 * q.numel() * 2 + 2 * k.numel() * 2 + lse.numel() * 4, 2 * gemm)
+    row = {"shape": [b, h, hkv, t, d], "ms": time_ms(lambda: flash.flash_attention_with_lse(q, k, v)),
+           "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+               q, k, v, is_causal=True, enable_gqa=True)), "bound_ms": b_ms, "bound_by": b_by}
+    rows["flash_fwd"]["trainer_shape"] = row
+    log(f"kernel flash_fwd q [{b},{h},{t},{d}] k/v [{b},{hkv},{t},{d}] causal (trainer's shape): "
+        + json.dumps(row))
     for name, fn in (("flash_bwd_dq", lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta)),
                      ("flash_bwd_dkv", lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta))):
         row = {"shape": [b, h, hkv, t, d], "ms": time_ms(fn), "library_ms": sdpa_ms,
@@ -786,6 +813,38 @@ def read_counts() -> dict:
             **flash_decode.LAUNCHES_BY_VARIANT}
 
 
+class PinnedRouting:
+    """``moe.router`` for the teacher-forced comparison: on the first path
+    of each step it routes as usual and keeps each call's expert choices;
+    on the others it hands those choices back, call by call, so every path
+    sends each token to the same experts (with its own gates). A near-tie
+    between two experts' router logits otherwise flips a choice between
+    the bf16 paths and the f32 one and moves a whole token's logits: on
+    gpt-oss such flips swing single checks far past the margin in either
+    direction, whichever K4 runs. Dense models never call it."""
+
+    def __init__(self, router):
+        self.router, self.replay, self.choices, self.i = router, False, [], 0
+
+    def __call__(self, *args, **kw):
+        if self.replay:
+            self.i += 1
+            return self.router(*args, expert=self.choices[self.i - 1], **kw)
+        out = self.router(*args, **kw)
+        self.choices.append(out[0])
+        return out
+
+    def run(self, paths: dict, fn) -> None:
+        """``fn(name, path)`` for each path: the first routes, the rest replay."""
+        moe.router, self.choices = self, []
+        try:
+            for n, (name, path) in enumerate(paths.items()):
+                self.replay, self.i = n > 0, 0
+                fn(name, path)
+        finally:
+            moe.router = self.router
+
+
 def teacher_forced_phase(c, params, kv_quant=None) -> dict:
     """Kernel path vs plain path on the card, teacher-forced: one
     300-token prompt (two chunks, the second at q_offset 256), then 8
@@ -803,18 +862,22 @@ def teacher_forced_phase(c, params, kv_quant=None) -> dict:
     weights. The max over correlated logits is a noisy statistic; the
     relative RMS error is not, and at every step the kernel path's may
     be at most KERNEL_RMS_MARGIN times the plain bf16 path's. A wrong
-    mask or a dropped key shows as a multiple of that noise."""
+    mask or a dropped key shows as a multiple of that noise. On a MoE
+    model every path routes with the f32 path's expert choices
+    (``PinnedRouting``), so the rule holds the kernels' error and not a
+    router's near-ties."""
     reset_counts()
     c32 = dataclasses.replace(c, dtype=torch.float32)
     params32 = {
         k: {n: w.float() for n, w in v.items()} if isinstance(v, dict) else v.float()
         for k, v in params.items()
     }
-    paths = {  # name → (params, config, prefill impl, decode kernel)
+    paths = {  # name → (params, config, prefill impl, decode kernel); f32 routes first
+        "f32": (params32, c32, "plain", "einsum"),
         "kernel": (params, c, None, "flash"),
         "plain": (params, c, "plain", "einsum"),
-        "f32": (params32, c32, "plain", "einsum"),
     }
+    pinned = PinnedRouting(moe.router)
     prompt = [(i * 7 + 300) % 26 + 97 for i in range(300)]
     caches = {
         p: engine.init_cache(cfg, 1, 2048, device="cuda", kv_quant=kv_quant)
@@ -824,10 +887,14 @@ def teacher_forced_phase(c, params, kv_quant=None) -> dict:
     for start in range(0, len(prompt), CHUNK):
         part = prompt[start : start + CHUNK]
         tokens = torch.tensor([part + [0] * (CHUNK - len(part))], device="cuda")
-        for p, (w, cfg, impl, _) in paths.items():
+
+        def prefill(p, path, tokens=tokens, start=start, n=len(part)):
+            w, cfg, impl, _ = path
             logits[p], caches[p] = engine.prefill_chunk_step(
-                w, caches[p], tokens, 0, len(part) - 1, cfg, start=start, impl=impl,
+                w, caches[p], tokens, 0, n - 1, cfg, start=start, impl=impl,
             )
+
+        pinned.run(paths, prefill)
     report = {
         "max_kernel_vs_plain": 0.0, "max_kernel_vs_f32": 0.0, "max_plain_vs_f32": 0.0,
         "rel_rms_kernel_vs_f32": 0.0, "rel_rms_plain_vs_f32": 0.0, "argmax_agree": 0,
@@ -861,10 +928,12 @@ def teacher_forced_phase(c, params, kv_quant=None) -> dict:
     for step in range(8):
         tok = logits["kernel"].argmax(dim=-1)
         positions = torch.tensor([pos], dtype=torch.int32, device="cuda")
-        for p, (w, cfg, _, kern) in paths.items():
-            logits[p], caches[p] = engine.decode_step(
-                w, caches[p], tok, positions, cfg, decode_kernel=kern,
-            )
+
+        def decode(p, path, tok=tok, positions=positions):
+            w, cfg, _, kern = path
+            logits[p], caches[p] = engine.decode_step(w, caches[p], tok, positions, cfg, decode_kernel=kern)
+
+        pinned.run(paths, decode)
         check(f"decode step {step}")
         pos += 1
     # the draft: the kernel path's own next greedy tokens, from a copy
@@ -878,10 +947,12 @@ def teacher_forced_phase(c, params, kv_quant=None) -> dict:
     tokens = torch.stack(draft, dim=1)  # [1, S]
     positions = torch.tensor([pos], dtype=torch.int32, device="cuda")
     write = torch.ones(1, dtype=torch.bool, device="cuda")
-    for p, (w, cfg, _, kern) in paths.items():
-        logits[p], caches[p] = engine.verify_step(
-            w, caches[p], tokens, positions, cfg, write, decode_kernel=kern,
-        )
+
+    def verify(p, path):
+        w, cfg, _, kern = path
+        logits[p], caches[p] = engine.verify_step(w, caches[p], tokens, positions, cfg, write, decode_kernel=kern)
+
+    pinned.run(paths, verify)
     check("verify")
     # how many draft tokens the kernel path's verify accepts (all of
     # them, up to bf16 ties between the decode and verify computations)
@@ -935,7 +1006,8 @@ def _finetune(mode: str) -> dict:
 def _kernel_family(name: str) -> str:
     for key, fam in (("flash_fwd_kernel", "K1 flash_fwd"), ("flash_bwd_dq_kernel", "K2 flash_bwd_dq"),
                      ("flash_bwd_dkv_kernel", "K3 flash_bwd_dkv"),
-                     ("flash_decode_kernel", "K4 flash_decode")):
+                     ("flash_decode_kernel", "K4 flash_decode"),
+                     ("flash_decode_combine_kernel", "K4 flash_decode")):
         if key in name:
             return fam
     low = name.lower()
@@ -1099,8 +1171,10 @@ def main() -> int:
     seconds = cuda_build.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s (per source: {json.dumps(seconds)})")
 
+    ptxas = ptxas_gate()
     rows = kernel_phase()
-    rows.update(backward_kernel_phase())
+    for name, row in backward_kernel_phase().items():
+        rows.setdefault(name, {}).update(row)
     rows.update(gpt_oss_kernel_phase())
     torch.cuda.empty_cache()  # the servers need the card's memory
     serve = {mode: path_phase(mode) for mode in SERVER_MODES}
@@ -1155,7 +1229,9 @@ def main() -> int:
             "launches": sum(counts.values()), "launches_by_path": counts,
             **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms")},
-            **{k: rows[name][k] for k in ("trainer_shape", "ptxas") if k in rows[name]},
+            **{k: rows[name][k] for k in ("training_shape", "trainer_shape", "nsplit", "rows_per_block")
+               if k in rows[name]},
+            "ptxas": ptxas[src.rsplit("/", 1)[1][:-3]],
         })
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -7,6 +7,10 @@
 
 namespace dtpu {
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 // The JAX kernels' masking sentinel (dstack_tpu/ops/flash.py NEG_INF):
 // masked scores are set to it, and a running max at or below half of it
 // means "no live key seen yet".
@@ -15,8 +19,16 @@ constexpr float NEG_INF = -1e30f;
 // exp(x) = exp2(x * LOG2E): one multiply-add and the hardware's exp2.
 constexpr float LOG2E = 1.4426950408889634f;
 
-// The scalar arguments of the flash-backward launchers (K2, K3).
-struct BwdParams {
+// 2^x by the hardware's approximation (MUFU.EX2), results below 2^-126
+// flushed to 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The scalar arguments of the flash launchers (K1, K2, K3).
+struct AttnParams {
   int H, Hkv, Tq, Tk;
   float scale, softcap;
   int causal, q_offset, kv_offset, window;
@@ -24,7 +36,7 @@ struct BwdParams {
 
 // Whether query position `qpos` sees key position `kpos` under the causal
 // and window masks (dstack_tpu/ops/flash.py:293-299, 388-394).
-__device__ __forceinline__ bool sees(int qpos, int kpos, const BwdParams& p) {
+__device__ __forceinline__ bool sees(int qpos, int kpos, const AttnParams& p) {
   return (!p.causal || qpos >= kpos) && (p.window <= 0 || qpos - kpos < p.window);
 }
 
@@ -40,17 +52,6 @@ __device__ __forceinline__ uint32_t pack_bf16_raw(__nv_bfloat16 lo, __nv_bfloat1
   v.x = lo;
   v.y = hi;
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
-  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&w);
-  return __bfloat1622float2(v);
-}
-
-// Round an f32 to bf16 and back: the JAX kernels cast p to the value
-// dtype before the P·V product.
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // D += A·B for one warp: A a 16x16 bf16 tile in four registers, B a
@@ -75,14 +76,27 @@ __device__ __forceinline__ void acc_to_a(uint32_t* a, const float* lo, const flo
   a[3] = pack_bf16(hi[2], hi[3]);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// cp.async: 16 (or 4) bytes from global into shared memory without a
+// register round trip; with `valid` false nothing is read and the
+// destination is zero-filled (the ragged edge of a tile).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace dtpu

@@ -50,7 +50,7 @@ namespace {
 using dtpu::LOG2E;
 using dtpu::NEG_INF;
 using dtpu::sees;
-using Params = dtpu::BwdParams;
+using Params = dtpu::AttnParams;
 
 constexpr int BM = 64;            // keys a consumer warpgroup owns
 constexpr int NCONS = 2;          // consumer warpgroups

@@ -46,7 +46,7 @@ namespace {
 using dtpu::LOG2E;
 using dtpu::NEG_INF;
 using dtpu::sees;
-using Params = dtpu::BwdParams;
+using Params = dtpu::AttnParams;
 
 constexpr int BM = 64;             // query rows a consumer warpgroup owns
 constexpr int NCONS = 2;           // consumer warpgroups

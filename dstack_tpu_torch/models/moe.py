@@ -60,6 +60,7 @@ def router(
     routed_scale: float = 1.0,
     pre_bias: Optional[torch.Tensor] = None,  # gpt-oss linear router bias [E]
     topk_softmax: bool = False,
+    expert: Optional[torch.Tensor] = None,  # [B, T, k]: these choices instead of the top-k
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k routing with capacity → (expert [B, T, k] int64, slot
     [B, T, k] int64, combine [B, T, k] in x's dtype). ``combine`` is the
@@ -67,7 +68,10 @@ def router(
     (``slot >= capacity``); JAX's ``dispatch[b, t, e, c]`` is 1 exactly
     where some choice of token t has expert e, slot c and a nonzero
     keep. Logits are f32 products of the model-dtype inputs (JAX's
-    ``preferred_element_type=f32``): rounding them to bf16 flips choices."""
+    ``preferred_element_type=f32``): rounding them to bf16 flips choices.
+    With ``expert`` the choices are given (their gates still come from
+    these logits): two runs of one model at different precisions can
+    then be compared without a near-tie flipping a choice."""
     if sigmoid:
         raise NotImplementedError("router: the Llama4 sigmoid router comes with the Llama4 families slice")
     if score != "softmax" or groups or bias is not None or routed_scale != 1.0:
@@ -79,7 +83,12 @@ def router(
     logits = matmul_f32(x, w_router.to(x.dtype))  # [B, T, E] f32
     if pre_bias is not None:
         logits = logits + pre_bias.float()
-    if topk_softmax:
+    if expert is not None:
+        top = logits if topk_softmax else torch.softmax(logits, dim=-1)
+        gates = top.gather(-1, expert)
+        if topk_softmax:
+            gates = torch.softmax(gates, dim=-1)
+    elif topk_softmax:
         top_logits, expert = torch.topk(logits, k, dim=-1)
         gates = torch.softmax(top_logits, dim=-1)
     else:

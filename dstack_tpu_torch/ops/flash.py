@@ -4,13 +4,19 @@ joins them.
 
 Source note. The kernel (``csrc/flash_fwd.cu``) replaces the Pallas
 ``_fwd_kernel`` driven by ``_flash_fwd`` (dstack_tpu/ops/flash.py:54,149;
-``pl.pallas_call`` at :190). At the serving shapes (a 16-256-query
-chunk over a 2048-slot cache row) it is bound by the bytes of K and V it
-reads, not by FLOPs, so its design reads only the KV tiles the causal
+``pl.pallas_call`` at :190). At the training shape (T = 2048, D = 64) it
+is bound by operations; it is built for Hopper as FlashAttention-3 is:
+wgmma for S = Q K^T (both operands in shared memory) and O += P V (P from
+registers), a producer warpgroup that feeds Q once and K/V through a TMA
+ring with mbarriers, and within each consumer warpgroup the softmax of
+one tile overlapping the P V product of the one before. At the serving
+shapes (a 16-256-query chunk over a 2048-slot cache row) it is bound by
+the bytes of K and V it reads, so it reads only the KV tiles the causal
 frontier and the window can see: a chunk at ``start`` reads
 ``start + C`` keys of the row, never the stale tail. Unlike the TPU
-kernel (``flash_supported`` needs ``Tq % 128 == 0``), it masks the ragged
-edge itself and takes every chunk size the engine hands it.
+kernel (``flash_supported`` needs ``Tq % 128 == 0``), it takes every
+chunk size the engine hands it: TMA zero-fills rows past the ends, and
+rows past Tq are dropped at the store.
 
 The backward kernels replace the Pallas ``_dq_kernel`` (K2,
 ``csrc/flash_bwd_dq.cu``; dstack_tpu/ops/flash.py:248, call at :467) and

@@ -7,18 +7,23 @@ Source note. The kernel (``csrc/flash_decode.cu``) replaces the Pallas
 Decode attention is bound by the bytes of the KV cache it reads, so the
 kernel reads each slot's row only up to that slot's frontier (and only
 inside the window when one is set), once at KV-head width for every
-query row of the slot. One block per (slot, KV head): at batch 8 x 8 KV
-heads that is 64 blocks on the H100's 132 SMs — a split-K design is
-later work.
+query row of the slot. It is flash decoding: the grid is (slot x KV
+head, row group, NSPLIT), each block takes an even share of its slot's
+live 64-key tiles (computed on the device from ``positions``), and a
+second kernel merges each row's NSPLIT f32 partials in split order.
+:func:`decode_plan` picks the row groups and NSPLIT on the host from the
+shapes alone, never from ``positions`` (a host read would add a sync to
+every decode step); the wrapper allocates the partials. S = Q K^T and
+O += P V run on the tensor cores (mma.sync), K and V stream through a
+cp.async ring.
 
 Variants, as in the TPU kernel: the bf16 cache or the int8 cache with
 f32 per-token scales (``k_scale``/``v_scale``), one query row group per
 slot (decode) or ``rows_per_slot = S`` rows of it (speculative verify),
 each with or without attention sinks (gpt-oss: a learned logit per query
-row that joins the softmax denominator only, applied at each row's
+row that joins the softmax denominator only, applied once at each row's
 finish as in ``_decode_kernel``, flash_decode.py:147-156). The sinks are
-a runtime pointer, not a template parameter: the kernel's twelve forms
-stay twelve.
+a runtime pointer, not a template parameter.
 """
 
 import ctypes
@@ -31,6 +36,14 @@ from dstack_tpu_torch.ops.flash import sink_softmax
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)  # the kernel's compiled head widths
+# query rows a block at most, by head width: M-tiles of 16 (max_mtiles in
+# csrc/flash_decode.cu), so the accumulators fit without a spill; an int8
+# block converts each tile once for all its rows, so on a walk with no
+# window (long enough to split) it takes INT8_ROWS
+MAX_ROWS = {64: 32, 128: 16}
+INT8_ROWS = {64: 48, 128: 16}
+BLOCKS_PER_SM = 2  # NSPLIT aims at about this many blocks on every SM ...
+TILES_A_SPLIT = 4  # ... and gives each split at least this many reachable tiles
 
 # kernel launches since the counts were last set to 0 (the plain version
 # never counts): chip_smoke.py reads them to prove the serving path ran
@@ -57,6 +70,8 @@ def _lib() -> ctypes.CDLL:
             _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,  # B Hkv R S T D
             _c_float, _c_int, _c_float,  # scale window softcap
             _c_void,  # sinks (null: none)
+            _c_int, _c_int,  # rows_per_block nsplit
+            _c_void, _c_void, _c_void,  # acc_ws m_ws l_ws (nsplit > 1)
             _c_void,  # stream
         ]
     return lib
@@ -107,6 +122,35 @@ def flash_decode_plain(
     else:
         p = torch.softmax(s, dim=-1)
     return torch.matmul(p.to(v.dtype), v)
+
+
+def tile_keys(int8: bool, window: int) -> int:
+    """Keys a tile of the kernel's walk (4 warps x KPW in
+    csrc/flash_decode.cu): 128 of an int8 cache with no window (about the
+    16 KB of a 64-key bf16 tile, half the round trips), else 64."""
+    return 128 if int8 and window <= 0 else 64
+
+
+def decode_plan(b: int, hkv: int, r: int, t: int, d: int, window: int = 0, rows_per_slot: int = 1,
+                int8: bool = False, sms: int = 132) -> tuple[int, int]:
+    """The kernel's grid from shapes alone → (rows_per_block, nsplit):
+    the R rows of a (slot, KV head) in as few even row groups as
+    ``MAX_ROWS`` allows, then enough splits of the keys that the grid
+    has about ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs, but no
+    more than one split per ``TILES_A_SPLIT`` tiles (:func:`tile_keys`)
+    that a slot can reach: the whole row, or with a window the tiles that
+    ``window + rows_per_slot - 1`` keys can straddle. A split costs a
+    partial and its merge; a few tiles a block are cheaper walked than
+    merged."""
+    groups = -(-r // (INT8_ROWS[d] if int8 and window <= 0 else MAX_ROWS[d]))
+    rows_per_block = -(-r // groups)
+    base = b * hkv * groups
+    tile = tile_keys(int8, window)
+    reach = -(-t // tile)
+    if window > 0:
+        reach = min(reach, -(-(window + rows_per_slot - 1) // tile) + 1)
+    nsplit = max(1, min(reach // TILES_A_SPLIT, -(-BLOCKS_PER_SM * sms // base)))
+    return rows_per_block, nsplit
 
 
 def _check(q, k, v, positions, k_scale, v_scale, rows_per_slot, sinks=None) -> None:
@@ -177,14 +221,27 @@ def flash_decode(
         raise ValueError(f"flash_decode: no kernel for device {q.device}")
     _check(q, k, v, positions, k_scale, v_scale, rows_per_slot, sinks)
     b, hkv, r, d = q.shape
+    t = k.shape[2]
+    rows_per_block, nsplit = decode_plan(
+        b, hkv, r, t, d, window, rows_per_slot, k_scale is not None,
+        torch.cuda.get_device_properties(q.device).multi_processor_count,
+    )
     o = torch.empty_like(q)
+    # the f32 partials in one allocation: acc [B, Hkv, nsplit, R, D], m, l
+    # [B, Hkv, nsplit, R]; freed after the enqueue, reused in stream order
+    ws = [None, None, None]
+    if nsplit > 1:
+        n = b * hkv * nsplit * r
+        buf = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
+        ws = [buf.data_ptr() + 4 * n * off for off in (0, d, d + 1)]
     quant = k_scale is not None
     err = _lib().dtpu_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
         positions.data_ptr(), o.data_ptr(),
-        b, hkv, r, rows_per_slot, k.shape[2], d, float(scale), window, float(softcap or 0.0),
+        b, hkv, r, rows_per_slot, t, d, float(scale), window, float(softcap or 0.0),
         sinks.data_ptr() if sinks is not None else None,
+        rows_per_block, nsplit, *ws,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     cuda_build.check(err, "flash_decode")

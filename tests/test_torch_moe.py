@@ -145,3 +145,26 @@ def test_unported_router_branches_raise(kw):
     x = torch.zeros(1, 4, H)
     with pytest.raises(NotImplementedError):
         tmoe.router(x, torch.zeros(H, E), E, 2, 4, **kw)
+
+
+@pytest.mark.parametrize("topk_softmax", [False, True])
+def test_router_with_given_choices(topk_softmax):
+    # given its own top-k choices the router reproduces its routing; given
+    # another run's choices it keeps them and takes the gates from its own
+    # logits, as the teacher-forced comparison on the card replays them
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((2, 12, H)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 0.3, (H, E)).astype(np.float32))
+    own = tmoe.router(x, w, E, 2, 8, topk_softmax=topk_softmax)
+    again = tmoe.router(x, w, E, 2, 8, topk_softmax=topk_softmax, expert=own[0])
+    for a, b in zip(own, again):
+        assert torch.equal(a, b)
+    other = torch.roll(own[0], 1, dims=-1)  # the same experts, the other order
+    expert, slot, combine = tmoe.router(x, w, E, 2, 8, topk_softmax=topk_softmax, expert=other)
+    assert torch.equal(expert, other)
+    logits = x @ w
+    gates = (logits if topk_softmax else torch.softmax(logits, -1)).gather(-1, other)
+    if topk_softmax:
+        gates = torch.softmax(gates, -1)
+    kept = slot < 8
+    np.testing.assert_allclose(combine[kept].numpy(), gates[kept].numpy(), atol=1e-6)

@@ -198,3 +198,137 @@ class TestKernelsOnTheCard:
         o = tflash_decode.flash_decode(q, k, v, pos, **kw)
         po = tflash_decode.flash_decode_plain(q, k, v, pos, **kw)
         torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
+
+
+def _fwd_case(dev, b, h, hkv, tq, tk, d, seed=0, **kw):
+    """K1 and flash_attention_plain on the same bf16 inputs → ((o, lse) of
+    the kernel, of the plain version)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, tq, d, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(b, hkv, tk, d, generator=g, device=dev).bfloat16() for _ in range(2))
+    return tflash.flash_attention_with_lse(q, k, v, **kw), tflash.flash_attention_plain(q, k, v, **kw)
+
+
+def _assert_fwd_close(got, want):
+    for name, a, b in zip(("o", "lse"), got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+class TestFlashForwardKernelAtTrainingShapes:
+    """K1 (wgmma on a TMA ring) vs flash_attention_plain at the training
+    shapes and every tile edge, o and lse each on its own (bf16, 2e-2);
+    the cases of the backward kernels' card tests (test_torch_flash_bwd.py)."""
+
+    @pytest.mark.parametrize(
+        "d,t,causal,window,softcap",
+        [
+            (64, 2048, True, 0, 0.0),  # llama-3.2-1b training shape
+            (64, 2048, True, 512, 30.0),
+            (64, 1000, True, 0, 0.0),  # ragged edge: T not a multiple of 64
+            (64, 300, False, 0, 0.0),
+            (128, 1024, True, 0, 0.0),  # Llama-3-8B head width
+        ],
+    )
+    def test_flash_forward(self, cuda, d, t, causal, window, softcap):
+        _assert_fwd_close(*_fwd_case(cuda, 4, 32, 8, t, t, d, causal=causal, window=window, softcap=softcap))
+
+    @pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 129, 1000])
+    def test_tile_edges(self, cuda, t):
+        # T around the 64-key tiles and the 128-row blocks, B > 1
+        _assert_fwd_close(*_fwd_case(cuda, 2, 8, 2, t, t, 64, seed=t))
+
+    @pytest.mark.parametrize("h,hkv", [(8, 8), (32, 8), (64, 8)], ids=["group1", "group4", "group8"])
+    def test_gqa_groups(self, cuda, h, hkv):
+        _assert_fwd_close(*_fwd_case(cuda, 2, h, hkv, 384, 384, 64, seed=h))
+
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_offsets_with_window(self, cuda, d):
+        # queries at positions 320..511 over keys at 64..511, window 128
+        _assert_fwd_close(*_fwd_case(cuda, 2, 8, 2, 192, 448, d, seed=2, q_offset=320, kv_offset=64, window=128))
+
+    def test_head_dim_128_window_softcap(self, cuda):
+        _assert_fwd_close(*_fwd_case(cuda, 2, 16, 4, 1000, 1000, 128, seed=4, window=256, softcap=30.0))
+
+    def test_no_live_key(self, cuda):
+        # kv_offset 64: query rows 0..63 see no key: o 0, lse NEG_INF
+        got, want = _fwd_case(cuda, 2, 8, 2, 128, 128, 64, seed=3, kv_offset=64)
+        _assert_fwd_close(got, want)
+        o, lse = got
+        assert not o[:, :, :64].any() and bool((lse[:, :, :64] == tflash.NEG_INF).all())
+
+    def test_two_launches_are_bit_identical(self, cuda):
+        g = torch.Generator(device=cuda).manual_seed(5)
+        q = torch.randn(2, 32, 1000, 64, generator=g, device=cuda).bfloat16()
+        k, v = (torch.randn(2, 8, 1000, 64, generator=g, device=cuda).bfloat16() for _ in range(2))
+        first = tflash.flash_attention_with_lse(q, k, v)
+        second = tflash.flash_attention_with_lse(q, k, v)
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+def _decode_case(dev, b, r, d, pos, seed=0, quant=False, **kw):
+    """K4 and flash_decode_plain on the same inputs (cache [b, 8, 2048, d])
+    → (kernel, plain) outputs."""
+    from dstack_tpu_torch.serve.engine import kv_quantize
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, 8, r, d, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(b, 8, 2048, d, generator=g, device=dev).bfloat16() for _ in range(2))
+    if kw.pop("sinks", False):
+        kw["sinks"] = torch.randn(8, r, generator=g, device=dev)
+    if quant:
+        (k, ks), (v, vs) = kv_quantize(k), kv_quantize(v)
+        kw.update(k_scale=ks, v_scale=vs)
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kw.setdefault("scale", d**-0.5)
+    return tflash_decode.flash_decode(q, k, v, pos, **kw), tflash_decode.flash_decode_plain(q, k, v, pos, **kw)
+
+
+def _assert_decode_close(got, want):
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+class TestDecodeSplitOnTheCard:
+    """K4's split-K edges (decode_plan gives NSPLIT = 5 at batch 8 x 8 KV
+    heads and 8 for one slot on 132 SMs) vs flash_decode_plain (2e-2)."""
+
+    @pytest.mark.parametrize("quant", [False, True])
+    def test_positions_at_split_edges(self, cuda, quant):
+        # the last key of a tile and the first of the next: with NSPLIT even
+        # shares of pos // 64 + 1 live tiles, each is a split's edge
+        _assert_decode_close(*_decode_case(cuda, 8, 4, 64, [63, 64, 383, 384, 1215, 1216, 2046, 2047], quant=quant))
+
+    @pytest.mark.parametrize("rows_per_slot", [1, 5])
+    def test_pos0_under_many_splits(self, cuda, rows_per_slot):
+        # one slot: 8 splits, of which all but one are empty partials
+        _assert_decode_close(*_decode_case(cuda, 1, 4 * rows_per_slot, 64, [0], rows_per_slot=rows_per_slot))
+
+    @pytest.mark.parametrize("sinks", [False, True])
+    def test_window_crossing_splits(self, cuda, sinks):
+        # a 1000-key window reaches 17 tiles: 4 splits
+        pos = [100, 130, 700, 701, 1000, 1500, 1999, 2040]
+        _assert_decode_close(*_decode_case(cuda, 8, 8, 64, pos, seed=1, window=1000, sinks=sinks))
+
+    def test_sinks_with_every_split_empty(self, cuda):
+        # positions past the row with a window that ends before it: no key
+        # is live in any split, and the sink finish gives 0
+        got, want = _decode_case(cuda, 2, 8, 64, [2300, 500], seed=2, window=128, sinks=True)
+        _assert_decode_close(got, want)
+        assert not got[0].any()
+
+    @pytest.mark.parametrize("quant", [False, True])
+    @pytest.mark.parametrize("group,rows_per_slot", [(4, 1), (4, 5), (8, 5)], ids=["R4", "R20", "R40"])
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_rows_and_caches(self, cuda, quant, group, rows_per_slot, d):
+        last = 2048 - rows_per_slot
+        pos = [0, 1, 62, 63, 700, 1500, last - 1, last]
+        _assert_decode_close(*_decode_case(cuda, 8, group * rows_per_slot, d, pos, seed=d + group,
+                                           quant=quant, rows_per_slot=rows_per_slot))
+
+    @pytest.mark.parametrize("quant", [False, True])
+    def test_two_launches_are_bit_identical(self, cuda, quant):
+        pos = [0, 40, 200, 300, 700, 1024, 1500, 2043]
+        first, _ = _decode_case(cuda, 8, 40, 64, pos, seed=7, quant=quant, rows_per_slot=5, sinks=True)
+        second, _ = _decode_case(cuda, 8, 40, 64, pos, seed=7, quant=quant, rows_per_slot=5, sinks=True)
+        assert torch.equal(first, second)

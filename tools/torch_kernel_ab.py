@@ -1,22 +1,27 @@
-"""A/B the port's flash-backward kernels K2 and K3 against another build of
-the same two sources, in turns on one NVIDIA GPU, and the full fine-tune
-step with each.
+"""A/B the port's flash kernels K1 (forward), K2 and K3 (backward) against
+another build of the same sources, in turns on one NVIDIA GPU, and the
+full fine-tune step with each.
 
-    python3 tools/torch_kernel_ab.py --other DIR
+    python3 tools/torch_kernel_ab.py --other DIR [--sources flash_fwd,flash_bwd_dq,flash_bwd_dkv]
 
-``DIR`` holds the other version of ``flash_bwd_dq.cu`` and
-``flash_bwd_dkv.cu`` with the headers they include, for example the
-parent commit's sources unpacked into a directory ``.gitignore`` lists:
+``DIR`` holds the other version of each source named by ``--sources``
+(default: ``flash_bwd_dq`` and ``flash_bwd_dkv``) with the headers they
+include, for example the parent commit's sources unpacked into a
+directory ``.gitignore`` lists:
 
     git archive <commit> dstack_tpu_torch/csrc | tar -x -C build/other --strip-components=2
 
-Both versions keep the launchers' C signatures, so swapping the loaded
-libraries swaps the kernels under the same Python wrappers. Prints one
-JSON line per measurement, each with the card's name and power limit:
+Each of those launchers keeps its C signature from build to build, so
+swapping the loaded libraries swaps the kernels under the same Python
+wrappers. K4 (``flash_decode``) cannot be swapped this way: its split-K
+entry point takes the grid plan and the f32 workspaces, which the
+earlier build's does not, so K4 is held by ``chip_smoke.py``'s kernel
+phase instead. Prints one JSON line per measurement, each with the
+card's name and power limit:
 
-1. K2 and K3 ms (``chip_smoke.time_ms``: CUDA events, L2 flushed) at q/dO
-   [B,32,2048,64] over k/v [B,8,2048,64], causal, for B = 4 and 8, in the
-   order other, this, this, other;
+1. each selected kernel's ms (``chip_smoke.time_ms``: CUDA events, L2
+   flushed) at q/dO [B,32,2048,64] over k/v [B,8,2048,64], causal, for
+   B = 4 and 8, in the order other, this, this, other;
 2. the full fine-tune step of llama-3.2-1b at batch 8 x 2048 (random
    weights from seed 0; host clock around each step, synchronised): 4
    steps a turn in the order other, this, this, other, other, this; the
@@ -42,16 +47,16 @@ from dstack_tpu_torch.models import llama  # noqa: E402
 from dstack_tpu_torch.ops import cuda_build, flash  # noqa: E402
 from dstack_tpu_torch.train import step as train_step  # noqa: E402
 
-SOURCES = ("flash_bwd_dq", "flash_bwd_dkv")
+SOURCES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")  # the swappable launchers
 KERNEL_TURNS = ("other", "this", "this", "other")
 STEP_TURNS = ("other", "this", "this", "other", "other", "this")
 STEPS_A_TURN = 4
 
 
-def build_other(src: Path) -> dict:
-    """nvcc each source of ``src`` with the port's flags → {name: CDLL}."""
+def build_other(src: Path, names) -> dict:
+    """nvcc each named source of ``src`` with the port's flags → {name: CDLL}."""
     libs, procs = {}, {}
-    for name in SOURCES:
+    for name in names:
         out = src / f"{name}.so"
         cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out), str(src / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
@@ -65,14 +70,19 @@ def build_other(src: Path) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", type=Path, required=True, help="directory with the other K2/K3 sources")
+    ap.add_argument("--other", type=Path, required=True, help="directory with the other sources")
+    ap.add_argument("--sources", default="flash_bwd_dq,flash_bwd_dkv",
+                    help=f"comma-separated sources to swap, of {','.join(SOURCES)}")
     args = ap.parse_args()
+    names = tuple(args.sources.split(","))
+    if not names or set(names) - set(SOURCES):
+        ap.error(f"--sources takes names of {SOURCES}, got {args.sources}")
     if not torch.cuda.is_available():
         print("torch_kernel_ab: CUDA is not available", file=sys.stderr)
         return 2
     card = chip_smoke.card_line()
-    cuda_build.build_all(SOURCES)
-    libs = {"this": {n: cuda_build.load(n) for n in SOURCES}, "other": build_other(args.other.resolve())}
+    cuda_build.build_all(names)
+    libs = {"this": {n: cuda_build.load(n) for n in names}, "other": build_other(args.other.resolve(), names)}
 
     def use(tag: str) -> None:
         cuda_build._libs.update(libs[tag])
@@ -84,13 +94,15 @@ def main() -> int:
         k, v = (torch.randn(b, hkv, t, d, generator=g, device="cuda").bfloat16() for _ in range(2))
         o, lse = flash.flash_attention_with_lse(q, k, v)
         delta = flash.bwd_delta(o, do)
+        calls = {
+            "flash_fwd": lambda: flash.flash_attention_with_lse(q, k, v),
+            "flash_bwd_dq": lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta),
+            "flash_bwd_dkv": lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta),
+        }
         ms: dict = {}
         for tag in KERNEL_TURNS:
             use(tag)
-            ms.setdefault(tag, []).append({
-                "flash_bwd_dq": chip_smoke.time_ms(lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta)),
-                "flash_bwd_dkv": chip_smoke.time_ms(lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta)),
-            })
+            ms.setdefault(tag, []).append({n: chip_smoke.time_ms(calls[n]) for n in names})
         print(json.dumps({"card": card, "kernels_ms": ms, "q": [b, h, t, d], "kv": [b, hkv, t, d]}), flush=True)
         del q, do, k, v, o, lse, delta
     torch.cuda.empty_cache()
