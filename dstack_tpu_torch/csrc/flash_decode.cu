@@ -44,7 +44,7 @@
 //   20 take 1, 1, 2 M-tiles; R = 40 takes two row groups of 20, or one of
 //   3 M-tiles on the int8 cache with no window, whose conversions are then
 //   done once (a group holds at most 2 M-tiles at D = 64, 3 there, 1 at
-//   D = 128, so the accumulators fit without a spill). wgmma's
+//   D = 128 and 256, so the accumulators fit without a spill). wgmma's
 //   64-row minimum would waste 16x at R = 4. Each of the 4 warps owns 16
 //   keys of every tile (32 of a 128-key int8 tile, in two steps) with its own
 //   running max, sum and accumulator; the warps merge through shared
@@ -53,6 +53,12 @@
 //   through a ring of STAGES shared-memory buffers with cp.async, so
 //   STAGES - 1 tiles are in flight while one is multiplied; keys past T
 //   are zero-filled by the copy.
+// - D = 256 (Gemma): a cached key is 528 bytes with its padding, so the
+//   3-stage ring of 64-key bf16 tiles takes 203 KB (212 KB for 128-key
+//   int8 tiles) and a block has an SM to itself; a warp's accumulator at
+//   one M-tile is 16 x 256 f32, 128 registers a thread, which fits
+//   because V's fragments are read as the P V products take them, at
+//   every D.
 // - Few instructions a tile: a block's walk is a chain of dependent
 //   steps, so the softmax takes exp2 with the scale folded in (m and l in
 //   log2 units), masks only the tiles that straddle a row's frontier, the
@@ -381,14 +387,6 @@ __global__ void __launch_bounds__(NTHREADS, (D == 64 && MT == 1 ? 16 : 8) / NWAR
           dtpu::mma_16816(s[mt][1], af, kf[1][0], kf[1][1]);
         }
       }
-      // V's B operand pairs keys 2t, 2t + 1: read (and dequantized) now,
-      // while the softmax below waits on its shuffles and exponentials
-      uint32_t vf[D / 8][2];
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        vf[j][0] = v_pair<QUANT>(st + S::KV, vsc, kw + 2 * t, 8 * j + g, S::LDB);
-        vf[j][1] = v_pair<QUANT>(st + S::KV, vsc, kw + 2 * t + 8, 8 * j + g, S::LDB);
-      }
       // scale, softcap, mask (only on a tile that straddles a row's
       // frontier, the window's edge or T), then the online softmax; P
       // re-packed as the A operand (p cast to bf16, flash_decode.py:137)
@@ -400,11 +398,17 @@ __global__ void __launch_bounds__(NTHREADS, (D == 64 && MT == 1 ? 16 : 8) / NWAR
         if (inside) softmax_tile<false, false>(s, m_i, l_i, acc, pa, qpos, k_lo + kw, t, a);
         else softmax_tile<true, false>(s, m_i, l_i, acc, pa, qpos, k_lo + kw, t, a);
       }
-      // O += P V, each V fragment used by every M-tile
+      // O += P V, each V fragment used by every M-tile. V's B operand
+      // pairs keys 2t, 2t + 1, read (and dequantized) as each product
+      // takes it: reading all of V before the softmax holds D / 4 more
+      // registers and was no faster at D = 64 or 128 (within 5 % either
+      // way by form, on an H100 80GB HBM3 at 700 W)
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
+        const uint32_t v0 = v_pair<QUANT>(st + S::KV, vsc, kw + 2 * t, 8 * j + g, S::LDB);
+        const uint32_t v1 = v_pair<QUANT>(st + S::KV, vsc, kw + 2 * t + 8, 8 * j + g, S::LDB);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) dtpu::mma_16816(acc[mt][j], pa[mt], vf[j][0], vf[j][1]);
+        for (int mt = 0; mt < MT; ++mt) dtpu::mma_16816(acc[mt][j], pa[mt], v0, v1);
       }
     }
   }
@@ -471,7 +475,7 @@ __global__ void __launch_bounds__(NTHREADS, (D == 64 && MT == 1 ? 16 : 8) / NWAR
 
 // Merge each row's NSPLIT partials in split order, then the sink finish:
 // one block a (slot x KV head, row), one thread a column pair.
-__global__ void __launch_bounds__(64) flash_decode_combine_kernel(const Args a, int D) {
+__global__ void __launch_bounds__(128) flash_decode_combine_kernel(const Args a, int D) {
   const int bh = blockIdx.x, row = blockIdx.y, c = 2 * threadIdx.x;
   if (c >= D) return;
   const size_t p0 = (size_t)bh * a.nsplit * a.R + row;  // split s at p0 + s R
@@ -535,7 +539,7 @@ int launch_form(const Args& a, bool quant, cudaStream_t s) {
 // and v_scale are null for the bf16 cache, else k/v are int8; sinks is
 // null, or [Hkv, R] f32 sink logits. The caller plans the grid: row
 // groups of `rows_per_block` rows (at most 32 at D = 64, 48 for int8 with
-// no window, 16 at D = 128) and `nsplit` splits of the keys (of tiles of
+// no window, 16 at D = 128 and 256) and `nsplit` splits of the keys (of tiles of
 // 64 keys, 128 for int8 with no window); with nsplit > 1 it passes the f32
 // workspaces acc_ws [B, Hkv, nsplit, R, D] and m_ws, l_ws
 // [B, Hkv, nsplit, R], which the kernels fill and read.
@@ -560,5 +564,6 @@ extern "C" int dtpu_flash_decode(const void* q, const void* k, const void* v, co
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_form<64>(a, quant, s);
   if (D == 128) return launch_form<128>(a, quant, s);
+  if (D == 256) return launch_form<256>(a, quant, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -29,8 +29,14 @@
 // - TMA from 3-D tensor maps over [B*H, T, D] in the 128-byte swizzle the
 //   wgmma descriptors read: rows past Tk and past Tq arrive as zeros, never
 //   the next head's rows, and rows past Tq are dropped at the store, so
-//   every chunk size C = 16 ... 256 at any q_offset takes the kernel. At
-//   D = 128 a row is two 64-column boxes.
+//   every chunk size C = 16 ... 256 at any q_offset takes the kernel. A
+//   row is D / 64 column boxes (one at D = 64, four at D = 256), and P V
+//   is one product a box: the MN-major V operand covers 64 columns.
+// - D = 256 (Gemma): the two warpgroups' Q tiles take 64 KB and a stage of
+//   K and V 64 KB, so the ring is 2 stages deep (192 KB in all, of the
+//   227 KB a block may have); a consumer's O accumulator is 64 x 256 f32,
+//   128 registers a thread, beside one 64-key S tile (32) and its bf16 P
+//   (16), which the 240 registers of setmaxnreg hold with the overlap.
 // - Tile ranges: K/V tiles past the causal frontier of the block's last
 //   row and before the window's floor of its first row are never loaded
 //   (the role of `_causal_kv_clamp`, flash.py:223); a warpgroup walks only
@@ -54,7 +60,11 @@ using Params = dtpu::AttnParams;
 constexpr int BM = 64;            // query rows a consumer warpgroup owns
 constexpr int NCONS = 2;          // consumer warpgroups
 constexpr int BQ = BM * NCONS;    // query rows a block
-constexpr int STAGES = 3;         // ring depth
+// ring depth: 3 stages, 2 at D = 256 (the shared memory a block may have)
+template <int D>
+constexpr int stages() {
+  return D >= 256 ? 2 : 3;
+}
 constexpr int NTHREADS = 128 * (1 + NCONS);
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -63,6 +73,7 @@ constexpr float LN2 = 0.6931471805599453f;
 // a streamed tile.
 template <int D, int BK>
 struct Smem {
+  static constexpr int STAGES = stages<D>();
   static constexpr int QT = BM * D * 2;                // a warpgroup's query rows
   static constexpr int KVT = BK * D * 2;               // a K or V tile
   static constexpr int Q = 0;                          // NCONS tiles
@@ -175,6 +186,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_kernel(
     const Params p) {
   using S = Smem<D, BK>;
   constexpr int CB = D / 64;  // 64-column boxes a row
+  constexpr int STAGES = S::STAGES;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (dtpu::smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t full0 = base + S::BAR, empty0 = full0 + 8 * STAGES, qbar = empty0 + 8 * STAGES;
@@ -368,7 +380,7 @@ int launch(const void* q, const void* k, const void* v, __nv_bfloat16* o, float*
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a head width other than 64 or 128 or a tensor
+// cudaErrorInvalidValue for a head width other than 64, 128 or 256 or a tensor
 // map that cuTensorMapEncodeTiled refuses.
 extern "C" int dtpu_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               int B, int H, int Hkv, int Tq, int Tk, int D, float scale,
@@ -380,12 +392,13 @@ extern "C" int dtpu_flash_fwd(const void* q, const void* k, const void* v, void*
   auto* lp = static_cast<float*>(lse);
   // 128 keys a tile where every tile but the diagonal one runs unmasked
   // (S a 64 x 128 wgmma: half the softmax steps); with a window or a
-  // softcap, 64 (measured faster there); at D = 128, 64 so O and S fit
-  // the registers
+  // softcap, 64 (measured faster there); at D = 128 and 256, 64 so O and
+  // S fit the registers
   if (D == 64) {
     return window > 0 || softcap > 0.f ? launch<64, 64>(q, k, v, op, lp, B, p, s)
                                        : launch<64, 128>(q, k, v, op, lp, B, p, s);
   }
   if (D == 128) return launch<128, 64>(q, k, v, op, lp, B, p, s);
+  if (D == 256) return launch<256, 64>(q, k, v, op, lp, B, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

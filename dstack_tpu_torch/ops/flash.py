@@ -48,7 +48,8 @@ import torch
 from dstack_tpu_torch.ops import cuda_build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)  # the kernel's compiled head widths
+HEAD_DIMS = (64, 128, 256)  # K1's compiled head widths (256: Gemma serving)
+BWD_HEAD_DIMS = (64, 128)  # K2's and K3's: D = 256 comes with Gemma training
 
 # kernel launches since each count was last set to 0 (the plain versions
 # never count): chip_smoke.py reads them to prove a path ran the kernels
@@ -150,7 +151,7 @@ def sink_postscale(o: torch.Tensor, lse: torch.Tensor, sinks: torch.Tensor) -> t
     return (o.float() * gate).to(o.dtype)
 
 
-def _check_kernel_args(q, k, v, **like_q) -> None:
+def _check_kernel_args(q, k, v, head_dims=HEAD_DIMS, **like_q) -> None:
     """Shapes, device, dtype, layout and alignment the kernels take;
     ``like_q`` names more bf16 tensors shaped like q (dO)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -158,8 +159,8 @@ def _check_kernel_args(q, k, v, **like_q) -> None:
     b, h, _, d = q.shape
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[1]:
         raise ValueError(f"flash: mismatched q {tuple(q.shape)} and k/v {tuple(k.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash: head_dim {d} not in the kernel's {HEAD_DIMS}")
+    if d not in head_dims:
+        raise ValueError(f"flash: head_dim {d} not in the kernel's {head_dims}")
     for name, t in like_q.items():
         if t.shape != q.shape:
             raise ValueError(f"flash: {name} {tuple(t.shape)} is not shaped like q {tuple(q.shape)}")
@@ -303,7 +304,7 @@ def _launch_bwd(source: str, outs: tuple, q, k, v, do, lse, delta, *, causal=Tru
     of the forward plus contiguous f32 [B, H, Tq] lse and delta."""
     if q.device.type != "cuda":
         raise ValueError(f"flash: no kernel for device {q.device}")
-    _check_kernel_args(q, k, v, do=do)
+    _check_kernel_args(q, k, v, head_dims=BWD_HEAD_DIMS, do=do)
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != q.shape[:3] or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"flash: {name} must be contiguous f32 [B,H,Tq]; got {t.dtype} {tuple(t.shape)}")

@@ -35,13 +35,13 @@ from dstack_tpu_torch.ops import cuda_build
 from dstack_tpu_torch.ops.flash import sink_softmax
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)  # the kernel's compiled head widths
+HEAD_DIMS = (64, 128, 256)  # the kernel's compiled head widths (256: Gemma)
 # query rows a block at most, by head width: M-tiles of 16 (max_mtiles in
 # csrc/flash_decode.cu), so the accumulators fit without a spill; an int8
 # block converts each tile once for all its rows, so on a walk with no
 # window (long enough to split) it takes INT8_ROWS
-MAX_ROWS = {64: 32, 128: 16}
-INT8_ROWS = {64: 48, 128: 16}
+MAX_ROWS = {64: 32, 128: 16, 256: 16}
+INT8_ROWS = {64: 48, 128: 16, 256: 16}
 BLOCKS_PER_SM = 2  # NSPLIT aims at about this many blocks on every SM ...
 TILES_A_SPLIT = 4  # ... and gives each split at least this many reachable tiles
 

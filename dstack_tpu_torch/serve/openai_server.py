@@ -3,7 +3,11 @@
 
 ``python -m dstack_tpu_torch.serve.openai_server --model llama-3.2-1b``
 serves random weights drawn from ``--seed`` on the card (``--device
-cuda``, the default) with the byte tokenizer.
+cuda``, the default) with the byte tokenizer; ``--hf-model DIR`` serves a
+``save_pretrained`` checkpoint of the llama, gemma, gemma2 or gemma3
+model types instead (config and weights from the directory, the model
+named after it), still with the byte tokenizer: an HF tokenizer needs the
+``tokenizers`` package, which the port does not depend on yet.
 
 Endpoints: ``/health``, ``/v1/models``, ``/v1/completions`` and
 ``/v1/chat/completions``, whole and streamed (SSE). One scheduler task
@@ -25,6 +29,7 @@ import collections
 import json
 import time
 import uuid
+from pathlib import Path
 from typing import Optional
 
 from aiohttp import web
@@ -519,12 +524,18 @@ def main(argv=None) -> int:
     import torch
 
     from dstack_tpu_torch.models import llama
+    from dstack_tpu_torch.models.convert_hf import load_checkpoint
     from dstack_tpu_torch.ops import cuda_build
     from dstack_tpu_torch.serve.engine import resolve_device
     from dstack_tpu_torch.utils.logging import configure_logging
 
     p = argparse.ArgumentParser()
     p.add_argument("--model", default="llama-3.2-1b", choices=sorted(llama.CONFIGS))
+    p.add_argument(
+        "--hf-model", default=None,
+        help="HF save_pretrained dir (llama/gemma/gemma2/gemma3): loads the "
+             "config and weights, overrides --model and --seed",
+    )
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--max-seq", type=int, default=2048)
@@ -574,10 +585,20 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         cuda_build.build_all()
         logger.info("kernels ready in %.1fs", time.perf_counter() - t0)
-    config = llama.CONFIGS[args.model]
-    generator = torch.Generator(device=device)
-    generator.manual_seed(args.seed)
-    params = llama.init_params(config, generator, device=device)
+    if args.hf_model:
+        t0 = time.perf_counter()
+        config, params = load_checkpoint(args.hf_model, device=device)
+        args.model = Path(args.hf_model).resolve().name
+        logger.info(
+            "loaded HF checkpoint %s (%.2fB params) in %.1fs; tokenizer: byte (an HF "
+            "tokenizer comes with the text corpora, ROADMAP A3)",
+            args.hf_model, config.num_params() / 1e9, time.perf_counter() - t0,
+        )
+    else:
+        config = llama.CONFIGS[args.model]
+        generator = torch.Generator(device=device)
+        generator.manual_seed(args.seed)
+        params = llama.init_params(config, generator, device=device)
     engine = InferenceEngine(
         config, params, max_batch=args.max_batch, max_seq=args.max_seq,
         seed=args.seed, prefill_chunk=args.prefill_chunk, prefill_pack=args.prefill_pack,

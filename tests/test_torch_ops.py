@@ -63,6 +63,25 @@ class TestFlashForwardPlain:
         np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=TOL, rtol=TOL)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=TOL)
 
+    @pytest.mark.parametrize(
+        "q_offset,window,softcap",
+        [(0, 0, 0.0), (128, 96, 0.0), (128, 0, 50.0), (128, 96, 50.0)],
+    )
+    def test_head_dim_256_matches_pallas_interpret(self, q_offset, window, softcap):
+        """Gemma's head width: 8 query heads over 4 KV heads, a chunk at an
+        offset with a window the rows cross, and gemma-2's softcap 50."""
+        rng = np.random.default_rng(6)
+        q = _rand(rng, 1, 8, 128, 256)
+        k = _rand(rng, 1, 4, 256, 256)
+        v = _rand(rng, 1, 4, 256, 256)
+        kw = dict(causal=True, scale=256**-0.5, q_offset=q_offset, window=window, softcap=softcap)
+        jo, jl = jax_flash_with_lse(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True, **kw
+        )
+        to, tl = tflash.flash_attention_with_lse(_t(q), _t(k), _t(v), **kw)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=TOL)
+
     @pytest.mark.parametrize("q_offset", [0, 40])
     def test_ragged_chunk_matches_xla_attention(self, q_offset):
         # C = 16 queries at an offset over a longer row: the shape the
@@ -129,6 +148,34 @@ class TestFlashDecodePlain:
         t = tflash_decode.flash_decode(
             _t(q), _t(k), _t(v), _t(pos), scale=0.125, window=window, softcap=softcap
         )
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL, rtol=TOL)
+
+    @pytest.mark.parametrize("quant", [False, True])
+    @pytest.mark.parametrize("rows_per_slot", [1, 5])
+    @pytest.mark.parametrize("window,softcap", [(0, 0.0), (64, 0.0), (0, 50.0), (64, 50.0)])
+    def test_head_dim_256_matches_pallas_interpret(self, window, softcap, rows_per_slot, quant):
+        """Gemma's head width (G = 2 query rows a KV head, R = 2 or 10),
+        both caches, decode and verify, window and softcap."""
+        from dstack_tpu.serve import engine as jengine
+
+        rng = np.random.default_rng(7)
+        r = 2 * rows_per_slot
+        q = _rand(rng, 3, 2, r, 256)
+        k, v = _rand(rng, 3, 2, 256, 256), _rand(rng, 3, 2, 256, 256)
+        pos = np.array([0, 100, 251 - (rows_per_slot - 1)], np.int32)
+        kw = dict(scale=256**-0.5, softcap=softcap, rows_per_slot=rows_per_slot)
+        jk, jv, tk, tv, jx, tx = k, v, _t(k), _t(v), {}, {}
+        if quant:
+            jk, ks = jengine.kv_quantize(jnp.asarray(k))
+            jv, vs = jengine.kv_quantize(jnp.asarray(v))
+            tk, tv = _t(jk), _t(jv)
+            jx = dict(k_scale=ks, v_scale=vs)
+            tx = dict(k_scale=_t(ks), v_scale=_t(vs))
+        j = jax_flash_decode(
+            jnp.asarray(q), jnp.asarray(jk), jnp.asarray(jv), jnp.asarray(pos),
+            window=jnp.asarray(window, jnp.int32), block_k=128, interpret=True, **kw, **jx,
+        )
+        t = tflash_decode.flash_decode(_t(q), tk, tv, _t(pos), window=window, **kw, **tx)
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL, rtol=TOL)
 
     # every form of the TPU kernel is served now (sinks included, in
@@ -198,6 +245,60 @@ class TestKernelsOnTheCard:
         o = tflash_decode.flash_decode(q, k, v, pos, **kw)
         po = tflash_decode.flash_decode_plain(q, k, v, pos, **kw)
         torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+class TestHeadDim256OnTheCard:
+    """K1 and K4 at Gemma's head width against their plain versions (bf16,
+    2e-2): gemma-3-4b's serving shapes (8/4 heads), windows that the rows
+    cross, gemma-2's softcap 50, both caches, decode and verify (S = 5),
+    the sinks form (it comes with the template), tile edges."""
+
+    @pytest.mark.parametrize(
+        "chunk,q_offset,window,softcap",
+        [
+            (256, 512, 1024, 0.0), (256, 512, 0, 0.0),  # gemma-3-4b, sliding and global
+            (256, 1536, 1024, 0.0),  # the window's floor inside the row
+            (256, 512, 4096, 50.0),  # gemma-2-2b: sliding layer with the softcap
+            (100, 1700, 1024, 50.0), (16, 0, 0, 0.0), (1, 2047, 512, 0.0),
+        ],
+    )
+    def test_flash_forward(self, cuda, chunk, q_offset, window, softcap):
+        g = torch.Generator(device=cuda).manual_seed(8)
+        q = torch.randn(1, 8, chunk, 256, generator=g, device=cuda).bfloat16()
+        k, v = (torch.randn(1, 4, 2048, 256, generator=g, device=cuda).bfloat16() for _ in range(2))
+        kw = dict(scale=256**-0.5, q_offset=q_offset, window=window, softcap=softcap)
+        _assert_fwd_close(tflash.flash_attention_with_lse(q, k, v, **kw),
+                          tflash.flash_attention_plain(q, k, v, **kw))
+
+    @pytest.mark.parametrize("t", [64, 65, 129, 1000])
+    def test_flash_forward_tile_edges(self, cuda, t):
+        _assert_fwd_close(*_fwd_case(cuda, 2, 8, 4, t, t, 256, seed=t, window=512, softcap=50.0))
+
+    @pytest.mark.parametrize("quant", [False, True])
+    @pytest.mark.parametrize("rows_per_slot", [1, 5])
+    @pytest.mark.parametrize("window,softcap", [(0, 0.0), (1024, 0.0), (1024, 50.0)])
+    def test_flash_decode(self, cuda, window, softcap, rows_per_slot, quant):
+        from dstack_tpu_torch.serve.engine import kv_quantize
+
+        g = torch.Generator(device=cuda).manual_seed(9)
+        q = torch.randn(8, 4, 2 * rows_per_slot, 256, generator=g, device=cuda).bfloat16()
+        k, v = (torch.randn(8, 4, 2048, 256, generator=g, device=cuda).bfloat16() for _ in range(2))
+        kw = dict(scale=256**-0.5, window=window, softcap=softcap, rows_per_slot=rows_per_slot)
+        if quant:
+            (k, ks), (v, vs) = kv_quantize(k), kv_quantize(v)
+            kw.update(k_scale=ks, v_scale=vs)
+        last = 2048 - rows_per_slot
+        pos = torch.tensor([0, 63, 64, 700, 1100, 1500, last - 1, last], dtype=torch.int32, device=cuda)
+        _assert_decode_close(tflash_decode.flash_decode(q, k, v, pos, **kw),
+                             tflash_decode.flash_decode_plain(q, k, v, pos, **kw))
+
+    @pytest.mark.parametrize("quant", [False, True])
+    def test_flash_decode_rows_and_sinks(self, cuda, quant):
+        # R = 40 (3 row groups of at most 16), sinks, 8 KV heads
+        pos = [0, 40, 200, 300, 700, 1024, 1500, 2043]
+        _assert_decode_close(*_decode_case(cuda, 8, 40, 256, pos, seed=10, quant=quant,
+                                           rows_per_slot=5, sinks=True, window=1024))
 
 
 def _fwd_case(dev, b, h, hkv, tq, tk, d, seed=0, **kw):

@@ -13,23 +13,30 @@ directory ``.gitignore`` lists:
 
 Each of those launchers keeps its C signature from build to build, so
 swapping the loaded libraries swaps the kernels under the same Python
-wrappers. K4 (``flash_decode``) cannot be swapped this way: its split-K
-entry point takes the grid plan and the f32 workspaces, which the
-earlier build's does not, so K4 is held by ``chip_smoke.py``'s kernel
-phase instead. Prints one JSON line per measurement, each with the
-card's name and power limit:
+wrappers. K4 (``flash_decode``) swaps so only with a build whose
+split-K entry point takes the grid plan and the f32 workspaces, as this
+tree's does. Prints one JSON line per measurement, each with the card's
+name and power limit:
 
-1. each selected kernel's ms (``chip_smoke.time_ms``: CUDA events, L2
-   flushed) at q/dO [B,32,2048,64] over k/v [B,8,2048,64], causal, for
-   B = 4 and 8, in the order other, this, this, other;
-2. the full fine-tune step of llama-3.2-1b at batch 8 x 2048 (random
-   weights from seed 0; host clock around each step, synchronised): 4
-   steps a turn in the order other, this, this, other, other, this; the
-   median, tokens/s and MFU (``flops_per_token`` over 989 TFLOP/s) of each.
+1. each selected training kernel's ms (``chip_smoke.time_ms``: CUDA
+   events, L2 flushed) at q/dO [B,32,2048,64] over k/v [B,8,2048,64],
+   causal, for B = 4 and 8, in the order other, this, this, other;
+2. with ``flash_decode``: K4's bf16 and int8, decode and verify forms at
+   D = 64 and 128 over an [8,8,2048,D] cache at chip_smoke.py's
+   positions 0..2047, with window 0 and 128, without sinks (G 4: q
+   [8,8,4,D], verify q [8,8,20,D]) and with sinks from N(0, 1) (G 8 as
+   gpt-oss: q [8,8,8,D], verify q [8,8,40,D]), each checked against its
+   plain version and timed in the same order;
+3. with a training kernel: the full fine-tune step of llama-3.2-1b at
+   batch 8 x 2048 (random weights from seed 0; host clock around each
+   step, synchronised): 4 steps a turn in the order other, this, this,
+   other, other, this; the median, tokens/s and MFU (``flops_per_token``
+   over 989 TFLOP/s) of each.
 """
 
 import argparse
 import ctypes
+import itertools
 import json
 import statistics
 import subprocess
@@ -44,10 +51,12 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from dstack_tpu_torch.models import llama  # noqa: E402
-from dstack_tpu_torch.ops import cuda_build, flash  # noqa: E402
+from dstack_tpu_torch.ops import cuda_build, flash, flash_decode  # noqa: E402
+from dstack_tpu_torch.serve import engine  # noqa: E402
 from dstack_tpu_torch.train import step as train_step  # noqa: E402
 
-SOURCES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")  # the swappable launchers
+SOURCES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_decode")  # the swappable launchers
+TRAINING = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 KERNEL_TURNS = ("other", "this", "this", "other")
 STEP_TURNS = ("other", "this", "this", "other", "other", "this")
 STEPS_A_TURN = 4
@@ -66,6 +75,39 @@ def build_other(src: Path, names) -> dict:
             raise RuntimeError(f"nvcc {src / name}.cu failed:\n{log}")
         libs[name] = ctypes.CDLL(str(out))
     return libs
+
+
+def decode_ab(card: str, use) -> None:
+    """K4's four forms at D = 64 and 128 with each build (section 2)."""
+    b, hkv, t = 8, 8, 2048
+    pos = torch.tensor([0, 40, 200, 300, 700, 1024, 1500, 2047], dtype=torch.int32, device="cuda")
+    pos_v = torch.tensor([0, 40, 200, 300, 700, 1024, 1500, 2043], dtype=torch.int32, device="cuda")
+    s_rows = chip_smoke.SPEC_ROWS
+    for d in (64, 128):
+        g = torch.Generator(device="cuda").manual_seed(4)
+        kc, vc = (torch.randn(b, hkv, t, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+        int8 = (*engine.kv_quantize(kc), *engine.kv_quantize(vc))
+        for (form, rows, quant), window, sinks in itertools.product(
+            (("bf16_decode", 1, False), ("bf16_verify", s_rows, False),
+             ("int8_decode", 1, True), ("int8_verify", s_rows, True)), (0, 128), (False, True)):
+            grp = 8 if sinks else 4
+            q = torch.randn(b, hkv, grp * rows, d, generator=g, device="cuda").bfloat16()
+            k, v = (int8[0], int8[2]) if quant else (kc, vc)
+            kw = dict(scale=d**-0.5, rows_per_slot=rows, window=window)
+            if quant:
+                kw.update(k_scale=int8[1], v_scale=int8[3])
+            if sinks:
+                kw["sinks"] = torch.randn(hkv, grp * rows, generator=g, device="cuda")
+            p = pos_v if rows > 1 else pos
+            want = flash_decode.flash_decode_plain(q, k, v, p, **kw)
+            ms: dict = {}
+            for tag in KERNEL_TURNS:
+                use(tag)
+                chip_smoke.assert_close(flash_decode.flash_decode(q, k, v, p, **kw), want,
+                                        f"{tag} {form} D={d} window={window} sinks={sinks}")
+                ms.setdefault(tag, []).append(chip_smoke.time_ms(lambda: flash_decode.flash_decode(q, k, v, p, **kw)))
+            print(json.dumps({"card": card, "flash_decode": form, "window": window, "sinks": sinks,
+                              "q": list(q.shape), "cache": list(k.shape), "ms": ms}), flush=True)
 
 
 def main() -> int:
@@ -87,6 +129,11 @@ def main() -> int:
     def use(tag: str) -> None:
         cuda_build._libs.update(libs[tag])
 
+    if "flash_decode" in names:
+        decode_ab(card, use)
+    train = [n for n in names if n in TRAINING]
+    if not train:
+        return 0
     h, hkv, t, d = 32, 8, 2048, 64
     for b in (4, 8):
         g = torch.Generator(device="cuda").manual_seed(2)
@@ -102,7 +149,7 @@ def main() -> int:
         ms: dict = {}
         for tag in KERNEL_TURNS:
             use(tag)
-            ms.setdefault(tag, []).append({n: chip_smoke.time_ms(calls[n]) for n in names})
+            ms.setdefault(tag, []).append({n: chip_smoke.time_ms(calls[n]) for n in train})
         print(json.dumps({"card": card, "kernels_ms": ms, "q": [b, h, t, d], "kv": [b, hkv, t, d]}), flush=True)
         del q, do, k, v, o, lse, delta
     torch.cuda.empty_cache()
