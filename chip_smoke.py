@@ -12,7 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    hand-written kernels from ``dstack_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the build time; read every compiled
    form's registers and spill bytes from its ``-Xptxas -v`` log (all four
-   kernels): a spill fails the run.
+   kernels): a spill fails the run, and so does a head width of K2 or K3
+   (64, 128, 256) with no compiled form.
 2. Kernel phase: each kernel against its plain PyTorch version on the
    card in bf16, within atol = rtol = 2e-2: flash prefill (K1) at the
    serving shapes (C = 16 and 256 with q_offset 0 and 512); ragged flash
@@ -46,7 +47,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    and softcap 50. With a softcap the library yardstick is
    ``flex_attention`` compiled to Triton (the tanh softcap as its
    score_mod, the causal, window or per-slot mask as its block mask), held
-   to the plain version first; the int8 softcap forms have none.
+   to the plain version first; the int8 softcap forms have none. Last,
+   K1, K2 and K3 at D = 256: q/dO [4,8,2048,256] over k/v [4,4,2048,256],
+   causal (the FLOPs of the D = 64 rows), on gemma-3-4b's sliding layer
+   (window 1024) and global layer and gemma-2-2b's (window 4096, softcap
+   50): o, lse, dq, dk and dv each held to the plain version, two
+   launches bit-identical, each kernel timed beside its bound, the plain
+   version and the library backward (SDPA's ``is_causal`` on the global
+   layer; in the window and with the softcap the backward of the
+   compiled ``flex_attention``, its gradients held to the plain version
+   first); K1 timed at that shape. Then the same checks, timed beside the
+   bounds, at each Gemma fine-tune run's own micro-batch on each window
+   its layers use: q/dO [8,8,2048,256] over k/v [8,4,2048,256] (gemma-3-4b,
+   windows 1024 and 0; gemma-2-2b, windows 4096 and 0 with softcap 50)
+   and [4,4,2048,256] over [4,1,2048,256] (gemma-3-1b, windows 512 and
+   0). Every K2/K3 gradient, at D = 64 and 256, is also held tile by
+   tile (32 rows of one batch row and head) within 1e-2 relative RMS
+   error (``grad_close``).
 3. Path phase: start ``python -m dstack_tpu_torch.serve.openai_server
    --device cuda --decode-kernel flash`` (full width and depth, random
    weights from seed 0) on a free port four times: llama-3.2-1b on the
@@ -85,28 +102,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    Last, one gpt-oss decode step at the server's batch of 8 on those 4
    layers, traced with torch.profiler: device time by kernel family and
    the device's busy share of the step.
-4. Training path phase: ``python -m dstack_tpu_torch.train.finetune
-   --model llama-3.2-1b --full --steps 6`` and then the default LoRA mode
-   for 4 steps (full width and depth, random weights from seed 0,
-   ``--batch 8 --seq-len 2048``), each in its own process whose launch
-   counts start at 0; from each summary line: finite losses, the first
-   within 1.0 of ln(vocab), K1 launched 2 x 16 times per step (forward
-   and the remat recompute) and K2 and K3 16 times per step.
+4. Training path phase: ``python -m dstack_tpu_torch.train.finetune``
+   at ``--batch 8 --seq-len 2048`` (full width and depth, random weights
+   from seed 0), each run in its own process whose launch counts start at
+   0 (TRAIN_RUNS): llama-3.2-1b ``--full`` for 6 steps and in the default
+   LoRA mode for 4; then Gemma at head_dim 256 for 5 steps each:
+   gemma-3-4b LoRA and gemma-2-2b LoRA (softcap 50 in K1-K3, the logit cap
+   30 in the loss, windows of 4096 on alternate layers) in one
+   micro-batch, gemma-3-1b ``--full`` at ``--grad-accum 2``. From
+   each summary line: finite losses, the first within 1.0 of ln(vocab),
+   and per micro-batch of every step K1 launched 2 x n_layers times
+   (forward and the remat recompute), K2 and K3 n_layers times; the
+   median step time, tokens/s, MFU and peak memory are printed.
    Then one more full fine-tune step in this process, traced with
    torch.profiler: device time by kernel family and the device's busy
    share of the step.
-5. Gradient-parity phase: the full fine-tune loss of llama-3.2-1b (full
-   width and depth, random weights from seed 0, one batch of 1 x 2048
-   tokens) differentiated on three paths (kernels in bf16, plain in
-   bf16, plain in f32): for every parameter leaf the kernel path's
-   relative RMS gradient error against f32 may be at most 1.5 times the
-   plain bf16 path's, and the three losses agree within 2e-2.
+5. Gradient-parity phase: the full fine-tune loss (random weights from
+   seed 0, one batch of 1 x 2048 tokens) of llama-3.2-1b at full width
+   and depth, and of gemma-3-4b and gemma-3-1b at 6 layers and gemma-2-2b
+   at 4 (full width, norms at identity), differentiated on three paths
+   (kernels in bf16, plain in bf16, plain in f32): for every parameter
+   leaf the kernel path's relative RMS gradient error against f32 may be
+   at most 1.5 times the plain bf16 path's; the two bf16 losses agree
+   within 2e-2, and each lies within the model's limit of the f32 loss
+   (``GRAD_PARITY``: 2e-3, gemma-3-4b 6e-2).
 6. Print the ``kernels`` JSON line (K1 at the llama, the gpt-oss and the
-   Gemma shape, K4 as one row per form, eight at head_dim 64 and four at
-   256, each with its launches on every path of its models; a form
-   launched on no path fails the run; every row
-   carries its kernel's ptxas report, K1 its training- and trainer-shape
-   times, K2 and K3 their trainer-shape times, K4 its NSPLIT), then the card
+   Gemma shape, K2 and K3 at head_dim 64 and 256, K4 as one row per
+   form, eight at head_dim 64 and four at 256, each with its launches on
+   every path of its models; a form launched on no path fails the run;
+   every row carries its kernel's ptxas report, K1 its training- and
+   trainer-shape times, K2 and K3 their trainer-shape times, K4 its
+   NSPLIT), then the card
    line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -137,6 +163,15 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 TOL = 2e-2  # bf16: atol = rtol, the JAX package's own bf16 tolerance
+# K2's and K3's gradients are mostly about TOL in size, so beside the
+# element-wise rule each is held, tile by tile (GRAD_TILE_ROWS rows of one
+# batch row and head), to a relative RMS error against the plain version
+# (see grad_close); a tile whose plain gradient has an RMS below
+# GRAD_RMS_FLOOR is rounding noise (a query row that sees only its own
+# key has dq = 0 in exact arithmetic) and is judged against the floor
+GRAD_TILE_ROWS = 32
+GRAD_RMS_TOL = 1e-2
+GRAD_RMS_FLOOR = 1e-3
 # end to end, the kernel path's relative RMS logit error against the f32
 # path may be at most this multiple of the plain bf16 path's (see
 # teacher_forced_phase)
@@ -146,6 +181,8 @@ GPT_OSS = "gpt-oss-20b"
 GEMMA3 = "gemma-3-4b"  # Gemma's head width of 256: K1 and K4's D = 256 forms
 GEMMA2 = "gemma-2-2b"  # ... with gemma-2's attention softcap and logit cap
 GEMMA = (GEMMA3, GEMMA2)
+GEMMA3_1B = "gemma-3-1b"  # the full fine-tune at head_dim 256
+D256 = (*GEMMA, GEMMA3_1B)  # the models whose paths run the D = 256 forms
 # the teacher-forced prompt on gemma-3-4b: past its sliding window of 1024,
 # so the window masks keys in the last prefill chunk and every decode step
 GEMMA_TF_PROMPT = 1100
@@ -160,9 +197,28 @@ PROMPT_LENS = (40, 200, 300, 700)
 PREFIX_LEN = 512  # the shared prefix of the prefix-cache pair: two 256-token chunks
 MAX_TOKENS = 32
 CHUNK = 256  # the server's --prefill-chunk default
-TRAIN_STEPS = {"full": 6, "lora": 4}
+# the fine-tune runs at batch 8 x 2048: run → (model, mode, --grad-accum,
+# steps); each Gemma run at the smallest --grad-accum that fits the 80 GB
+# card (its vocabulary's f32 logits: with one micro-batch gemma-3-4b LoRA
+# peaked at 62.5 GB and gemma-2-2b LoRA at 74.6 GB, and gemma-3-1b full
+# ran out of memory, on an NVIDIA H100 80GB HBM3 at 700 W)
+TRAIN_RUNS = {
+    "full": (MODEL, "full", 1, 6),
+    "lora": (MODEL, "lora", 1, 4),
+    "gemma3_lora": (GEMMA3, "lora", 1, 5),
+    "gemma2_lora": (GEMMA2, "lora", 1, 5),
+    "gemma3_1b_full": (GEMMA3_1B, "full", 2, 5),
+}
 BWD_SHAPE = (4, 32, 8, 2048, 64)  # B, H, Hkv, T, D of the backward kernel phase
 BWD_TRAIN_BATCH = 8  # the trainer's batch: K2 and K3 are timed again at it
+# K2 and K3 at Gemma's head width: the causal FLOPs of BWD_SHAPE
+BWD_D256_SHAPE = (4, 8, 4, 2048, 256)
+# gradient parity: model → (layers, the limit on each bf16 loss's distance
+# from the f32 loss: a few times what sound runs read). gemma-3's first
+# global layer is its sixth. On an NVIDIA H100 80GB HBM3 at 700 W the bf16
+# losses sat 4e-4 (llama), 5e-4 (gemma-2-2b) and 4e-5 (gemma-3-1b) from
+# f32's, and gemma-3-4b's 0.020
+GRAD_PARITY = {MODEL: (None, 2e-3), GEMMA3: (6, 6e-2), GEMMA2: (4, 2e-3), GEMMA3_1B: (6, 2e-3)}
 SPEC_ROWS = 5  # rows a query head verifies: the server's --spec-draft 4, plus one
 # the server runs (mode → model, flags): the serial path of the first
 # slice, the JAX server's default engine on the bf16 and on the int8
@@ -225,6 +281,33 @@ def assert_close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     if not bool((err <= limit).all()):
         raise AssertionError(f"{what}: max |err| {err.max().item():.4g} beyond atol=rtol={TOL}")
     return err.max().item()
+
+
+def tile_rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The worst relative RMS error of ``got`` against ``want`` ([B, H, T,
+    D]) over tiles of GRAD_TILE_ROWS rows of one batch row and head, each
+    tile's reference RMS at least GRAD_RMS_FLOOR: a fault confined to a
+    few keys or one query tile shows in its tile undiluted."""
+    b, h, t, d = want.shape
+    pad = (0, 0, 0, -t % GRAD_TILE_ROWS)
+    err = torch.nn.functional.pad(got.float() - want.float(), pad).reshape(b, h, -1, GRAD_TILE_ROWS * d)
+    ref = torch.nn.functional.pad(want.float(), pad).reshape(b, h, -1, GRAD_TILE_ROWS * d)
+    n = torch.full((err.shape[2],), GRAD_TILE_ROWS * d, device=err.device)
+    n[-1] = (t - (err.shape[2] - 1) * GRAD_TILE_ROWS) * d  # the last tile's real rows
+    e_rms = (err.pow(2).sum(-1) / n).sqrt()
+    r_rms = (ref.pow(2).sum(-1) / n).sqrt().clamp_min(GRAD_RMS_FLOOR)
+    return (e_rms / r_rms).max().item()
+
+
+def grad_close(got: torch.Tensor, want: torch.Tensor, what: str) -> tuple[float, float]:
+    """A K2/K3 gradient against the plain version's: element-wise within
+    atol = rtol = TOL, and within GRAD_RMS_TOL relative RMS in every tile.
+    → (max |err|, the worst tile's relative RMS error)."""
+    err = assert_close(got, want, what)
+    rms = tile_rel_rms(got, want)
+    if not rms <= GRAD_RMS_TOL:
+        raise AssertionError(f"{what}: a tile's relative RMS error {rms:.4g} beyond {GRAD_RMS_TOL}")
+    return err, rms
 
 
 # ---------------------------------------------------------------------------
@@ -359,13 +442,11 @@ FLEX_NOTE = "flex_attention compiled, tanh softcap as its score_mod, the mask as
 _FLEX: list = []  # the compiled flex_attention, made on first use
 
 
-def flex_softcap(q, k, v, keep, scale: float, cap: float, want: torch.Tensor):
-    """The library yardstick of a softcap form: ``flex_attention``
-    compiled to Triton, with ``cap * tanh(s / cap)`` as its score_mod, the
-    form's mask ``keep(b, h, q_idx, kv_idx)`` as its block mask, and the
-    lse returned beside o. Its o is first held to the plain version's
-    ``want`` within the kernels' tolerance, so it is timed computing the
-    same function. The port never calls it. → the call to time."""
+def _flex(q, k, keep, cap: float) -> tuple:
+    """(``flex_attention`` compiled to Triton, the block mask of ``keep(b,
+    h, q_idx, kv_idx)``, ``cap * tanh(s / cap)`` as a score_mod, or None
+    with no cap): the library yardstick of the softcap forms, and of K2 +
+    K3 in a window. The port never calls it."""
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
     if not _FLEX:
@@ -376,9 +457,19 @@ def flex_softcap(q, k, v, keep, scale: float, cap: float, want: torch.Tensor):
     def score_mod(s, b, h, qi, kj):
         return cap * torch.tanh(s / cap)
 
+    return _FLEX[0], block, score_mod if cap else None
+
+
+def flex_softcap(q, k, v, keep, scale: float, cap: float, want: torch.Tensor):
+    """The library yardstick of a softcap form (:func:`_flex`),
+    with the lse returned beside o. Its o is first held to the plain
+    version's ``want`` within the kernels' tolerance, so it is timed
+    computing the same function. → the call to time."""
+    flex, block, score_mod = _flex(q, k, keep, cap)
+
     def call():
-        return _FLEX[0](q, k, v, score_mod=score_mod, block_mask=block, scale=scale,
-                        enable_gqa=q.shape[1] != k.shape[1], return_lse=True)
+        return flex(q, k, v, score_mod=score_mod, block_mask=block, scale=scale,
+                    enable_gqa=q.shape[1] != k.shape[1], return_lse=True)
 
     assert_close(call()[0], want, f"flex_attention softcap {cap} yardstick")
     return call
@@ -594,11 +685,12 @@ def ptxas_report(name: str) -> dict:
     return forms
 
 
-def _bwd_bounds(q, k, lse) -> dict:
+def _bwd_bounds(q, k, lse, window: int = 0) -> dict:
     """Bound of K2 and K3 on causal square inputs: each reads q, k, v, dO,
-    lse and delta once; K2 writes dq (3 causal products), K3 dk and dv (4)."""
+    lse and delta once; K2 writes dq (3 products), K3 dk and dv (4), each
+    2 D FLOP a live (query, key) pair."""
     b, h, t, d = q.shape
-    gemm = 2 * b * h * live_pairs(t, True, 0) * d  # FLOPs of one causal [T, T] x [T, D] product
+    gemm = 2 * b * h * live_pairs(t, True, window) * d  # FLOPs of one masked [T, T] x [T, D] product
     qb, kvb, rowb = q.numel() * 2, k.numel() * 2, lse.numel() * 4
     return {
         "flash_bwd_dq": bound_ms(2 * qb + 2 * kvb + 2 * rowb + qb, 3 * gemm),
@@ -607,15 +699,173 @@ def _bwd_bounds(q, k, lse) -> dict:
 
 
 def _sdpa_bwd_ms(q, k, v, do) -> float:
-    """The SDPA backward (dq, dk, dv together): the yardstick for K2 + K3."""
+    """The SDPA backward (dq, dk, dv together, ``is_causal``): the
+    yardstick for K2 + K3 on causal layers."""
     qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
     so = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
     return time_ms(lambda: torch.autograd.grad(so, (qs, ks, vs), do, retain_graph=True))
 
 
+FLEX_WINDOW_NOTE = "flex_attention compiled, the causal window as its block mask (its backward)"
+
+
+def _flex_bwd(q, k, v, do, window: int, scale: float, cap: float, want: tuple):
+    """The yardstick of K2 + K3 in a window or with a softcap: the
+    backward of :func:`_flex` (the causal window as its block
+    mask; the tanh cap as its score_mod where ``cap``), its (dq, dk, dv)
+    first held to the plain version's ``want``. → the call to time."""
+    def keep(bb, hh, qi, kj):
+        return (kj <= qi) & (qi - kj < window) if window else kj <= qi
+
+    flex, block, score_mod = _flex(q, k, keep, cap)
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    fo = flex(qs, ks, vs, score_mod=score_mod, block_mask=block, scale=scale, enable_gqa=True)
+    got = torch.autograd.grad(fo, (qs, ks, vs), do, retain_graph=True)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert_close(a, w, f"flex_attention window {window} softcap {cap} backward yardstick {name}")
+    return lambda: torch.autograd.grad(fo, (qs, ks, vs), do, retain_graph=True)
+
+
+def d256_check(q, k, v, do, kw: dict, what: str) -> dict:
+    """K1, K2 and K3 at one D = 256 form against their plain versions: o
+    and lse within TOL; dq, dk and dv each by :func:`grad_close`; two
+    launches of K2 and K3 bit-identical. → the forward's o, lse and delta,
+    the plain gradients and the errors."""
+    o, lse = flash.flash_attention_with_lse(q, k, v, **kw)
+    po, plse = flash.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    fwd_err = max(assert_close(o, po, f"flash_fwd {what}"), assert_close(lse, plse, f"flash_fwd lse {what}"))
+    del po, plse
+    delta = flash.bwd_delta(o, do)
+
+    def bwd():
+        return (flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                *flash.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+
+    got, again = bwd(), bwd()
+    want = flash.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    checks = [grad_close(a, w, f"{n} {what}") for n, a, w in zip(("dq", "dk", "dv"), got, want)]
+    if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+        raise AssertionError(f"K2/K3 {what}: two launches differ")
+    return {
+        "o": o, "lse": lse, "delta": delta, "want": want, "flash_fwd": fwd_err,
+        "flash_bwd_dq": checks[0], "flash_bwd_dkv": tuple(map(max, zip(*checks[1:]))),
+    }
+
+
+def gemma_backward_kernel_phase() -> dict:
+    """K1, K2 and K3 at Gemma's head width of 256. First q/dO
+    [4,8,2048,256] over k/v [4,4,2048,256], causal (the FLOPs of the D =
+    64 rows), on gemma-3-4b's sliding layer (window 1024, the reported
+    row), its global layer and gemma-2-2b's (window 4096, softcap 50):
+    each form held to the plain versions (:func:`d256_check`), then each
+    kernel timed beside its bound, the plain version (dq, dk, dv together)
+    and the library's backward (dq, dk, dv together): SDPA's ``is_causal``
+    for the global layer, the compiled ``flex_attention`` in the window
+    and with the softcap; K1 timed on the sliding layer. Then each Gemma
+    fine-tune run's own micro-batch (TRAIN_RUNS: batch 8 over its
+    ``--grad-accum``, the model's heads) on each of its layers' windows,
+    with its softcap: held to the plain versions the same way and timed
+    beside the bounds (``trainer_shapes``)."""
+    c3, c2 = llama.CONFIGS[GEMMA3], llama.CONFIGS[GEMMA2]
+    b, h, hkv, t, d = BWD_D256_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, do = (torch.randn(b, h, t, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, hkv, t, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+    forms = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    fwd = None
+    for key, cfg, window, softcap in (("sliding", c3, c3.sliding_window, 0.0), ("global", c3, 0, 0.0),
+                                      ("softcap", c2, c2.sliding_window, c2.attn_softcap)):
+        kw = dict(scale=cfg.attention_scale, window=window, softcap=softcap)
+        what = f"d256 {key} window={window} softcap={softcap}"
+        r = d256_check(q, k, v, do, kw, what)
+        o, lse, delta = r["o"], r["lse"], r["delta"]
+        bounds = _bwd_bounds(q, k, lse, window)
+        plain_ms = time_ms(lambda: flash.flash_bwd_plain(q, k, v, o, lse, do, **kw), iters=10)
+        if softcap or window:
+            library_ms = time_ms(_flex_bwd(q, k, v, do, window, kw["scale"], softcap, r["want"]))
+        else:
+            library_ms = _sdpa_bwd_ms(q, k, v, do)
+        for name, fn in (
+            ("flash_bwd_dq", lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw)),
+            ("flash_bwd_dkv", lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)),
+        ):
+            row = {"ms": time_ms(fn), "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "max_abs_err": r[name][0],
+                   "tile_rel_rms": r[name][1], "shape": list(BWD_D256_SHAPE)}
+            if softcap:
+                row["library_note"] = FLEX_NOTE + " (its backward)"
+            elif window:
+                row["library_note"] = FLEX_WINDOW_NOTE
+            forms[name][key] = row
+            log(f"kernel {name} q/dO [{b},{h},{t},{d}] k/v [{b},{hkv},{t},{d}] causal window={window} "
+                f"softcap={softcap}: " + json.dumps(row))
+        if key == "sliding":
+            gemm = 2 * b * h * live_pairs(t, True, window) * d
+            b_ms, b_by = bound_ms(2 * q.numel() * 2 + 2 * k.numel() * 2 + lse.numel() * 4, 2 * gemm)
+            fwd = {"ms": time_ms(lambda: flash.flash_attention_with_lse(q, k, v, **kw)),
+                   "bound_ms": b_ms, "bound_by": b_by, "shape": list(BWD_D256_SHAPE), "window": window,
+                   "max_abs_err": r["flash_fwd"]}
+            log(f"kernel flash_fwd (Gemma training shape) q [{b},{h},{t},{d}] window={window}: "
+                + json.dumps(fwd))
+        del r, o, lse, delta
+    rows = {
+        f"{name}_d256": {
+            **by["sliding"], "max_abs_err": max(r["max_abs_err"] for r in by.values()),
+            "tile_rel_rms": max(r["tile_rel_rms"] for r in by.values()),
+            "window_0": by["global"], "softcap_50": by["softcap"], "trainer_shapes": {},
+        }
+        for name, by in forms.items()
+    }
+    rows["flash_fwd_d256"] = {"training_shape": fwd, "trainer_shapes": {}}
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+    # each Gemma fine-tune run's micro-batch, on every window its layers use
+    for run, (model, _, accum, _) in TRAIN_RUNS.items():
+        if model not in D256:
+            continue
+        c = llama.CONFIGS[model]
+        b, h, hkv = BWD_TRAIN_BATCH // accum, c.n_heads, c.n_kv_heads
+        q, do = (torch.randn(b, h, t, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+        k, v = (torch.randn(b, hkv, t, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+        for window in sorted(set(llama.layer_windows(c)), reverse=True):
+            kw = dict(scale=c.attention_scale, window=window, softcap=c.attn_softcap)
+            key = f"{run}_w{window}"
+            r = d256_check(q, k, v, do, kw, f"d256 {key} [{b},{h},{hkv}] softcap={c.attn_softcap}")
+            lse, delta = r["lse"], r["delta"]
+            gemm = 2 * b * h * live_pairs(t, True, window) * d
+            bounds = {"flash_fwd": bound_ms(2 * q.numel() * 2 + 2 * k.numel() * 2 + lse.numel() * 4, 2 * gemm),
+                      **_bwd_bounds(q, k, lse, window)}
+            for name, fn in (
+                ("flash_fwd", lambda: flash.flash_attention_with_lse(q, k, v, **kw)),
+                ("flash_bwd_dq", lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw)),
+                ("flash_bwd_dkv", lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)),
+            ):
+                err = r[name] if name == "flash_fwd" else r[name][0]
+                row = {"shape": [b, h, hkv, t, d], "window": window, "softcap": c.attn_softcap,
+                       "ms": time_ms(fn), "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                       "max_abs_err": err}
+                if name != "flash_fwd":
+                    row["tile_rel_rms"] = r[name][1]
+                    agg = rows[f"{name}_d256"]
+                    agg["max_abs_err"] = max(agg["max_abs_err"], err)
+                    agg["tile_rel_rms"] = max(agg["tile_rel_rms"], r[name][1])
+                rows[f"{name}_d256"]["trainer_shapes"][key] = row
+                log(f"kernel {name} ({run}'s micro-batch) q [{b},{h},{t},{d}] k/v [{b},{hkv},{t},{d}] "
+                    f"window={window} softcap={c.attn_softcap}: " + json.dumps(row))
+            del r, lse, delta
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return rows
+
+
 def ptxas_gate() -> dict:
     """Each kernel's registers and spills, every compiled form, from
-    ptxas: a spill fails the run."""
+    ptxas: a spill fails the run, and so does a missing head width of K2
+    or K3 (their D = 256 forms came last). The softcap is a branch inside
+    each compiled form, so one report covers both paths."""
     ptxas = {}
     for name in cuda_build.KERNEL_SOURCES:
         ptxas[name] = ptxas_report(name)
@@ -623,6 +873,10 @@ def ptxas_gate() -> dict:
         spilled = {f: r for f, r in ptxas[name].items() if r["spill_stores"] or r["spill_loads"]}
         if spilled:
             raise AssertionError(f"{name} spills registers: {spilled}")
+        if name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            missing = [d for d in flash.HEAD_DIMS if f"{name}_kernel<{d}>" not in ptxas[name]]
+            if missing:
+                raise AssertionError(f"{name}: no compiled form for head_dim {missing}: {ptxas[name]}")
     return ptxas
 
 
@@ -636,6 +890,7 @@ def backward_kernel_phase() -> dict:
     b, h, hkv, t, d = BWD_SHAPE
     g = torch.Generator(device="cuda").manual_seed(2)
     err = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    rms = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     main = None
     for t_case, kw in ((t, {}), (t, dict(window=512, softcap=30.0)), (1000, {})):
         q = torch.randn(b, h, t_case, d, generator=g, device="cuda").bfloat16()
@@ -647,9 +902,10 @@ def backward_kernel_phase() -> dict:
         pdq, pdk, pdv = flash.flash_bwd_plain(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
         what = f"T={t_case} {kw or 'causal'}"
-        err["flash_bwd_dq"] = max(err["flash_bwd_dq"], assert_close(dq, pdq, f"flash_bwd_dq {what}"))
-        for got, want, name in ((dk, pdk, "dk"), (dv, pdv, "dv")):
-            err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], assert_close(got, want, f"flash_bwd_dkv {name} {what}"))
+        for kernel, got, want, name in (("flash_bwd_dq", dq, pdq, "dq"), ("flash_bwd_dkv", dk, pdk, "dk"),
+                                        ("flash_bwd_dkv", dv, pdv, "dv")):
+            e, r = grad_close(got, want, f"{kernel} {name} {what}")
+            err[kernel], rms[kernel] = max(err[kernel], e), max(rms[kernel], r)
         if main is None:
             main = (q, k, v, o, lse, do)
         del dq, dk, dv, pdq, pdk, pdv
@@ -679,7 +935,7 @@ def backward_kernel_phase() -> dict:
         row = rows[name]
         row.update(
             plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bounds[name][0],
-            bound_by=bounds[name][1], max_abs_err=err[name],
+            bound_by=bounds[name][1], max_abs_err=err[name], tile_rel_rms=rms[name],
         )
         log(f"kernel {name} q/dO [{b},{h},{t},{d}] k/v [{b},{hkv},{t},{d}] causal: {json.dumps(row)}")
     del main, q, k, v, o, lse, do, delta
@@ -956,9 +1212,9 @@ def gpt_oss_tf_params() -> tuple:
     return c, params
 
 
-def gemma_tf_params(name: str) -> tuple:
-    """A Gemma model at full width and depth, random weights from seed 0,
-    every norm at identity: the (1 + w) norms at w = 0, as ``init_params``
+def gemma_tf_params(name: str, n_layers=None) -> tuple:
+    """A Gemma model at full width and depth (or ``n_layers``), random
+    weights from seed 0, every norm at identity: the (1 + w) norms at w = 0, as ``init_params``
     makes them, and the q/k norms too. ``init_params`` sets those to 1, as
     JAX does, which under the (1 + w) convention doubles q and k: scores
     of standard deviation ~4 make gemma-3-4b's attention nearly an argmax,
@@ -967,6 +1223,8 @@ def gemma_tf_params(name: str) -> tuple:
     kernel's error. At identity they drift ~1.9 % (measured on an NVIDIA
     H100 80GB HBM3 at 700 W)."""
     c = llama.CONFIGS[name]
+    if n_layers:
+        c = dataclasses.replace(c, n_layers=n_layers)
     params = llama.init_params(c, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     for leaf in ("q_norm", "k_norm"):
         if leaf in params["layers"]:
@@ -1144,14 +1402,18 @@ def teacher_forced_phase(c, params, kv_quant=None, prompt_len: int = 300) -> dic
 # ---------------------------------------------------------------------------
 
 
-def _finetune(mode: str) -> dict:
-    """One ``python -m dstack_tpu_torch.train.finetune`` run → its summary.
-    A fresh process: its launch counts start at 0."""
-    steps = TRAIN_STEPS[mode]
-    out = ROOT / "build" / f"chip_smoke_train_{mode}"
-    log_path = ROOT / "build" / f"chip_smoke_train_{mode}.log"
-    cmd = [sys.executable, "-m", "dstack_tpu_torch.train.finetune", "--model", MODEL,
-           "--steps", str(steps), "--log-every", "1", "--device", "cuda", "--out", str(out)]
+def _finetune(run: str) -> dict:
+    """One ``python -m dstack_tpu_torch.train.finetune`` run of TRAIN_RUNS
+    at batch 8 x 2048 → its summary. A fresh process: its launch counts
+    start at 0, and each step of ``--grad-accum`` micro-batches launches
+    K1 2 x n_layers times (forward and the remat recompute), K2 and K3
+    n_layers times, per micro-batch."""
+    model, mode, accum, steps = TRAIN_RUNS[run]
+    out = ROOT / "build" / f"chip_smoke_train_{run}"
+    log_path = ROOT / "build" / f"chip_smoke_train_{run}.log"
+    cmd = [sys.executable, "-m", "dstack_tpu_torch.train.finetune", "--model", model,
+           "--steps", str(steps), "--grad-accum", str(accum), "--log-every", "1",
+           "--device", "cuda", "--out", str(out)]
     if mode == "full":
         cmd.append("--full")
     t0 = time.perf_counter()
@@ -1159,21 +1421,23 @@ def _finetune(mode: str) -> dict:
         proc = subprocess.run(cmd, cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT, timeout=900)
     text = log_path.read_text()
     if proc.returncode != 0:
-        raise RuntimeError(f"finetune {mode} exited {proc.returncode}:\n{text[-4000:]}")
+        raise RuntimeError(f"finetune {run} exited {proc.returncode}:\n{text[-4000:]}")
     for line in text.splitlines():
         if line.startswith("step "):
-            log(f"  finetune {mode}: {line}")
+            log(f"  finetune {run}: {line}")
     summary = json.loads(text.strip().splitlines()[-1])
-    log(f"finetune {mode} ({time.perf_counter() - t0:.1f} s with start-up): {json.dumps(summary)}")
-    c = llama.CONFIGS[MODEL]
+    summary["grad_accum"] = accum
+    log(f"finetune {run} ({time.perf_counter() - t0:.1f} s with start-up): {json.dumps(summary)}")
+    c = llama.CONFIGS[model]
     ln_v = math.log(c.vocab_size)
     first, last = summary["first_loss"], summary["last_loss"]
     if not (math.isfinite(first) and math.isfinite(last) and abs(first - ln_v) <= 1.0):
-        raise AssertionError(f"finetune {mode}: losses {first}, {last} vs ln V = {ln_v:.3f}")
-    want = {"flash_fwd": 2 * c.n_layers * steps, "flash_bwd_dq": c.n_layers * steps,
-            "flash_bwd_dkv": c.n_layers * steps}
+        raise AssertionError(f"finetune {run}: losses {first}, {last} vs ln V = {ln_v:.3f}")
+    micro = steps * accum
+    want = {"flash_fwd": 2 * c.n_layers * micro, "flash_bwd_dq": c.n_layers * micro,
+            "flash_bwd_dkv": c.n_layers * micro}
     if summary["launches"] != want:
-        raise AssertionError(f"finetune {mode}: launches {summary['launches']} != {want}")
+        raise AssertionError(f"finetune {run}: launches {summary['launches']} != {want}")
     return summary
 
 
@@ -1290,16 +1554,26 @@ def decode_profile_phase(c, params) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def grad_parity_phase() -> dict:
-    """Gradients of the full fine-tune loss on three paths. Through 16
+def grad_parity_phase(name: str = MODEL) -> dict:
+    """Gradients of the full fine-tune loss on three paths. Through the
     bf16 layers the kernel and plain paths differ by the model's own bf16
     noise, so both are held to the plain f32 path by relative RMS error,
-    leaf by leaf (stacked layers: one leaf per weight name)."""
+    leaf by leaf (stacked layers: one leaf per weight name). llama-3.2-1b
+    whole; gemma-3-4b and gemma-3-1b at 6 layers (5 sliding, then their
+    first global one; gemma-3-1b's GQA group of 4 and window of 512) and
+    gemma-2-2b at 4 (2 sliding, 2 global: softcap 50 and the logit cap 30
+    in the loss), full width, norms at identity (``gemma_tf_params``).
+    The two bf16 losses agree within TOL, and each lies within the
+    model's GRAD_PARITY limit of the f32 loss."""
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 path in full f32
     torch.backends.cudnn.allow_tf32 = False
-    c = llama.CONFIGS[MODEL]
+    n_layers, loss_tol = GRAD_PARITY[name]
+    if name == MODEL:
+        c = llama.CONFIGS[name]
+        params = llama.init_params(c, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    else:
+        c, params = gemma_tf_params(name, n_layers)
     c32 = dataclasses.replace(c, dtype=torch.float32)
-    params = llama.init_params(c, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     params32 = train_step.tree_map(lambda w: w.float(), params)
     g = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, c.vocab_size, (1, 2048), generator=g, device="cuda")
@@ -1308,28 +1582,31 @@ def grad_parity_phase() -> dict:
     batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1), "mask": mask}
     paths = {"kernel": (params, c, None), "plain": (params, c, "plain"), "f32": (params32, c32, "plain")}
     loss, grads = {}, {}
-    for name, (p, cfg, impl) in paths.items():
-        loss[name], grads[name] = train_step.value_and_grad(train_step.full_loss, p, batch, cfg, impl)
-        loss[name] = float(loss[name])
-    pairs = [("kernel", "plain"), ("kernel", "f32"), ("plain", "f32")]
-    if any(abs(loss[a] - loss[b]) > TOL for a, b in pairs):
-        raise AssertionError(f"gradient parity: losses disagree beyond {TOL}: {loss}")
+    for path, (p, cfg, impl) in paths.items():
+        loss[path], grads[path] = train_step.value_and_grad(train_step.full_loss, p, batch, cfg, impl)
+        loss[path] = float(loss[path])
+    if (abs(loss["kernel"] - loss["plain"]) > TOL
+            or any(abs(loss[a] - loss["f32"]) > loss_tol for a in ("kernel", "plain"))):
+        raise AssertionError(f"gradient parity {name}: losses disagree beyond {TOL} "
+                             f"(against f32: {loss_tol}): {loss}")
 
     def rel_rms(a, ref):
         return ((a.float() - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
 
     leaves = {}
     names = ["embed", "final_norm"] + [f"layers/{n}" for n in sorted(params["layers"])]
-    for name in names:
-        pick = (lambda tr: tr["layers"][name[7:]]) if name.startswith("layers/") else (lambda tr: tr[name])
+    for leaf in names:
+        pick = (lambda tr: tr["layers"][leaf[7:]]) if leaf.startswith("layers/") else (lambda tr: tr[leaf])
         ref = pick(grads["f32"])
         k_err, p_err = rel_rms(pick(grads["kernel"]), ref), rel_rms(pick(grads["plain"]), ref)
-        leaves[name] = {"kernel": k_err, "plain": p_err}
+        leaves[leaf] = {"kernel": k_err, "plain": p_err}
         if not k_err <= KERNEL_RMS_MARGIN * p_err:
-            raise AssertionError(f"gradient parity: {name} kernel rel RMS {k_err:.4g} > "
+            raise AssertionError(f"gradient parity {name}: {leaf} kernel rel RMS {k_err:.4g} > "
                                  f"{KERNEL_RMS_MARGIN} x plain {p_err:.4g}")
-    report = {"loss": loss, "rel_rms_vs_f32": leaves}
-    log("gradient parity (rel RMS vs the f32 path, per leaf): " + json.dumps(report))
+    report = {"model": name, "layers": c.n_layers, "loss": loss, "rel_rms_vs_f32": leaves}
+    log(f"gradient parity {name} (rel RMS vs the f32 path, per leaf): " + json.dumps(report))
+    del params, params32, grads
+    torch.cuda.empty_cache()
     return report
 
 
@@ -1356,6 +1633,8 @@ def main() -> int:
         rows.setdefault(name, {}).update(row)
     rows.update(gpt_oss_kernel_phase())
     rows.update(gemma_kernel_phase())
+    for name, row in gemma_backward_kernel_phase().items():
+        rows.setdefault(name, {}).update(row)
     torch.cuda.empty_cache()  # the servers need the card's memory
     serve = {mode: path_phase(mode) for mode in SERVER_MODES}
     teacher = {}
@@ -1372,28 +1651,31 @@ def main() -> int:
             decode_profile_phase(c, params)
         del params
         torch.cuda.empty_cache()
-    train = {mode: _finetune(mode) for mode in TRAIN_STEPS}
+    train = {run: _finetune(run) for run in TRAIN_RUNS}
     train_profile_phase()
-    grad_parity_phase()
+    for name in GRAD_PARITY:
+        grad_parity_phase(name)
 
     # path → (its model, its launch counts)
     by_path = {
         **{f"serve_{mode}": (SERVER_MODES[mode][0], path["launches"]) for mode, path in serve.items()},
         **{f"teacher_forced_{key}": (key.rsplit("_", 1)[0], report["launches"])
            for key, report in teacher.items()},
-        **{f"train_{mode}": (MODEL, summary["launches"]) for mode, summary in train.items()},
+        **{f"train_{run}": (TRAIN_RUNS[run][0], summary["launches"]) for run, summary in train.items()},
     }
     k1 = ("dstack_tpu_torch/csrc/flash_fwd.cu", "dstack_tpu/ops/flash.py:190", "flash_fwd")
     k4 = ("dstack_tpu_torch/csrc/flash_decode.cu", "dstack_tpu/ops/flash_decode.py:266")
+    k2 = ("dstack_tpu_torch/csrc/flash_bwd_dq.cu", "dstack_tpu/ops/flash.py:467", "flash_bwd_dq")
+    k3 = ("dstack_tpu_torch/csrc/flash_bwd_dkv.cu", "dstack_tpu/ops/flash.py:523", "flash_bwd_dkv")
     d64 = (MODEL, GPT_OSS)  # the head_dim 64 models; Gemma's is 256
     meta = {  # kernel row → (source, replaces, its count in by_path, the models whose paths count)
         "flash_fwd": (*k1, (MODEL,)),
         "flash_fwd_gpt_oss": (*k1, (GPT_OSS,)),
-        "flash_fwd_d256": (*k1, GEMMA),
-        "flash_bwd_dq": ("dstack_tpu_torch/csrc/flash_bwd_dq.cu", "dstack_tpu/ops/flash.py:467",
-                         "flash_bwd_dq", d64),
-        "flash_bwd_dkv": ("dstack_tpu_torch/csrc/flash_bwd_dkv.cu", "dstack_tpu/ops/flash.py:523",
-                          "flash_bwd_dkv", d64),
+        "flash_fwd_d256": (*k1, D256),
+        "flash_bwd_dq": (*k2, d64),
+        "flash_bwd_dkv": (*k3, d64),
+        "flash_bwd_dq_d256": (*k2, D256),
+        "flash_bwd_dkv_d256": (*k3, D256),
         **{name: (*k4, form, d64) for name, form in (
             ("flash_decode", "bf16_decode"),
             ("flash_decode_verify", "bf16_verify"),
@@ -1404,7 +1686,7 @@ def main() -> int:
             ("flash_decode_int8_sinks", "int8_decode_sinks"),
             ("flash_decode_int8_verify_sinks", "int8_verify_sinks"),
         )},
-        **{name: (*k4, form, GEMMA) for name, form in (
+        **{name: (*k4, form, D256) for name, form in (
             ("flash_decode_d256", "bf16_decode"),
             ("flash_decode_verify_d256", "bf16_verify"),
             ("flash_decode_int8_d256", "int8_decode"),
@@ -1421,8 +1703,9 @@ def main() -> int:
             "launches": sum(counts.values()), "launches_by_path": counts,
             **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms")},
-            **{k: rows[name][k] for k in ("training_shape", "trainer_shape", "nsplit", "rows_per_block",
-                                          "library_note", "window_0", "softcap_50")
+            **{k: rows[name][k] for k in ("tile_rel_rms", "training_shape", "trainer_shape", "trainer_shapes",
+                                          "nsplit", "rows_per_block", "library_note", "window_0",
+                                          "softcap_50")
                if k in rows[name]},
             "ptxas": ptxas[src.rsplit("/", 1)[1][:-3]],
         })

@@ -36,6 +36,14 @@
 //   wgmma descriptors read; rows past T arrive as zeros. At D = 128 a row
 //   is two 64-column boxes, and the streamed tile is 32 query rows, so the
 //   dK and dV accumulators (2 x 64 f32 a thread) fit the 240 registers.
+// - D = 256 (Gemma): dK and dV of 64 keys over 256 columns would take 256
+//   registers a thread, and the m64 tile cannot shrink. So both consumers
+//   own the same 64 keys and each accumulates one column half of dK and of
+//   dV (2 x 64 f32 a thread, with 32-row streamed tiles as at D = 128);
+//   each forms S^T and dP^T over all of D itself, so those two products
+//   are computed twice: 6 products' work a key tile for the other forms' 4.
+//   A block owns 64 keys; the K/V tiles and the 2-stage Q/dO ring take
+//   128 KB.
 // - The causal/window compare runs only on tiles that straddle the
 //   diagonal, the window edge or T; tiles a warpgroup cannot see are
 //   skipped.
@@ -54,7 +62,6 @@ using Params = dtpu::AttnParams;
 
 constexpr int BM = 64;            // keys a consumer warpgroup owns
 constexpr int NCONS = 2;          // consumer warpgroups
-constexpr int BKV = BM * NCONS;   // keys a block
 constexpr int STAGES = 2;         // ring depth
 constexpr int NTHREADS = 128 * (1 + NCONS);
 
@@ -69,11 +76,15 @@ constexpr int bq() {
 template <int D>
 struct Smem {
   static constexpr int BQ = bq<D>();
+  // D = 256: the consumers split the columns of one 64-key tile, not the keys
+  static constexpr bool SPLIT = D == 256;
+  static constexpr int NKT = SPLIT ? 1 : NCONS;           // key tiles a block holds
+  static constexpr int BKV = BM * NKT;                    // keys a block
   static constexpr int TILE = BM * D * 2;                 // stationary 64 keys
   static constexpr int QT = BQ * D * 2;                   // streamed query rows
-  static constexpr int K = 0;                             // NCONS tiles
-  static constexpr int V = K + NCONS * TILE;              // NCONS tiles
-  static constexpr int QDO = V + NCONS * TILE;            // stage s: Q at +2s QT, dO after
+  static constexpr int K = 0;                             // NKT tiles
+  static constexpr int V = K + NKT * TILE;                // NKT tiles
+  static constexpr int QDO = V + NKT * TILE;              // stage s: Q at +2s QT, dO after
   static constexpr int LD = QDO + STAGES * 2 * QT;        // stage s: lse*log2e, then delta (f32)
   static constexpr int BAR = LD + STAGES * 2 * BQ * 4;    // full[], empty[], stationary
   static constexpr int BYTES = BAR + 8 * (2 * STAGES + 1);
@@ -132,6 +143,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dkv_kernel(
   using S = Smem<D>;
   constexpr int BQ = S::BQ;
   constexpr int CB = D / 64;  // 64-column boxes a row
+  constexpr bool SPLIT = S::SPLIT;
+  constexpr int CBC = SPLIT ? CB / NCONS : CB;  // column boxes of dK and dV a consumer owns
+  constexpr int BKV = S::BKV;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (dtpu::smem_u32(smem_raw) + 1023) & ~1023u;
   uint8_t* const smem = smem_raw + (base - dtpu::smem_u32(smem_raw));  // generic view of `base`
@@ -175,8 +189,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dkv_kernel(
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0) {
-        dtpu::mbar_arrive_expect_tx(stat, 2 * NCONS * S::TILE);
-        for (int c = 0; c < NCONS; ++c) {
+        dtpu::mbar_arrive_expect_tx(stat, 2 * S::NKT * S::TILE);
+        for (int c = 0; c < S::NKT; ++c) {
           for (int cb = 0; cb < CB; ++cb) {
             const uint32_t off = c * S::TILE + cb * BM * 128;
             dtpu::tma_load_3d(base + S::K + off, &tm_k, cb * 64, k_lo + c * BM, bkv, stat);
@@ -212,23 +226,26 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dkv_kernel(
       }
     }
   } else {
-    // consumers: warpgroup c owns keys kc_lo .. kc_lo + 63
+    // consumers: warpgroup c owns keys kc_lo .. kc_lo + 63, with every
+    // column or (SPLIT) column boxes cb0 .. cb0 + CBC - 1
     dtpu::setmaxnreg_inc<240>();
     const int c = threadIdx.x / 128 - 1;
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane >> 2, t = lane & 3;
-    const int kc_lo = k_lo + c * BM;
+    const int kt = SPLIT ? 0 : c;  // the key tile it reads
+    const int cb0 = SPLIT ? c * CBC : 0;
+    const int kc_lo = k_lo + kt * BM;
     const int row0 = kc_lo + 16 * warp + g;  // this thread's keys: row0 and row0 + 8
     const int kpos[2] = {p.kv_offset + row0, p.kv_offset + row0 + 8};
     const int kp_lo = p.kv_offset + kc_lo, kp_hi = kp_lo + BM - 1;
 
-    float dka[CB][32], dva[CB][32];
+    float dka[CBC][32], dva[CBC][32];
 #pragma unroll
-    for (int cb = 0; cb < CB; ++cb) {
+    for (int cb = 0; cb < CBC; ++cb) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) dka[cb][i] = dva[cb][i] = 0.f;
     }
-    const uint32_t sk = base + S::K + c * S::TILE, sv = base + S::V + c * S::TILE;
+    const uint32_t sk = base + S::K + kt * S::TILE, sv = base + S::V + kt * S::TILE;
     dtpu::mbar_wait(stat, 0);
 
     for (int i = 0; i < n_items; ++i) {
@@ -274,14 +291,15 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dkv_kernel(
           dtpu::acc_to_a(da[kk], dp + 8 * kk, dp + 8 * kk + 4);
         }
 
-        // dV += P^T dO and dK += dS^T Q: contraction over the tile's query
-        // rows, 16 a step; dO and Q read MN-major, one 64-column box a product
+        // dV += P^T dO and dK += dS^T Q over this consumer's column boxes:
+        // contraction over the tile's query rows, 16 a step; dO and Q read
+        // MN-major, one 64-column box a product
         dtpu::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk) {
 #pragma unroll
-          for (int cb = 0; cb < CB; ++cb) {
-            const uint32_t off = cb * BQ * 128 + kk * 2048;
+          for (int cb = 0; cb < CBC; ++cb) {
+            const uint32_t off = (cb0 + cb) * BQ * 128 + kk * 2048;
             dtpu::wgmma_rs(dva[cb], pa[kk], dtpu::desc_mn_major(sdo + off));
             dtpu::wgmma_rs(dka[cb], da[kk], dtpu::desc_mn_major(sq + off));
           }
@@ -289,7 +307,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dkv_kernel(
         dtpu::wgmma_commit();
         dtpu::wgmma_wait<0>();
 #pragma unroll
-        for (int cb = 0; cb < CB; ++cb) {
+        for (int cb = 0; cb < CBC; ++cb) {
           dtpu::fence_regs(dka[cb]);
           dtpu::fence_regs(dva[cb]);
         }
@@ -304,10 +322,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dkv_kernel(
       __nv_bfloat16* dko = dk + ((size_t)bkv * p.Tk + row) * D;
       __nv_bfloat16* dvo = dv + ((size_t)bkv * p.Tk + row) * D;
 #pragma unroll
-      for (int cb = 0; cb < CB; ++cb) {
+      for (int cb = 0; cb < CBC; ++cb) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const int col = cb * 64 + 8 * j + 2 * t;
+          const int col = (cb0 + cb) * 64 + 8 * j + 2 * t;
           *reinterpret_cast<__nv_bfloat162*>(dko + col) =
               __floats2bfloat162_rn(dka[cb][4 * j + 2 * r], dka[cb][4 * j + 2 * r + 1]);
           *reinterpret_cast<__nv_bfloat162*>(dvo + col) =
@@ -333,7 +351,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.Hkv, B, (p.Tk + BKV - 1) / BKV);
+  const dim3 grid(p.Hkv, B, (p.Tk + Smem<D>::BKV - 1) / Smem<D>::BKV);
   flash_bwd_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(tq, tdo, tk, tv, lse, delta, dk, dv, p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -341,8 +359,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a head width other than 64 or 128 or a tensor
-// map that cuTensorMapEncodeTiled refuses.
+// cudaErrorInvalidValue for a head width other than 64, 128 or 256 or a
+// tensor map that cuTensorMapEncodeTiled refuses.
 extern "C" int dtpu_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv, int B,
                                   int H, int Hkv, int Tq, int Tk, int D, float scale, int causal,
@@ -356,5 +374,6 @@ extern "C" int dtpu_flash_bwd_dkv(const void* q, const void* k, const void* v, c
   auto* dvp = static_cast<__nv_bfloat16*>(dv);
   if (D == 64) return launch<64>(q, k, v, dout, lp, dlp, dkp, dvp, B, p, s);
   if (D == 128) return launch<128>(q, k, v, dout, lp, dlp, dkp, dvp, B, p, s);
+  if (D == 256) return launch<256>(q, k, v, dout, lp, dlp, dkp, dvp, B, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -22,6 +22,11 @@
 //   (the S accumulator re-packed as bf16, acc_to_a) and the same K tile
 //   through an MN-major descriptor. S and dP are two wgmma groups, so P =
 //   exp(S - lse) is formed while the dP product runs.
+// - D = 256 (Gemma): the two consumers' stationary Q and dO take 128 KB,
+//   and a 2-stage ring of 64-key K/V tiles would take another 128 KB, over
+//   the 227 KB a block may have; so the streamed tile is 32 keys (a legal
+//   wgmma N), the ring 64 KB. The dQ accumulator is 64 x 256 f32, 128
+//   registers a thread, beside S and dP at 16 each.
 // - Warp specialisation: warpgroup 0 is the producer (one thread issues
 //   TMA loads; setmaxnreg.dec to 24 registers), warpgroups 1-2 consume
 //   (setmaxnreg.inc to 240). K and V stream through a ring of STAGES
@@ -29,7 +34,8 @@
 //   current one is multiplied.
 // - TMA from 3-D tensor maps over [B*H, T, D] in the 128-byte swizzle the
 //   wgmma descriptors read; rows past T arrive as zeros (the ragged edge),
-//   never the next head's rows. At D = 128 a row is two 64-column boxes.
+//   never the next head's rows. A row is D / 64 column boxes (four at
+//   D = 256).
 // - The causal/window compare runs only on tiles that straddle the
 //   diagonal, the window edge or T; fully masked tiles are never loaded
 //   (the walk is `_causal_kv_clamp`, flash.py:223) or skipped per warpgroup.
@@ -51,19 +57,22 @@ using Params = dtpu::AttnParams;
 constexpr int BM = 64;             // query rows a consumer warpgroup owns
 constexpr int NCONS = 2;           // consumer warpgroups
 constexpr int BQ = BM * NCONS;     // query rows a block
-constexpr int BK = 64;             // keys a streamed tile
 constexpr int STAGES = 2;          // ring depth
 constexpr int NTHREADS = 128 * (1 + NCONS);
 
-// Shared memory, byte offsets from a 1024-aligned base. A 64-row tile is
-// D/64 column boxes of 64 rows x 128 bytes, one after the other.
+// Shared memory, byte offsets from a 1024-aligned base. A tile of R rows
+// is D/64 column boxes of R rows x 128 bytes, one after the other.
 template <int D>
 struct Smem {
-  static constexpr int TILE = BM * D * 2;
+  // keys a streamed K/V tile: 32 at D = 256 (the shared memory a block may
+  // have), else 64
+  static constexpr int BK = D == 256 ? 32 : 64;
+  static constexpr int TILE = BM * D * 2;                    // 64 query rows
+  static constexpr int KT = BK * D * 2;                      // a streamed K or V tile
   static constexpr int Q = 0;                                // NCONS tiles
   static constexpr int DO = Q + NCONS * TILE;                // NCONS tiles
-  static constexpr int KV = DO + NCONS * TILE;               // stage s: K at +2s TILE, V after
-  static constexpr int BAR = KV + STAGES * 2 * TILE;         // full[], empty[], stationary
+  static constexpr int KV = DO + NCONS * TILE;               // stage s: K at +2s KT, V after
+  static constexpr int BAR = KV + STAGES * 2 * KT;           // full[], empty[], stationary
   static constexpr int BYTES = BAR + 8 * (2 * STAGES + 1);
 };
 
@@ -71,12 +80,12 @@ struct Smem {
 // g + 8 of its warp) and the tile's column 8 (i >> 2) + 2t + (i & 1).
 
 // P = exp(S - lse) in place of S, 0 where masked (flash.py:287-301).
-template <bool MASKED>
-__device__ __forceinline__ void p_tile(float (&s)[32], const float (&lse2)[2], const int (&qpos)[2],
+template <int N, bool MASKED>
+__device__ __forceinline__ void p_tile(float (&s)[N], const float (&lse2)[2], const int (&qpos)[2],
                                        int k_lo, int t, const Params& p) {
   const float sl2 = p.scale * LOG2E;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int r = (i >> 1) & 1;
     const float pr = exp2f(fmaf(s[i], sl2, -lse2[r]));
     if (MASKED) {
@@ -89,21 +98,22 @@ __device__ __forceinline__ void p_tile(float (&s)[32], const float (&lse2)[2], c
 }
 
 // dS = P (dP - delta) scale in place of P (flash.py:305-307).
-__device__ __forceinline__ void ds_from_p(float (&s)[32], const float (&dp)[32], const float (&dl)[2],
+template <int N>
+__device__ __forceinline__ void ds_from_p(float (&s)[N], const float (&dp)[N], const float (&dl)[2],
                                           float scale) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]) * scale;
+  for (int i = 0; i < N; ++i) s[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]) * scale;
 }
 
 // Under softcap, dS in place of S in one pass: the tanh serves P and
 // dS's (1 - tanh^2) factor.
-template <bool MASKED>
-__device__ __forceinline__ void softcap_ds_tile(float (&s)[32], const float (&dp)[32],
+template <int N, bool MASKED>
+__device__ __forceinline__ void softcap_ds_tile(float (&s)[N], const float (&dp)[N],
                                                 const float (&lse2)[2], const float (&dl)[2],
                                                 const int (&qpos)[2], int k_lo, int t,
                                                 const Params& p) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int r = (i >> 1) & 1;
     const float th = tanhf(s[i] * p.scale / p.softcap);
     const float pr = exp2f(p.softcap * th * LOG2E - lse2[r]);
@@ -129,6 +139,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dq_kernel(
     const Params p) {
   using S = Smem<D>;
   constexpr int CB = D / 64;  // 64-column boxes a row
+  constexpr int BK = S::BK;
+  constexpr int NS = BK / 2;  // S and dP elements a thread: an m64 x BK tile
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (dtpu::smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t full0 = base + S::BAR, empty0 = full0 + 8 * STAGES, stat = empty0 + 8 * STAGES;
@@ -177,12 +189,12 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dq_kernel(
       for (int i = 0; i < n_k; ++i) {
         const int s = i % STAGES;
         dtpu::mbar_wait(empty0 + 8 * s, ((i / STAGES) & 1) ^ 1);
-        dtpu::mbar_arrive_expect_tx(full0 + 8 * s, 2 * S::TILE);
-        const uint32_t sk = base + S::KV + s * 2 * S::TILE;
+        dtpu::mbar_arrive_expect_tx(full0 + 8 * s, 2 * S::KT);
+        const uint32_t sk = base + S::KV + s * 2 * S::KT;
         const int k_row = (kt_begin + i) * BK;
         for (int cb = 0; cb < CB; ++cb) {
           dtpu::tma_load_3d(sk + cb * BK * 128, &tm_k, cb * 64, k_row, bkv, full0 + 8 * s);
-          dtpu::tma_load_3d(sk + S::TILE + cb * BK * 128, &tm_v, cb * 64, k_row, bkv, full0 + 8 * s);
+          dtpu::tma_load_3d(sk + S::KT + cb * BK * 128, &tm_v, cb * 64, k_row, bkv, full0 + 8 * s);
         }
       }
     }
@@ -231,35 +243,37 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dq_kernel(
       if (!skip) {
         const bool masked = k_lo + BK > p.Tk || (p.causal && qp_lo < kp_hi) ||
                             (p.window > 0 && qp_hi - kp_lo >= p.window);
-        const uint32_t sk = base + S::KV + s * 2 * S::TILE, sv = sk + S::TILE;
-        float st[32], dp[32];
+        const uint32_t sk = base + S::KV + s * 2 * S::KT, sv = sk + S::KT;
+        float st[NS], dp[NS];
         // S = Q K^T, then dP = dO V^T, two groups: contraction over D, 16
-        // columns a step
+        // columns a step (a Q box holds 64 rows, a K box BK)
         dtpu::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t off = (kk / 4) * BM * 128 + (kk % 4) * 32;
-          dtpu::wgmma_ss(st, dtpu::desc_k_major(sq + off), dtpu::desc_k_major(sk + off), kk > 0);
+          const uint32_t off_k = (kk / 4) * BK * 128 + (kk % 4) * 32;
+          dtpu::wgmma_ss(st, dtpu::desc_k_major(sq + off), dtpu::desc_k_major(sk + off_k), kk > 0);
         }
         dtpu::wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t off = (kk / 4) * BM * 128 + (kk % 4) * 32;
-          dtpu::wgmma_ss(dp, dtpu::desc_k_major(sdo + off), dtpu::desc_k_major(sv + off), kk > 0);
+          const uint32_t off_k = (kk / 4) * BK * 128 + (kk % 4) * 32;
+          dtpu::wgmma_ss(dp, dtpu::desc_k_major(sdo + off), dtpu::desc_k_major(sv + off_k), kk > 0);
         }
         dtpu::wgmma_commit();
         if (p.softcap > 0.f) {
           dtpu::wgmma_wait<0>();
           dtpu::fence_regs(st);
           dtpu::fence_regs(dp);
-          if (masked) softcap_ds_tile<true>(st, dp, lse2, dl, qpos, k_lo, t, p);
-          else softcap_ds_tile<false>(st, dp, lse2, dl, qpos, k_lo, t, p);
+          if (masked) softcap_ds_tile<NS, true>(st, dp, lse2, dl, qpos, k_lo, t, p);
+          else softcap_ds_tile<NS, false>(st, dp, lse2, dl, qpos, k_lo, t, p);
         } else {
           // P while the dP product runs
           dtpu::wgmma_wait<1>();
           dtpu::fence_regs(st);
-          if (masked) p_tile<true>(st, lse2, qpos, k_lo, t, p);
-          else p_tile<false>(st, lse2, qpos, k_lo, t, p);
+          if (masked) p_tile<NS, true>(st, lse2, qpos, k_lo, t, p);
+          else p_tile<NS, false>(st, lse2, qpos, k_lo, t, p);
           dtpu::wgmma_wait<0>();
           dtpu::fence_regs(dp);
           ds_from_p(st, dp, dl, p.scale);
@@ -309,8 +323,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   CUtensorMap tq, tdo, tk, tv;
   if (!dtpu::rows_tensor_map(&tq, q, B * p.H, p.Tq, D, BM) ||
       !dtpu::rows_tensor_map(&tdo, dout, B * p.H, p.Tq, D, BM) ||
-      !dtpu::rows_tensor_map(&tk, k, B * p.Hkv, p.Tk, D, BK) ||
-      !dtpu::rows_tensor_map(&tv, v, B * p.Hkv, p.Tk, D, BK)) {
+      !dtpu::rows_tensor_map(&tk, k, B * p.Hkv, p.Tk, D, Smem<D>::BK) ||
+      !dtpu::rows_tensor_map(&tv, v, B * p.Hkv, p.Tk, D, Smem<D>::BK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem = Smem<D>::BYTES + 1024;  // + room to align the base to 1024
@@ -325,8 +339,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a head width other than 64 or 128 or a tensor
-// map that cuTensorMapEncodeTiled refuses.
+// cudaErrorInvalidValue for a head width other than 64, 128 or 256 or a
+// tensor map that cuTensorMapEncodeTiled refuses.
 extern "C" int dtpu_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, int B, int H,
                                  int Hkv, int Tq, int Tk, int D, float scale, int causal,
@@ -339,5 +353,6 @@ extern "C" int dtpu_flash_bwd_dq(const void* q, const void* k, const void* v, co
   auto* dqp = static_cast<__nv_bfloat16*>(dq);
   if (D == 64) return launch<64>(q, k, v, dout, lp, dlp, dqp, B, p, s);
   if (D == 128) return launch<128>(q, k, v, dout, lp, dlp, dqp, B, p, s);
+  if (D == 256) return launch<256>(q, k, v, dout, lp, dlp, dqp, B, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

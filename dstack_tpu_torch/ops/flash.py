@@ -31,8 +31,11 @@ Q/dO with their lse and delta rows (K3) through a two-stage TMA ring with
 mbarriers, and the causal/window compare only on the tiles that straddle
 the diagonal or the window edge. Neither uses atomics: two launches give
 identical bits. delta = rowsum(dO*O) stays one PyTorch expression, as it
-is one XLA expression in JAX (flash.py:457). The wrappers are unchanged:
-the launchers build the TMA tensor maps themselves.
+is one XLA expression in JAX (flash.py:457). The launchers build the TMA
+tensor maps themselves. Like the Pallas backward (any ``D % 64 == 0``,
+flash.py:688) they take Gemma's D = 256: K2 streams 32-key tiles there,
+and K3's two consumers split dK's and dV's columns over one 64-key tile
+(see the sources).
 
 Each wrapper takes the plain version only for tensors on the CPU (the
 CPU tests); for a CUDA tensor it launches the kernel or raises.
@@ -48,8 +51,7 @@ import torch
 from dstack_tpu_torch.ops import cuda_build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 256)  # K1's compiled head widths (256: Gemma serving)
-BWD_HEAD_DIMS = (64, 128)  # K2's and K3's: D = 256 comes with Gemma training
+HEAD_DIMS = (64, 128, 256)  # the compiled head widths of K1, K2 and K3 (256: Gemma)
 
 # kernel launches since each count was last set to 0 (the plain versions
 # never count): chip_smoke.py reads them to prove a path ran the kernels
@@ -151,7 +153,7 @@ def sink_postscale(o: torch.Tensor, lse: torch.Tensor, sinks: torch.Tensor) -> t
     return (o.float() * gate).to(o.dtype)
 
 
-def _check_kernel_args(q, k, v, head_dims=HEAD_DIMS, **like_q) -> None:
+def _check_kernel_args(q, k, v, **like_q) -> None:
     """Shapes, device, dtype, layout and alignment the kernels take;
     ``like_q`` names more bf16 tensors shaped like q (dO)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -159,8 +161,8 @@ def _check_kernel_args(q, k, v, head_dims=HEAD_DIMS, **like_q) -> None:
     b, h, _, d = q.shape
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[1]:
         raise ValueError(f"flash: mismatched q {tuple(q.shape)} and k/v {tuple(k.shape)}")
-    if d not in head_dims:
-        raise ValueError(f"flash: head_dim {d} not in the kernel's {head_dims}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash: head_dim {d} not in the kernel's {HEAD_DIMS}")
     for name, t in like_q.items():
         if t.shape != q.shape:
             raise ValueError(f"flash: {name} {tuple(t.shape)} is not shaped like q {tuple(q.shape)}")
@@ -304,7 +306,7 @@ def _launch_bwd(source: str, outs: tuple, q, k, v, do, lse, delta, *, causal=Tru
     of the forward plus contiguous f32 [B, H, Tq] lse and delta."""
     if q.device.type != "cuda":
         raise ValueError(f"flash: no kernel for device {q.device}")
-    _check_kernel_args(q, k, v, head_dims=BWD_HEAD_DIMS, do=do)
+    _check_kernel_args(q, k, v, do=do)
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != q.shape[:3] or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"flash: {name} must be contiguous f32 [B,H,Tq]; got {t.dtype} {tuple(t.shape)}")

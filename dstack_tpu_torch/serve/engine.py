@@ -41,20 +41,19 @@ from typing import Optional
 
 import torch
 
-from dstack_tpu_torch.models import moe
 from dstack_tpu_torch.models.llama import (
     LlamaConfig,
-    _proj,
-    act_fn,
+    _attn_out,
+    _embed_lookup,
+    _head_logits,
+    _mlp_out,
+    _qkv_heads,
     apply_rope,
     dual_rope_freqs,
-    embed_tokens,
-    head_matmul,
     layer_params,
     layer_rope,
     layer_windows,
     model_norm,
-    qk_norm_apply,
 )
 from dstack_tpu_torch.ops.attention import attention
 from dstack_tpu_torch.ops.flash_decode import (
@@ -271,68 +270,6 @@ def _apply_rope_batch(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> 
 def _mlp(x: torch.Tensor, layer: dict, c: LlamaConfig) -> torch.Tensor:
     """x + MLP sublayer (shared by prefill and decode)."""
     return x + _mlp_out(x, layer, c)
-
-
-def _mlp_out(x: torch.Tensor, layer: dict, c: LlamaConfig) -> torch.Tensor:
-    """The MLP sublayer's output: the sparse experts when the layer
-    carries a router (routed on x's own [B, T, H] shape: each batch row
-    is a routing group), else the dense gated MLP (SwiGLU, or Gemma's
-    GeGLU); Gemma2/3 norm it again (``mlp_post_norm``)."""
-    m = model_norm(x, layer["mlp_norm"], c)
-    if "w_router" in layer:
-        mo = moe.moe_mlp(
-            m, layer, c.n_experts, c.experts_per_token, c.capacity_factor,
-            topk_softmax=c.router_topk_softmax, act=c.moe_act, act_limit=c.act_limit,
-        )
-    else:
-        u = _proj(layer, "w_up", m)
-        g = _proj(layer, "w_gate", m)
-        mo = _proj(layer, "w_down", act_fn(c)(g) * u)
-    return model_norm(mo, layer["mlp_post_norm"], c) if c.post_norms else mo
-
-
-def _qkv_heads(h: torch.Tensor, layer: dict, c: LlamaConfig) -> tuple:
-    """Normed hidden [B, T, E] → q [B, H, T, D], k and v [B, Hkv, T, D],
-    pre-rope: the projections (+ the q/k/v biases), then the per-head q/k
-    norms where the config has them (JAX ``_qkv`` and the reshape and
-    ``qk_norm_apply`` after it, engine.py:771-778)."""
-    b, t = h.shape[0], h.shape[1]
-    q, k, v = _proj(layer, "wq", h), _proj(layer, "wk", h), _proj(layer, "wv", h)
-    if c.qkv_bias:
-        q, k, v = q + layer["bq"], k + layer["bk"], v + layer["bv"]
-    q = q.view(b, t, c.n_heads, c.head_dim).transpose(1, 2)
-    k = k.view(b, t, c.n_kv_heads, c.head_dim).transpose(1, 2)
-    v = v.view(b, t, c.n_kv_heads, c.head_dim).transpose(1, 2)
-    if c.qk_norm:
-        q, k = qk_norm_apply(q, k, layer, c)
-    return q, k, v
-
-
-def _attn_out(o: torch.Tensor, layer: dict, c: LlamaConfig) -> torch.Tensor:
-    """The o projection of the attention output [..., q_dim] (+ ``bo``),
-    normed again on Gemma2/3 (``attn_post_norm``)."""
-    ao = _proj(layer, "wo", o)
-    if c.proj_bias:
-        ao = ao + layer["bo"]
-    return model_norm(ao, layer["attn_post_norm"], c) if c.post_norms else ao
-
-
-def _embed_lookup(params: dict, tokens: torch.Tensor, c: LlamaConfig) -> torch.Tensor:
-    """Embedding rows; out-of-range ids give zeros (JAX ``mode="fill"``);
-    Gemma scales them by sqrt(H) cast to the model dtype (engine.py:436)."""
-    x = embed_tokens(params, tokens, c)
-    if c.embed_scale:  # the scale rounded to the model dtype, as a host scalar
-        x = x * float(torch.tensor(c.hidden_size**0.5, dtype=c.dtype))
-    return x
-
-
-def _head_logits(params: dict, x: torch.Tensor, c: LlamaConfig) -> torch.Tensor:
-    """Post-final-norm hidden [..., E] → f32 logits [..., V], with
-    Gemma2's tanh cap (engine.py:454)."""
-    logits = head_matmul(params, x, c)
-    if c.logit_softcap:
-        logits = c.logit_softcap * torch.tanh(logits / c.logit_softcap)
-    return logits
 
 
 def _rope_rows(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

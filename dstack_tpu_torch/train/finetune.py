@@ -4,10 +4,15 @@
 Counterpart of ``python -m dstack_tpu.train.finetune`` on one GPU: the
 same model names, defaults (llama-3.2-1b, ``--seq-len 2048 --batch 8``,
 LoRA on wq/wk/wv/wo unless ``--full``) and outputs
-(``model_weights.npz`` or ``lora_adapters.npz`` under ``--out``). Every
-step runs the flash kernels: K1 forward (twice per layer under remat),
-K2/K3 backward. Weights are random from ``--seed``; data is a synthetic
-token stream unless ``--data`` names a pre-tokenized ``.npy``/``.bin``.
+(``model_weights.npz`` or ``lora_adapters.npz`` under ``--out``). The
+dense Llama and the Gemma family train (``--model gemma-3-4b``,
+``gemma-2-2b``, ``gemma-3-1b``, ``gemma-2b``: head_dim 256); gpt-oss does
+not yet (ROADMAP A5.7). Every step runs the flash kernels: K1 forward
+(twice per layer under remat), K2/K3 backward. Weights are random from
+``--seed``, or a ``save_pretrained`` checkpoint with ``--hf-model DIR``
+(the model types ``models/convert_hf.py`` reads: llama, gemma, gemma2,
+gemma3; the run is named after the directory); data is a synthetic token
+stream unless ``--data`` names a pre-tokenized ``.npy``/``.bin``.
 
 Output: the ``first_train_step`` JSON event, one line per logged step
 (loss, tokens/s, MFU against the H100 SXM dense-bf16 peak), and as the
@@ -29,7 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from dstack_tpu_torch.models import llama
+from dstack_tpu_torch.models import convert_hf, llama
 from dstack_tpu_torch.ops import flash
 from dstack_tpu_torch.serve.engine import resolve_device
 from dstack_tpu_torch.train import data as data_mod
@@ -70,7 +75,10 @@ def _parser() -> argparse.ArgumentParser:
         p.add_argument(axis, type=int, default=default, help="mesh axis; > 1 not ported")
     p.add_argument("--seq-parallel", default=None, choices=["ring", "ulysses"])
     p.add_argument("--opt-bits", type=int, default=32, choices=[8, 32])
-    for flag in ("--ckpt-dir", "--eval-data", "--export-hf", "--hf-model", "--profile-dir", "--data-tokenizer"):
+    p.add_argument("--hf-model", default=None,
+                   help="HF save_pretrained dir (llama/gemma/gemma2/gemma3): fine-tune from "
+                        "those weights; overrides --model")
+    for flag in ("--ckpt-dir", "--eval-data", "--export-hf", "--profile-dir", "--data-tokenizer"):
         p.add_argument(flag, default=None)
     p.add_argument("--resume", action="store_true")
     return p
@@ -89,8 +97,8 @@ def _refusals(args) -> list[str]:
         out.append("--ckpt-dir/--resume come with the checkpoint slice")
     if args.eval_data:
         out.append("--eval-data comes with the eval slice")
-    if args.export_hf or args.hf_model:
-        out.append("--export-hf/--hf-model come with the HF loader slice")
+    if args.export_hf:
+        out.append("--export-hf (the HF writer) comes with the HF families slice (A3)")
     if args.profile_dir:
         out.append("--profile-dir comes with the tracing slice")
     if args.data_tokenizer:
@@ -132,7 +140,19 @@ def main(argv=None) -> int:
     if args.batch % max(args.grad_accum, 1):
         p.error(f"--batch {args.batch} not divisible by --grad-accum {args.grad_accum}")
     dev = resolve_device(args.device)
-    config = llama.CONFIGS[args.model]
+    params = None
+    if args.hf_model:
+        try:
+            config, params = convert_hf.load_checkpoint(args.hf_model, device=dev)
+        except (OSError, ValueError) as e:
+            p.error(f"--hf-model {args.hf_model}: {e}")
+        args.model = Path(args.hf_model).resolve().name
+    else:
+        config = llama.CONFIGS[args.model]
+    try:
+        llama.check_trainable(config)
+    except NotImplementedError as e:
+        p.error(f"not ported yet: --model {args.model}: {e}")
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(
         f"model={args.model} params={config.num_params() / 1e9:.2f}B mode="
@@ -152,7 +172,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     opt = default_optimizer(lr=args.lr, decay_steps=args.steps)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = llama.init_params(config, gen, device=dev)
+    if params is None:
+        params = llama.init_params(config, gen, device=dev)
     if args.full:
         state = init_train_state(config, opt, params=params)
         step_fn = make_train_step(config, opt, grad_accum=args.grad_accum)

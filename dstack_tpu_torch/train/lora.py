@@ -123,7 +123,8 @@ def lora_loss(
     impl: Optional[str] = None,
 ) -> torch.Tensor:
     """The f32 cross-entropy over the full logits, as the JAX LoRA step
-    takes it (lora.py:210)."""
+    takes it (lora.py:210); ``forward`` applies the config's final-logit
+    cap to them (Gemma2)."""
     logits = llama.forward(
         params, batch["tokens"], config, lora=lora, lora_scale=lora_config.scale, impl=impl
     )

@@ -85,11 +85,15 @@ def fused_cross_entropy(
     head: torch.Tensor,  # [E, V]
     targets: torch.Tensor,  # [B, T] int
     mask: Optional[torch.Tensor],  # [B, T] 0/1
+    softcap: float = 0.0,  # Gemma2's final-logit tanh cap
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy in logsumexp form, loss = lse(logits) - logit[y]
-    (step.py:40): the f32-accumulated logits are the only full-vocab
-    tensor the forward keeps; no f32 log-probabilities."""
+    (step.py:40): the f32-accumulated logits, tanh-capped first under
+    ``softcap``, are the only full-vocab tensor the forward keeps; no f32
+    log-probabilities."""
     logits = llama.matmul_f32(x, head)
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, targets[..., None].long())[..., 0]
     m, total = _mask(targets, mask)
@@ -98,10 +102,12 @@ def fused_cross_entropy(
 
 def full_loss(params: dict, batch: dict, config: llama.LlamaConfig, impl=None) -> torch.Tensor:
     """The full fine-tune objective (the JAX step's ``loss_fn`` for a
-    dense model: the router aux loss is 0)."""
+    dense model, step.py:308-330: the router aux loss is 0), with the
+    config's final-logit cap inside the fused loss."""
     x = llama.forward(params, batch["tokens"], config, return_hidden=True, impl=impl)
     head = llama.lm_head_weight(params, config)
-    return fused_cross_entropy(x, head, batch["targets"], batch.get("mask"))[0]
+    return fused_cross_entropy(x, head, batch["targets"], batch.get("mask"),
+                               softcap=config.logit_softcap)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -297,6 +303,8 @@ def make_train_step(
 
 def flops_per_token(config: llama.LlamaConfig, seq_len: int) -> float:
     """Approximate train FLOPs per token (step.py:402): 6·N plus the
-    attention term."""
+    attention term. N counts every parameter, Gemma's tied embedding once
+    and its four norms a layer, as JAX's ``num_params`` does (a dense
+    model's active parameters are all of them)."""
     attn = 12 * config.n_layers * config.hidden_size * seq_len  # fwd+bwd qk/av
     return 6.0 * config.num_params() + attn

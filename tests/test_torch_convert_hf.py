@@ -11,10 +11,16 @@ every position (f32 on the CPU). The safetensors parser is held to the
 ``safetensors`` package, the ``.bin`` route and the multimodal Gemma3
 key layouts to the plain ones, and every other model type raises
 ``ValueError``. The server's ``--hf-model`` serves a checkpoint named
-after its directory, on the CPU here."""
+after its directory, on the CPU here, and the fine-tune entry point's
+``--hf-model`` trains one: it loads the JAX loader's parameters, and its
+first step's loss on a ``.npy`` corpus is the JAX finetune's on the same
+batch (both in bf16, as both load by default; the JAX finetune runs in a
+subprocess, as tests/compute/test_checkpoint.py runs it, and prints its
+loss to 4 decimals)."""
 
 import dataclasses
 import json
+import re
 import socket
 import subprocess
 import sys
@@ -34,6 +40,7 @@ from dstack_tpu.models import convert_hf as jconvert  # noqa: E402
 from dstack_tpu_torch.models import convert_hf as tconvert  # noqa: E402
 from dstack_tpu_torch.models import llama as tllama  # noqa: E402
 from dstack_tpu_torch.serve import engine as tengine  # noqa: E402
+from dstack_tpu_torch.train import finetune as tfinetune  # noqa: E402
 
 B, T = 2, 16
 ATOL = 1e-4
@@ -199,6 +206,57 @@ def test_server_serves_an_hf_checkpoint(tmp_path):
         proc.terminate()
         out = proc.communicate(timeout=30)[0].decode()
     assert "loaded HF checkpoint" in out and "tokenizer: byte" in out
+
+
+@pytest.mark.parametrize("case,mode", [("gemma2", "lora"), ("gemma3", "full")])
+def test_finetune_from_a_checkpoint_matches_the_jax_finetune(tmp_path, capsys, case, mode):
+    """``python -m dstack_tpu_torch.train.finetune --hf-model DIR`` at
+    head_dim 256 (the backward kernels' Gemma width): named after the
+    directory; with no step its saved weights are the JAX loader's leaves;
+    its first loss is the JAX finetune's on the same batch within 1e-4
+    (relative)."""
+    ckpt = tmp_path / f"tiny-{case}"
+    _save_tiny(ckpt, case, fields=dict(head_dim=256, query_pre_attn_scalar=256))
+    corpus = tmp_path / "c.npy"
+    # batch 8: the JAX finetune shards it over the tests' 8 CPU devices
+    np.save(corpus, np.random.default_rng(1).integers(0, 128, (10, 17)).astype(np.int32))
+    common = ["--hf-model", str(ckpt), "--data", str(corpus), "--batch", "8", "--seq-len", "16",
+              "--log-every", "1"] + (["--full"] if mode == "full" else [])
+
+    assert tfinetune.main(["--device", "cpu", "--steps", "0", "--full", "--out", str(tmp_path / "w0"),
+                           *[a for a in common if a != "--full"]]) == 0
+    saved = np.load(tmp_path / "w0" / "model_weights.npz")
+    _, jp = jconvert.load_checkpoint(str(ckpt))  # bf16, as both finetunes load
+    want = {n: np.asarray(v, np.float32) for n, v in _flat(jax.tree.map(np.asarray, jp)).items()}
+    assert sorted(set(saved.files) - {"step"}) == sorted(want)
+    for name, w in want.items():
+        np.testing.assert_array_equal(saved[name], w, err_msg=name)
+    capsys.readouterr()
+
+    assert tfinetune.main(["--device", "cpu", "--steps", "1", "--out", str(tmp_path / "w1"), *common]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["model"] == ckpt.name and summary["mode"] == mode
+    proc = subprocess.run(
+        [sys.executable, "-m", "dstack_tpu.train.finetune", "--platform", "cpu", "--steps", "1",
+         "--out", str(tmp_path / "wj"), *common],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=Path(__file__).resolve().parents[1], timeout=600,
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:]
+    jax_loss = float(re.search(r"step 1/1 loss=([0-9.]+)", proc.stdout).group(1))
+    # relative, as tests/test_torch_train.py holds whole-step losses; the
+    # JAX finetune's 4 decimals round by at most 5e-5 of the ~5e-4 allowed
+    np.testing.assert_allclose(summary["first_loss"], jax_loss, rtol=1e-4)
+
+
+@pytest.mark.parametrize("what", ["missing", "qwen2"])
+def test_finetune_refuses_a_checkpoint_it_cannot_load(tmp_path, capsys, what):
+    if what == "qwen2":
+        (tmp_path / "config.json").write_text(json.dumps({"model_type": "qwen2"}))
+    with pytest.raises(SystemExit) as e:
+        tfinetune.main(["--device", "cpu", "--hf-model", str(tmp_path / "none" if what == "missing" else tmp_path)])
+    assert e.value.code != 0
+    assert "--hf-model" in capsys.readouterr().err
 
 
 def test_bf16_load_and_the_engine_dtype(tmp_path):

@@ -6,9 +6,11 @@ is held here to the Pallas ``_flash_bwd`` kernels (``_dq_kernel``,
 gradients of ``FlashAttention`` to ``jax.vjp`` of ``flash_attention``
 and to torch autograd through ``flash_attention_plain``: the same f32
 inputs drawn with numpy, tolerance 2e-5 (the reference's own,
-tests/compute/test_flash_decode.py). The ``cuda``-marked tests hold the
-hand-written K2/K3 kernels to the plain version on the card (bf16,
-2e-2) and skip where there is none.
+tests/compute/test_flash_decode.py): 4 query heads over 2 KV heads at
+head_dim 64, and at Gemma's 256 over 2 or 1 KV heads (GQA groups 2 and
+4) with its windows, its softcap of 50 and offsets. The ``cuda``-marked
+tests hold the hand-written K2/K3 kernels to the plain version on the
+card (bf16, 2e-2) and skip where there is none.
 """
 
 import jax
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from dstack_tpu.ops.flash import _flash_bwd, _flash_fwd
 from dstack_tpu.ops.flash import flash_attention as jax_flash_attention
 from dstack_tpu_torch.ops import flash as tflash
@@ -24,18 +27,35 @@ from dstack_tpu_torch.ops import flash as tflash
 TOL = 2e-5
 BLOCK = 128
 
-# (T, causal, q_offset, kv_offset, window, softcap): GQA 4 query heads
-# over 2 KV heads in every case
+# (T, causal, q_offset, kv_offset, window, softcap, head_dim, KV heads):
+# 4 query heads in every case
 CASES = [
-    (128, True, 0, 0, 0, 0.0),
-    (256, True, 0, 0, 0, 0.0),
-    (128, True, 128, 0, 0, 0.0),  # queries after a 128-key prefix shard
-    (256, True, 0, 0, 96, 0.0),  # sliding window
-    (256, True, 0, 0, 0, 30.0),  # softcap: the (1 - tanh^2) factor
-    (128, False, 0, 0, 0, 0.0),  # non-causal
-    (128, True, 0, 64, 0, 0.0),  # rows 0..63 see no key at all
+    (128, True, 0, 0, 0, 0.0, 64, 2),
+    (256, True, 0, 0, 0, 0.0, 64, 2),
+    (128, True, 128, 0, 0, 0.0, 64, 2),  # queries after a 128-key prefix shard
+    (256, True, 0, 0, 96, 0.0, 64, 2),  # sliding window
+    (256, True, 0, 0, 0, 30.0, 64, 2),  # softcap: the (1 - tanh^2) factor
+    (128, False, 0, 0, 0, 0.0, 64, 2),  # non-causal
+    (128, True, 0, 64, 0, 0.0, 64, 2),  # rows 0..63 see no key at all
+    # Gemma's head_dim of 256: a global layer over GQA groups of 2 and 4
+    (256, True, 0, 0, 0, 0.0, 256, 2),
+    (256, True, 0, 0, 0, 0.0, 256, 1),
+    # gemma-3's window of 1024: queries at 1100..1227 over keys 0..127,
+    # where the window's floor cuts through the tile
+    (128, True, 1100, 0, 1024, 0.0, 256, 2),
+    # gemma-2's softcap of 50, global and under the window
+    (256, True, 0, 0, 0, 50.0, 256, 2),
+    (128, True, 1100, 0, 1024, 50.0, 256, 1),
+    (128, True, 128, 64, 0, 0.0, 256, 2),  # a q and a kv offset
+    # gemma-3-1b's window of 512 over a GQA group of 4: queries at 600..727
+    (128, True, 600, 0, 512, 0.0, 256, 1),
 ]
-IDS = ["T128", "T256", "qoff128", "window96", "softcap30", "noncausal", "no_live_key"]
+IDS = [
+    "T128", "T256", "qoff128", "window96", "softcap30", "noncausal", "no_live_key",
+    "d256_group2", "d256_group4", "d256_window1024", "d256_softcap50",
+    "d256_window1024_softcap50_group4", "d256_qoff_kvoff", "d256_window512_group4",
+]
+ARGS = "t,causal,q_offset,kv_offset,window,softcap,d,hkv"
 
 
 def _rand(rng, *shape):
@@ -46,12 +66,12 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-def _inputs(t: int, seed: int = 0):
+def _inputs(t: int, seed: int = 0, d: int = 64, hkv: int = 2):
     rng = np.random.default_rng(seed)
-    q = _rand(rng, 1, 4, t, 64)
-    k = _rand(rng, 1, 2, t, 64)
-    v = _rand(rng, 1, 2, t, 64)
-    do = _rand(rng, 1, 4, t, 64)
+    q = _rand(rng, 1, 4, t, d)
+    k = _rand(rng, 1, hkv, t, d)
+    v = _rand(rng, 1, hkv, t, d)
+    do = _rand(rng, 1, 4, t, d)
     return q, k, v, do
 
 
@@ -63,10 +83,10 @@ def cuda():
 
 
 class TestFlashBackwardPlain:
-    @pytest.mark.parametrize("t,causal,q_offset,kv_offset,window,softcap", CASES, ids=IDS)
-    def test_matches_pallas_interpret(self, t, causal, q_offset, kv_offset, window, softcap):
-        q, k, v, do = _inputs(t)
-        scale = 64**-0.5
+    @pytest.mark.parametrize(ARGS, CASES, ids=IDS)
+    def test_matches_pallas_interpret(self, t, causal, q_offset, kv_offset, window, softcap, d, hkv):
+        q, k, v, do = _inputs(t, d=d, hkv=hkv)
+        scale = d**-0.5
         jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
         # one forward for both backwards: the test is of the backward alone
         jo, jlse = _flash_fwd(
@@ -101,9 +121,9 @@ class TestFlashBackwardPlain:
 
 
 class TestFlashAttentionFunction:
-    @pytest.mark.parametrize("t,causal,q_offset,kv_offset,window,softcap", CASES, ids=IDS)
-    def test_grads_match_jax_vjp(self, t, causal, q_offset, kv_offset, window, softcap):
-        q, k, v, do = _inputs(t, seed=2)
+    @pytest.mark.parametrize(ARGS, CASES, ids=IDS)
+    def test_grads_match_jax_vjp(self, t, causal, q_offset, kv_offset, window, softcap, d, hkv):
+        q, k, v, do = _inputs(t, seed=2, d=d, hkv=hkv)
         kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset, window=window, softcap=softcap)
         jo, vjp = jax.vjp(
             lambda a, b, c: jax_flash_attention(
@@ -119,11 +139,11 @@ class TestFlashAttentionFunction:
         for got, want in zip(tgrads, jgrads):
             np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
 
-    @pytest.mark.parametrize("t,causal,q_offset,kv_offset,window,softcap", CASES, ids=IDS)
+    @pytest.mark.parametrize(ARGS, CASES, ids=IDS)
     def test_grads_match_autograd_through_the_plain_forward(
-        self, t, causal, q_offset, kv_offset, window, softcap
+        self, t, causal, q_offset, kv_offset, window, softcap, d, hkv
     ):
-        q, k, v, do = _inputs(t, seed=3)
+        q, k, v, do = _inputs(t, seed=3, d=d, hkv=hkv)
         kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset, window=window, softcap=softcap)
         got_in = [_t(x).requires_grad_() for x in (q, k, v)]
         want_in = [_t(x).requires_grad_() for x in (q, k, v)]
@@ -159,6 +179,9 @@ def _assert_card_close(got, want):
     # each gradient on its own: a wrong descriptor shows in one of them
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2, msg=lambda m: f"{name}: {m}")
+        # and chip_smoke.py's tile rule: gradients are mostly about 2e-2 in size
+        rms = chip_smoke.tile_rel_rms(a, b)
+        assert rms <= chip_smoke.GRAD_RMS_TOL, f"{name}: a tile's relative RMS error {rms:.4g}"
 
 
 @pytest.mark.cuda
@@ -218,5 +241,53 @@ class TestBackwardKernelsOnTheCard:
         o, lse = tflash.flash_attention_with_lse(q, k, v)
         first = tflash.flash_bwd(q, k, v, o, lse, do)
         second = tflash.flash_bwd(q, k, v, o, lse, do)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+class TestHeadDim256OnTheCard:
+    """K2/K3's D = 256 forms (Gemma) vs flash_bwd_plain: K2 streams 32-key
+    tiles there and K3's consumers split the columns of one 64-key tile,
+    so the edges sit at 32 and 64 keys (atol = rtol = 2e-2, each gradient
+    on its own)."""
+
+    @pytest.mark.parametrize("t", [1, 31, 32, 33, 63, 64, 65, 127, 129, 1000])
+    def test_tile_edges(self, cuda, t):
+        _assert_card_close(*_card_case(cuda, 2, 8, 4, t, t, 256, seed=t))
+
+    @pytest.mark.parametrize("h,hkv", [(8, 8), (8, 4), (4, 1), (8, 1)],
+                             ids=["group1", "group2", "group4", "group8"])
+    def test_gqa_groups(self, cuda, h, hkv):
+        _assert_card_close(*_card_case(cuda, 2, h, hkv, 384, 384, 256, seed=h + hkv))
+
+    @pytest.mark.parametrize("h,hkv,window,softcap", [(8, 4, 1024, 0.0), (8, 4, 4096, 50.0), (8, 4, 0, 50.0),
+                                                      (4, 1, 512, 0.0)],
+                             ids=["gemma3_sliding", "gemma2_sliding", "gemma2_global", "gemma3_1b_sliding"])
+    def test_gemma_layers(self, cuda, h, hkv, window, softcap):
+        _assert_card_close(*_card_case(cuda, 2, h, hkv, 2048, 2048, 256, seed=7, window=window,
+                                       softcap=softcap))
+
+    def test_offsets_with_window(self, cuda):
+        # queries at positions 1100..1291 over keys at 64..1291, window 1024
+        got, want = _card_case(cuda, 2, 8, 4, 192, 1228, 256, seed=8, q_offset=1100, kv_offset=64,
+                               window=1024)
+        _assert_card_close(got, want)
+
+    def test_no_live_key(self, cuda):
+        got, want = _card_case(cuda, 2, 8, 4, 128, 128, 256, seed=9, kv_offset=64, softcap=50.0)
+        _assert_card_close(got, want)
+        dq, dk, dv = got
+        assert not dq[:, :, :64].any()
+        assert not dk[:, :, 64:].any() and not dv[:, :, 64:].any()
+
+    def test_two_launches_are_bit_identical(self, cuda):
+        g = torch.Generator(device=cuda).manual_seed(10)
+        q, do = (torch.randn(2, 8, 1000, 256, generator=g, device=cuda).bfloat16() for _ in range(2))
+        k, v = (torch.randn(2, 4, 1000, 256, generator=g, device=cuda).bfloat16() for _ in range(2))
+        kw = dict(window=512, softcap=50.0)
+        o, lse = tflash.flash_attention_with_lse(q, k, v, **kw)
+        first = tflash.flash_bwd(q, k, v, o, lse, do, **kw)
+        second = tflash.flash_bwd(q, k, v, o, lse, do, **kw)
         for a, b in zip(first, second):
             assert torch.equal(a, b)

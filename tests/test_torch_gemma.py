@@ -234,11 +234,6 @@ class TestParams:
             if path[-1].key.endswith("norm"):  # the offset norms 0, the q/k norms 1
                 np.testing.assert_array_equal(node.float().numpy(), leaf)
 
-    def test_the_training_forward_refuses_gemma(self, setup):
-        _, tc, _, tp = setup
-        with pytest.raises(NotImplementedError, match="Gemma training"):
-            tllama.forward(tp, torch.zeros(1, 4, dtype=torch.long), tc)
-
 
 # ---------------------------------------------------------------------------
 # the engine's step functions and the engines

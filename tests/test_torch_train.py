@@ -431,11 +431,18 @@ class TestFinetuneMain:
         [
             ["--tp", "2"], ["--fsdp", "4"], ["--seq-parallel", "ring"], ["--opt-bits", "8"],
             ["--ckpt-dir", "x"], ["--resume"], ["--eval-data", "x.npy"], ["--export-hf", "x"],
-            ["--hf-model", "x"], ["--profile-dir", "x"], ["--batch", "3", "--grad-accum", "2"],
+            ["--data-tokenizer", "x"], ["--profile-dir", "x"], ["--batch", "3", "--grad-accum", "2"],
         ],
     )
     def test_flags_without_a_counterpart_exit_non_zero(self, extra, capsys):
+        # (--hf-model has its counterpart: tests/test_torch_convert_hf.py)
         with pytest.raises(SystemExit) as e:
             finetune.main(["--device", "cpu", "--model", "llama-tiny"] + extra)
         assert e.value.code != 0
         assert "not ported yet" in capsys.readouterr().err or "--grad-accum" in " ".join(extra)
+
+    def test_gpt_oss_is_refused_before_its_weights_are_made(self, capsys):
+        with pytest.raises(SystemExit) as e:
+            finetune.main(["--device", "cpu", "--model", "gpt-oss-20b"])
+        assert e.value.code != 0
+        assert "A5.7" in capsys.readouterr().err
