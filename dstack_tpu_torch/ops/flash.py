@@ -37,6 +37,13 @@ flash.py:688) they take Gemma's D = 256: K2 streams 32-key tiles there,
 and K3's two consumers split dK's and dV's columns over one 64-key tile
 (see the sources).
 
+K1's absorbed-MLA form (head width 576: DeepSeek's latent row
+``[ckv ; k_pe]``, ``_prefill_chunk_mla`` at dstack_tpu/serve/engine.py:482)
+is its own source, ``csrc/flash_fwd_mla.cu``: the wgmma/TMA shape of
+``flash_fwd.cu`` does not carry a 576-wide row (see the source).
+:func:`flash_attention_with_lse` launches it for D = 576, without a
+window or a softcap; K2 and K3 refuse D = 576 (MLA training is later).
+
 Each wrapper takes the plain version only for tensors on the CPU (the
 CPU tests); for a CUDA tensor it launches the kernel or raises.
 :class:`FlashAttention` is the counterpart of the custom VJP ``_flash``
@@ -52,10 +59,12 @@ from dstack_tpu_torch.ops import cuda_build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)  # the compiled head widths of K1, K2 and K3 (256: Gemma)
+MLA_HEAD_DIM = 576  # K1's absorbed-MLA form (csrc/flash_fwd_mla.cu): DeepSeek's 512 + 64
 
 # kernel launches since each count was last set to 0 (the plain versions
 # never count): chip_smoke.py reads them to prove a path ran the kernels
 LAUNCHES = 0  # K1 flash_fwd
+LAUNCHES_MLA = 0  # K1's D = 576 form, flash_fwd_mla
 LAUNCHES_DQ = 0  # K2 flash_bwd_dq
 LAUNCHES_DKV = 0  # K3 flash_bwd_dkv
 
@@ -153,7 +162,7 @@ def sink_postscale(o: torch.Tensor, lse: torch.Tensor, sinks: torch.Tensor) -> t
     return (o.float() * gate).to(o.dtype)
 
 
-def _check_kernel_args(q, k, v, **like_q) -> None:
+def _check_kernel_args(q, k, v, head_dims=HEAD_DIMS, **like_q) -> None:
     """Shapes, device, dtype, layout and alignment the kernels take;
     ``like_q`` names more bf16 tensors shaped like q (dO)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -161,8 +170,8 @@ def _check_kernel_args(q, k, v, **like_q) -> None:
     b, h, _, d = q.shape
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[1]:
         raise ValueError(f"flash: mismatched q {tuple(q.shape)} and k/v {tuple(k.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash: head_dim {d} not in the kernel's {HEAD_DIMS}")
+    if d not in head_dims:
+        raise ValueError(f"flash: head_dim {d} not in the kernel's {head_dims}")
     for name, t in like_q.items():
         if t.shape != q.shape:
             raise ValueError(f"flash: {name} {tuple(t.shape)} is not shaped like q {tuple(q.shape)}")
@@ -193,7 +202,9 @@ def flash_attention_with_lse(
     (``H % Hkv == 0``); ``q_offset``/``kv_offset`` place row/column 0 at
     global positions for the causal mask (``q_offset=start`` for a
     prefill chunk over the whole cache row); ``window`` keeps key j for
-    query i iff ``0 <= i - j < window``; ``softcap`` caps raw scores."""
+    query i iff ``0 <= i - j < window``; ``softcap`` caps raw scores.
+    At D = 576 (MLA) the kernel is ``csrc/flash_fwd_mla.cu``, which takes
+    neither a window nor a softcap."""
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, scale=scale, q_offset=q_offset,
@@ -201,19 +212,25 @@ def flash_attention_with_lse(
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash: no kernel for device {q.device}")
-    _check_kernel_args(q, k, v)
+    mla = q.shape[-1] == MLA_HEAD_DIM
+    _check_kernel_args(q, k, v, head_dims=HEAD_DIMS + (MLA_HEAD_DIM,))
+    if mla and (window or softcap):
+        raise ValueError(f"flash: the D = {MLA_HEAD_DIM} form takes no window or softcap")
     b, h, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
     scale = float(scale) if scale is not None else d**-0.5
     o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    err = _fn("flash_fwd", "dtpu_flash_fwd", 5)(
+    source = "flash_fwd_mla" if mla else "flash_fwd"
+    err = _fn(source, f"dtpu_{source}", 5)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         *_shape_args(q, k, scale, causal, q_offset, kv_offset, window, softcap),
     )
-    cuda_build.check(err, "flash_fwd")
-    global LAUNCHES
-    LAUNCHES += 1
+    cuda_build.check(err, source)
+    global LAUNCHES, LAUNCHES_MLA
+    if mla:
+        LAUNCHES_MLA += 1
+    else:
+        LAUNCHES += 1
     return o, lse
 
 

@@ -256,11 +256,14 @@ def flash_decode(
 
 def flash_decode_supported(config, max_seq: int) -> bool:
     """Whether the engine may route decode attention through the kernel
-    for this model: a compiled head width and whole GQA groups (the
-    port's configs have no MLA or chunked attention). Any number of query rows a KV head and
-    any ``max_seq`` work (the kernel masks a ragged last tile)."""
+    for this model: not MLA (its decode attends over the latent row, with
+    no K4 form in either package), a compiled head width and whole GQA
+    groups (the port's configs have no chunked attention). Any number of
+    query rows a KV head and any ``max_seq`` work (the kernel masks a
+    ragged last tile)."""
     return (
-        config.head_dim in HEAD_DIMS
+        not config.mla
+        and config.head_dim in HEAD_DIMS
         and config.n_heads % config.n_kv_heads == 0
         and max_seq > 0
     )

@@ -341,6 +341,7 @@ def build_app(engine: InferenceEngine, tokenizer, model_name: str) -> web.Applic
             "stats": dict(e.stats),
             "kernel_launches": {
                 "flash_fwd": flash.LAUNCHES,
+                "flash_fwd_mla": flash.LAUNCHES_MLA,
                 "flash_decode": flash_decode.LAUNCHES,
             },
             "flash_decode_launches": dict(flash_decode.LAUNCHES_BY_VARIANT),
