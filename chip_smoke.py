@@ -12,8 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    hand-written kernels from ``dstack_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the build time; read every compiled
    form's registers and spill bytes from its ``-Xptxas -v`` log (all five
-   sources): a spill fails the run, and so does a head width of K2 or K3
-   (64, 128, 256), or K1's D = 576 form, with no compiled form.
+   sources): a spill fails the run, and so does a head width of K1, K2 or
+   K3 (64, 128, 192, 256), or K1's D = 576 form, with no compiled form.
 2. Kernel phase: each kernel against its plain PyTorch version on the
    card in bf16, within atol = rtol = 2e-2: flash prefill (K1) at the
    serving shapes (C = 16 and 256 with q_offset 0 and 512); ragged flash
@@ -64,14 +64,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    and [4,4,2048,256] over [4,1,2048,256] (gemma-3-1b, windows 512 and
    0), each kernel beside the library's call of the same function (SDPA
    on a global layer without a softcap, else the compiled
-   ``flex_attention``). Every K2/K3 gradient, at D = 64 and 256, is also
-   held tile by tile (32 rows of one batch row and head) within 1e-2
-   relative RMS error (``grad_close``). Last, K1's absorbed-MLA form (D =
+   ``flex_attention``). Every K2/K3 gradient, at D = 64, 192 and 256, and
+   K1's o at D = 192 and 256, is also held tile by tile (32 rows of one
+   batch row and head) within 1e-2 relative RMS error (``grad_close``). Last, K1's absorbed-MLA form (D =
    576, ``csrc/flash_fwd_mla.cu``) at deepseek-v2-lite's chunk: q
    [1,16,256,576] over one KV head [1,1,2048,576] whose last 64 value
    columns are zero, at q_offsets 512, 0 and 1792, o held by both rules,
    reruns bit-identical, timed beside SDPA with the offset-causal mask
-   and K/V expanded to 16 heads (the backend SDPA takes is named).
+   and K/V expanded to 16 heads (the backend SDPA takes is named). Then
+   K1, K2 and K3 at MLA's training width (D = 192: deepseek-v2-lite's q/k
+   heads of 128 + 64, v padded from 128), 16 heads, causal, scale
+   192^-0.5: q/k/v/dO [4,16,2048,192] and the training run's micro-batch
+   [8,16,2048,192] (v's and dO's padded columns zero, as training gives
+   them), o, lse, dq, dk and dv held by both rules, reruns bit-identical,
+   timed beside the bounds, the plain versions (at B = 4) and SDPA's
+   ``is_causal`` forward and backward (the backend named).
 3. Path phase: start ``python -m dstack_tpu_torch.serve.openai_server
    --decode-kernel flash`` with no ``--device`` flag (the server runs on
    ``cuda`` by default, which ``/health`` must show; full width and depth, random
@@ -131,18 +138,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    median step time, tokens/s, MFU and peak memory are printed.
    Then one more full fine-tune step in this process, traced with
    torch.profiler: device time by kernel family and the device's busy
-   share of the step.
+   share of the step. Then deepseek-v2-lite fully fine-tuned in this
+   process through ``init_train_state`` and ``make_train_step``
+   (``deepseek_train_phase``): full width, 4 layers (the dense prelude and
+   3 MoE layers), batch 8 x 2048 in one micro-batch, 6 steps; MLA's
+   non-absorbed attention runs K1-K3 at D = 192, the loss carries the
+   router aux loss; the counts set to 0 before the steps and read after
+   (K1 2 x 4, K2 and K3 4 a micro-batch), finite losses, the first CE
+   within 1.0 of ln(vocab); step seconds (the median after the first),
+   tokens/s, MFU on the active parameters, peak memory, CE and aux.
 5. Gradient-parity phase: the full fine-tune loss (random weights from
    seed 0, one batch of 1 x 2048 tokens) of llama-3.2-1b at full width
-   and depth, and of gemma-3-4b and gemma-3-1b at 6 layers and gemma-2-2b
-   at 4 (full width, norms at identity), differentiated on three paths
-   (kernels in bf16, plain in bf16, plain in f32): for every parameter
-   leaf the kernel path's relative RMS gradient error against f32 may be
-   at most 1.5 times the plain bf16 path's; the two bf16 losses agree
-   within 2e-2, and each lies within the model's limit of the f32 loss
-   (``GRAD_PARITY``: 2e-3, gemma-3-4b 6e-2).
+   and depth, of gemma-3-4b and gemma-3-1b at 6 layers and gemma-2-2b at
+   4 (full width, norms at identity), and of deepseek-v2-lite at full
+   width and 4 layers (routing pinned to the f32 path's choices),
+   differentiated on three paths (kernels in bf16, plain in bf16, plain
+   in f32): for every parameter leaf the kernel path's relative RMS
+   gradient error against f32 may be at most 1.5 times the plain bf16
+   path's; the two bf16 losses agree within 2e-2, and each lies within
+   the model's limit of the f32 loss (``GRAD_PARITY``: 2e-3, gemma-3-4b
+   6e-2, deepseek-v2-lite 1e-2).
 6. Print the ``kernels`` JSON line (K1 at the llama, the gpt-oss, the
-   Gemma and the MLA shape, K2 and K3 at head_dim 64 and 256, K4 as one row per
+   Gemma, the MLA serving and the MLA training shape, K2 and K3 at
+   head_dim 64, 192 and 256, K4 as one row per
    form, eight at head_dim 64 and four at 256, each with its launches on
    every path of its models; a form launched on no path fails the run;
    every row carries its kernel's ptxas report, K1 its training- and
@@ -206,6 +224,17 @@ DEEPSEEK = "deepseek-v2-lite"  # MLA: K1's D = 576 form on every serial prefill 
 # depth of the in-process DeepSeek comparison: the dense prelude layer and
 # 3 MoE layers (an f32 copy of all 27 would not fit the card beside bf16's)
 DEEPSEEK_TF_LAYERS = 4
+# the DeepSeek full fine-tune in this process, at full width and this
+# depth (the dense prelude and 3 MoE layers: the whole model's weights,
+# gradients and moments, 126 GB, do not fit one card; full depth waits for
+# fsdp): batch 8 x 2048 in this many micro-batches, for this many steps
+# (the first one's start-up left out of the median)
+DEEPSEEK_TRAIN_LAYERS = 4
+DEEPSEEK_TRAIN = (1, 6)  # (--grad-accum, steps)
+# K1-K3 at MLA's training width: B, H, Hkv, T, D (deepseek-v2-lite's 16
+# heads, MHA; q/k heads of 128 + 64, v padded from 128); the causal FLOPs
+# of [4,16,2048,192]
+MLA_TRAIN_SHAPE = (4, 16, 16, 2048, 192)
 # std of the seeded values drawn over init_params' zero sinks and biases
 # in the gpt-oss comparison (JAX's init leaves them 0, which hides them)
 GPT_OSS_NONZERO = {
@@ -236,8 +265,10 @@ BWD_D256_SHAPE = (4, 8, 4, 2048, 256)
 # from the f32 loss: a few times what sound runs read). gemma-3's first
 # global layer is its sixth. On an NVIDIA H100 80GB HBM3 at 700 W the bf16
 # losses sat 4e-4 (llama), 5e-4 (gemma-2-2b) and 4e-5 (gemma-3-1b) from
-# f32's, and gemma-3-4b's 0.020
-GRAD_PARITY = {MODEL: (None, 2e-3), GEMMA3: (6, 6e-2), GEMMA2: (4, 2e-3), GEMMA3_1B: (6, 2e-3)}
+# f32's, gemma-3-4b's 0.020, and deepseek-v2-lite's 1.2e-4 (kernel) and
+# 3e-5 (plain)
+GRAD_PARITY = {MODEL: (None, 2e-3), GEMMA3: (6, 6e-2), GEMMA2: (4, 2e-3), GEMMA3_1B: (6, 2e-3),
+               DEEPSEEK: (DEEPSEEK_TF_LAYERS, 2e-3)}
 SPEC_ROWS = 5  # rows a query head verifies: the server's --spec-draft 4, plus one
 # the server runs (mode → model, flags): the serial path of the first
 # slice, the JAX server's default engine on the bf16 and on the int8
@@ -769,15 +800,17 @@ def _flex_bwd(q, k, v, do, window: int, scale: float, cap: float, want: tuple):
     return lambda: torch.autograd.grad(fo, (qs, ks, vs), do, retain_graph=True)
 
 
-def d256_check(q, k, v, do, kw: dict, what: str) -> dict:
-    """K1, K2 and K3 at one D = 256 form against their plain versions: o
-    and lse within TOL; dq, dk and dv each by :func:`grad_close`; two
-    launches of K2 and K3 bit-identical. → the forward's o, lse and delta,
-    the plain gradients and the errors."""
+def fwd_bwd_check(q, k, v, do, kw: dict, what: str) -> dict:
+    """K1, K2 and K3 at one form against their plain versions: o by
+    :func:`grad_close` (its worst tile under "flash_fwd_tiles") and lse
+    within TOL; dq, dk and dv each by :func:`grad_close`; two launches of
+    K2 and K3 bit-identical. → the forward's o, lse and delta, the plain
+    gradients and the errors."""
     o, lse = flash.flash_attention_with_lse(q, k, v, **kw)
     po, plse = flash.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
-    fwd_err = max(assert_close(o, po, f"flash_fwd {what}"), assert_close(lse, plse, f"flash_fwd lse {what}"))
+    o_err, o_rms = grad_close(o, po, f"flash_fwd {what}")
+    fwd_err = max(o_err, assert_close(lse, plse, f"flash_fwd lse {what}"))
     del po, plse
     delta = flash.bwd_delta(o, do)
 
@@ -792,7 +825,7 @@ def d256_check(q, k, v, do, kw: dict, what: str) -> dict:
     if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
         raise AssertionError(f"K2/K3 {what}: two launches differ")
     return {
-        "o": o, "lse": lse, "delta": delta, "want": want, "flash_fwd": fwd_err,
+        "o": o, "lse": lse, "delta": delta, "want": want, "flash_fwd": fwd_err, "flash_fwd_tiles": o_rms,
         "flash_bwd_dq": checks[0], "flash_bwd_dkv": tuple(map(max, zip(*checks[1:]))),
     }
 
@@ -802,7 +835,7 @@ def gemma_backward_kernel_phase() -> dict:
     [4,8,2048,256] over k/v [4,4,2048,256], causal (the FLOPs of the D =
     64 rows), on gemma-3-4b's sliding layer (window 1024, the reported
     row), its global layer and gemma-2-2b's (window 4096, softcap 50):
-    each form held to the plain versions (:func:`d256_check`), then each
+    each form held to the plain versions (:func:`fwd_bwd_check`), then each
     kernel timed beside its bound, the plain version (dq, dk, dv together)
     and the library's backward (dq, dk, dv together): SDPA's ``is_causal``
     for the global layer, the compiled ``flex_attention`` in the window
@@ -822,7 +855,7 @@ def gemma_backward_kernel_phase() -> dict:
                                       ("softcap", c2, c2.sliding_window, c2.attn_softcap)):
         kw = dict(scale=cfg.attention_scale, window=window, softcap=softcap)
         what = f"d256 {key} window={window} softcap={softcap}"
-        r = d256_check(q, k, v, do, kw, what)
+        r = fwd_bwd_check(q, k, v, do, kw, what)
         o, lse, delta = r["o"], r["lse"], r["delta"]
         bounds = _bwd_bounds(q, k, lse, window)
         plain_ms = time_ms(lambda: flash.flash_bwd_plain(q, k, v, o, lse, do, **kw), iters=10)
@@ -848,6 +881,7 @@ def gemma_backward_kernel_phase() -> dict:
             gemm = 2 * b * h * live_pairs(t, True, window) * d
             b_ms, b_by = bound_ms(2 * q.numel() * 2 + 2 * k.numel() * 2 + lse.numel() * 4, 2 * gemm)
             fwd = {"ms": time_ms(lambda: flash.flash_attention_with_lse(q, k, v, **kw)),
+                   "plain_ms": time_ms(lambda: flash.flash_attention_plain(q, k, v, **kw), iters=10),
                    "library_ms": _flex_fwd_ms(q, k, v, window, kw["scale"], 0.0, o),
                    "library_note": FLEX_WINDOW_FWD_NOTE,
                    "bound_ms": b_ms, "bound_by": b_by, "shape": list(BWD_D256_SHAPE), "window": window,
@@ -878,7 +912,7 @@ def gemma_backward_kernel_phase() -> dict:
         for window in sorted(set(llama.layer_windows(c)), reverse=True):
             kw = dict(scale=c.attention_scale, window=window, softcap=c.attn_softcap)
             key = f"{run}_w{window}"
-            r = d256_check(q, k, v, do, kw, f"d256 {key} [{b},{h},{hkv}] softcap={c.attn_softcap}")
+            r = fwd_bwd_check(q, k, v, do, kw, f"d256 {key} [{b},{h},{hkv}] softcap={c.attn_softcap}")
             lse, delta = r["lse"], r["delta"]
             gemm = 2 * b * h * live_pairs(t, True, window) * d
             bounds = {"flash_fwd": bound_ms(2 * q.numel() * 2 + 2 * k.numel() * 2 + lse.numel() * 4, 2 * gemm),
@@ -926,11 +960,11 @@ def gemma_backward_kernel_phase() -> dict:
     return rows
 
 
-def _sdpa_backend(q, k, v, mask, scale: float) -> str:
+def _sdpa_backend(q, k, v, mask, scale: float, causal: bool = False) -> str:
     """The backend ``scaled_dot_product_attention`` picks for these
     inputs (its flash path stops at D = 256)."""
     try:
-        choice = torch._fused_sdp_choice(q, k, v, mask, 0.0, False, scale=scale)
+        choice = torch._fused_sdp_choice(q, k, v, mask, 0.0, causal, scale=scale)
     except Exception as e:  # noqa: BLE001 - a private helper: name what went wrong
         return f"unknown ({type(e).__name__}: {e})"
     try:
@@ -1009,10 +1043,76 @@ def mla_kernel_phase() -> dict:
     return {"flash_fwd_d576": row}
 
 
+def mla_train_kernel_phase() -> dict:
+    """K1, K2 and K3 at MLA's training width (D = 192: deepseek-v2-lite's
+    q/k heads of 128 + 64, v padded from 128 to 192), 16 heads (MHA),
+    causal, scale 192^-0.5. First q/k/v/dO [4,16,2048,192], random: o,
+    lse, dq, dk and dv held to the plain versions by both rules
+    (:func:`fwd_bwd_check`: element-wise and tile by tile),
+    reruns bit-identical, each kernel timed beside its bound, the plain
+    version and SDPA's ``is_causal`` forward, or its backward (dq, dk, dv
+    together), naming the backend SDPA takes. Then the same at the
+    DeepSeek training run's micro-batch [8,16,2048,192], with v's and dO's
+    last 64 columns zero as the training path gives them (o's and dv's
+    come out zero there), timed beside the bounds and SDPA."""
+    c = llama.CONFIGS[DEEPSEEK]
+    b, h, hkv, t, d = MLA_TRAIN_SHAPE
+    kw = dict(scale=c.attention_scale)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rows = {}
+    for key, batch in (("main", b), ("trainer", BWD_TRAIN_BATCH // DEEPSEEK_TRAIN[0])):
+        q, do = (torch.randn(batch, h, t, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+        k, v = (torch.randn(batch, hkv, t, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+        if key == "trainer":
+            v[..., c.v_head_dim:] = 0
+            do[..., c.v_head_dim:] = 0
+        shape = [batch, h, hkv, t, d]
+        r = fwd_bwd_check(q, k, v, do, kw, f"d192 {shape}")
+        o, lse, delta = r["o"], r["lse"], r["delta"]
+        if key == "trainer" and (o[..., c.v_head_dim:].any() or r["want"][2][..., c.v_head_dim:].any()):
+            raise AssertionError("d192: the zero value columns gave nonzero o or dv")
+        gemm = 2 * batch * h * live_pairs(t, True, 0) * d
+        bounds = {"flash_fwd": bound_ms(2 * q.numel() * 2 + 2 * k.numel() * 2 + lse.numel() * 4, 2 * gemm),
+                  **_bwd_bounds(q, k, lse)}
+        backend = _sdpa_backend(q, k, v, None, kw["scale"], causal=True)
+        library = {
+            "flash_fwd": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=kw["scale"])),
+            "bwd": _sdpa_bwd_ms(q, k, v, do),  # SDPA's default scale is 192^-0.5 too
+        }
+        plain = {}
+        if key == "main":  # the trainer's batch doubles the plain version's [B, H, T, T] f32 tensors
+            plain = {"flash_fwd": time_ms(lambda: flash.flash_attention_plain(q, k, v, **kw), iters=10),
+                     "bwd": time_ms(lambda: flash.flash_bwd_plain(q, k, v, o, lse, do, **kw), iters=10)}
+        for name, fn in (
+            ("flash_fwd", lambda: flash.flash_attention_with_lse(q, k, v, **kw)),
+            ("flash_bwd_dq", lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw)),
+            ("flash_bwd_dkv", lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)),
+        ):
+            fwd = name == "flash_fwd"
+            row = {"shape": shape, "ms": time_ms(fn), "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                   "library_ms": library[name if fwd else "bwd"],
+                   "library_note": f"SDPA, is_causal, backend {backend}; "
+                                   + ("forward" if fwd else "backward: dq, dk, dv together"),
+                   "max_abs_err": r[name] if fwd else r[name][0],
+                   "tile_rel_rms": r["flash_fwd_tiles"] if fwd else r[name][1]}
+            if key == "main":
+                row["plain_ms"] = plain[name if fwd else "bwd"]
+                rows[f"{name}_d192"] = row
+            else:
+                rows[f"{name}_d192"]["trainer_shape"] = row
+            log(f"kernel {name} d192 q/dO [{batch},{h},{t},{d}] k/v [{batch},{hkv},{t},{d}] causal"
+                f"{' (the training micro-batch, v and dO zero-padded)' if key == 'trainer' else ''}: "
+                + json.dumps(row))
+        del q, k, v, do, r, o, lse, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
 def ptxas_gate() -> dict:
     """Each kernel's registers and spills, every compiled form, from
-    ptxas: a spill fails the run, and so does a missing head width of K2
-    or K3 (their D = 256 forms came last). The softcap is a branch inside
+    ptxas: a spill fails the run, and so does a missing head width of K1,
+    K2 or K3 (64, 128, 192, 256). The softcap is a branch inside
     each compiled form, so one report covers both paths."""
     ptxas = {}
     for name in cuda_build.KERNEL_SOURCES:
@@ -1021,8 +1121,9 @@ def ptxas_gate() -> dict:
         spilled = {f: r for f, r in ptxas[name].items() if r["spill_stores"] or r["spill_loads"]}
         if spilled:
             raise AssertionError(f"{name} spills registers: {spilled}")
-        if name in ("flash_bwd_dq", "flash_bwd_dkv"):
-            missing = [d for d in flash.HEAD_DIMS if f"{name}_kernel<{d}>" not in ptxas[name]]
+        if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            missing = [d for d in flash.HEAD_DIMS
+                       if not any(f.startswith(f"{name}_kernel<{d}") for f in ptxas[name])]
             if missing:
                 raise AssertionError(f"{name}: no compiled form for head_dim {missing}: {ptxas[name]}")
         if name == "flash_fwd_mla" and f"{name}_kernel<{flash.MLA_HEAD_DIM}>" not in ptxas[name]:
@@ -1412,6 +1513,7 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {"flash_fwd": flash.LAUNCHES, "flash_fwd_mla": flash.LAUNCHES_MLA,
+            "flash_bwd_dq": flash.LAUNCHES_DQ, "flash_bwd_dkv": flash.LAUNCHES_DKV,
             "flash_decode": flash_decode.LAUNCHES, **flash_decode.LAUNCHES_BY_VARIANT}
 
 
@@ -1694,6 +1796,78 @@ def train_profile_phase() -> dict:
     return report
 
 
+def deepseek_train_phase() -> dict:
+    """deepseek-v2-lite fully fine-tuned in this process through
+    ``init_train_state`` and ``make_train_step``: full width,
+    DEEPSEEK_TRAIN_LAYERS layers (the dense prelude, then MoE layers),
+    random weights from seed 0, bf16, batch 8 x 2048 of random tokens in
+    DEEPSEEK_TRAIN's micro-batches, for its steps. Every attention call is
+    MLA's non-absorbed form at D = 192 (v padded from 128). The launch
+    counts are set to 0 just before the steps and read just after: per
+    micro-batch K1 2 x n_layers times (forward and the remat recompute), K2
+    and K3 n_layers times, and no other kernel. The first CE lies within 1.0
+    of ln(vocab) and every loss is finite. → step seconds (the median of
+    the steps after the first, which carries the start-up), tokens/s, MFU
+    on the active parameters (``flops_per_token``), peak memory, losses,
+    launches, and one more step traced (``profile_step``: device time by
+    kernel family, the device's busy share)."""
+    accum, steps = DEEPSEEK_TRAIN
+    c = dataclasses.replace(llama.CONFIGS[DEEPSEEK], n_layers=DEEPSEEK_TRAIN_LAYERS)
+    opt = train_step.default_optimizer(lr=2e-4, decay_steps=steps)
+    t0 = time.perf_counter()
+    state = train_step.init_train_state(c, opt, seed=0, device="cuda")
+    step = train_step.make_train_step(c, opt, grad_accum=accum)
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(4)
+    tokens_per_step = BWD_TRAIN_BATCH * 2048
+
+    def batch() -> dict:
+        tok = torch.randint(0, c.vocab_size, (BWD_TRAIN_BATCH, 2048), generator=g, device="cuda")
+        mask = torch.ones_like(tok)
+        mask[:, -1] = 0  # the roll wraps the last target
+        return {"tokens": tok, "targets": torch.roll(tok, -1, dims=1), "mask": mask}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ce, aux, times = [], [], []
+    reset_counts()
+    for _ in range(steps):
+        data = batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, data)
+        ce.append(float(m["loss"]))  # waits for the step
+        aux.append(float(m["aux_loss"]))
+        times.append(time.perf_counter() - t0)
+    launches = read_counts()
+    med = sorted(times[1:])[len(times[1:]) // 2]
+    tps = tokens_per_step / med
+    report = {
+        "model": DEEPSEEK, "layers": c.n_layers, "batch": [BWD_TRAIN_BATCH, 2048], "grad_accum": accum,
+        "steps": steps, "init_s": init_s, "first_step_s": times[0], "median_step_s": med, "step_s": times,
+        "tokens_per_s": tps, "mfu": train_step.flops_per_token(c, 2048) * tps / PEAK_BF16_FLOPS,
+        "mfu_peak": "H100 SXM dense bf16 peak, 989 TFLOP/s", "active_params": c.num_active_params(),
+        "params": c.num_params(), "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "ce": ce, "aux_loss": aux, "launches": launches,
+    }
+    log(f"{DEEPSEEK} full fine-tune ({c.n_layers} layers, batch {BWD_TRAIN_BATCH} x 2048, --grad-accum {accum}): "
+        + json.dumps(report))
+    ln_v = math.log(c.vocab_size)
+    if not all(math.isfinite(x) for x in ce + aux) or abs(ce[0] - ln_v) > 1.0:
+        raise AssertionError(f"deepseek training: losses CE {ce}, aux {aux} vs ln V = {ln_v:.3f}")
+    micro = steps * accum
+    want = {"flash_fwd": 2 * c.n_layers * micro, "flash_bwd_dq": c.n_layers * micro,
+            "flash_bwd_dkv": c.n_layers * micro}
+    if {k: n for k, n in launches.items() if n} != want:
+        raise AssertionError(f"deepseek training: launches {launches} != {want}")
+    report["profile"] = profile_step(lambda: step(state, batch()))
+    log(f"{DEEPSEEK} train step profile ({c.n_layers} layers, batch {BWD_TRAIN_BATCH} x 2048): "
+        + json.dumps(report["profile"]))
+    del state, step
+    torch.cuda.empty_cache()
+    return report
+
+
 def decode_profile_phase(name: str, c, params) -> dict:
     """One ``decode_step`` of model ``name`` at the server's batch (8
     slots, the bf16 cache, positions 300-1700; on gpt-oss K4's sinks form,
@@ -1736,15 +1910,23 @@ def grad_parity_phase(name: str = MODEL) -> dict:
     whole; gemma-3-4b and gemma-3-1b at 6 layers (5 sliding, then their
     first global one; gemma-3-1b's GQA group of 4 and window of 512) and
     gemma-2-2b at 4 (2 sliding, 2 global: softcap 50 and the logit cap 30
-    in the loss), full width, norms at identity (``gemma_tf_params``).
-    The two bf16 losses agree within TOL, and each lies within the
-    model's GRAD_PARITY limit of the f32 loss."""
+    in the loss), full width, norms at identity (``gemma_tf_params``);
+    deepseek-v2-lite at full width and 4 layers (``deepseek_tf_params``:
+    MLA at D = 192, the MoE and its router aux loss in the loss), every
+    path routing with the f32 path's expert choices (``PinnedRouting``)
+    and without remat (under remat the backward's recompute calls the
+    router again, in reverse layer order). The two bf16 losses agree
+    within TOL, and each lies within the model's GRAD_PARITY limit of the
+    f32 loss."""
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 path in full f32
     torch.backends.cudnn.allow_tf32 = False
     n_layers, loss_tol = GRAD_PARITY[name]
     if name == MODEL:
         c = llama.CONFIGS[name]
         params = llama.init_params(c, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    elif name == DEEPSEEK:
+        c, params = deepseek_tf_params()
+        c = dataclasses.replace(c, remat=False)
     else:
         c, params = gemma_tf_params(name, n_layers)
     c32 = dataclasses.replace(c, dtype=torch.float32)
@@ -1754,11 +1936,16 @@ def grad_parity_phase(name: str = MODEL) -> dict:
     mask = torch.ones_like(tokens)
     mask[:, -1] = 0
     batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1), "mask": mask}
-    paths = {"kernel": (params, c, None), "plain": (params, c, "plain"), "f32": (params32, c32, "plain")}
+    # f32 first: on a MoE model it routes, and the bf16 paths take its choices
+    paths = {"f32": (params32, c32, "plain"), "kernel": (params, c, None), "plain": (params, c, "plain")}
     loss, grads = {}, {}
-    for path, (p, cfg, impl) in paths.items():
-        loss[path], grads[path] = train_step.value_and_grad(train_step.full_loss, p, batch, cfg, impl)
-        loss[path] = float(loss[path])
+
+    def run(path, spec):
+        p, cfg, impl = spec
+        value, grads[path] = train_step.value_and_grad(train_step.full_loss, p, batch, cfg, impl)
+        loss[path] = float(value)
+
+    PinnedRouting(moe.router).run(paths, run)
     if (abs(loss["kernel"] - loss["plain"]) > TOL
             or any(abs(loss[a] - loss["f32"]) > loss_tol for a in ("kernel", "plain"))):
         raise AssertionError(f"gradient parity {name}: losses disagree beyond {TOL} "
@@ -1767,12 +1954,23 @@ def grad_parity_phase(name: str = MODEL) -> dict:
     def rel_rms(a, ref):
         return ((a.float() - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
 
+    def flat(tree, prefix=""):  # "layers/wq" → leaf; every stack's leaves
+        out = {}
+        for key in sorted(tree):
+            out.update(flat(tree[key], f"{prefix}{key}/") if isinstance(tree[key], dict)
+                       else {prefix + key: tree[key]})
+        return out
+
     leaves = {}
-    names = ["embed", "final_norm"] + [f"layers/{n}" for n in sorted(params["layers"])]
-    for leaf in names:
-        pick = (lambda tr: tr["layers"][leaf[7:]]) if leaf.startswith("layers/") else (lambda tr: tr[leaf])
-        ref = pick(grads["f32"])
-        k_err, p_err = rel_rms(pick(grads["kernel"]), ref), rel_rms(pick(grads["plain"]), ref)
+    by_path = {path: flat(g) for path, g in grads.items()}
+    for leaf, ref in by_path["f32"].items():
+        if not ref.any():  # a leaf the loss does not reach (a selection bias): zero on every path
+            if by_path["kernel"][leaf].any() or by_path["plain"][leaf].any():
+                raise AssertionError(f"gradient parity {name}: {leaf} is zero on the f32 path only")
+            leaves[leaf] = {"kernel": 0.0, "plain": 0.0}
+            continue
+        k_err = rel_rms(by_path["kernel"][leaf], ref)
+        p_err = rel_rms(by_path["plain"][leaf], ref)
         leaves[leaf] = {"kernel": k_err, "plain": p_err}
         if not k_err <= KERNEL_RMS_MARGIN * p_err:
             raise AssertionError(f"gradient parity {name}: {leaf} kernel rel RMS {k_err:.4g} > "
@@ -1810,6 +2008,7 @@ def main() -> int:
     for name, row in gemma_backward_kernel_phase().items():
         rows.setdefault(name, {}).update(row)
     rows.update(mla_kernel_phase())
+    rows.update(mla_train_kernel_phase())
     torch.cuda.empty_cache()  # the servers need the card's memory
     serve = {mode: path_phase(mode) for mode in SERVER_MODES}
     teacher = {}
@@ -1829,6 +2028,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     train = {run: _finetune(run) for run in TRAIN_RUNS}
     train_profile_phase()
+    deepseek_train = deepseek_train_phase()
     for name in GRAD_PARITY:
         grad_parity_phase(name)
 
@@ -1838,6 +2038,7 @@ def main() -> int:
         **{f"teacher_forced_{key}": (key.rsplit("_", 1)[0], report["launches"])
            for key, report in teacher.items()},
         **{f"train_{run}": (TRAIN_RUNS[run][0], summary["launches"]) for run, summary in train.items()},
+        "train_deepseek": (DEEPSEEK, deepseek_train["launches"]),
     }
     k1 = ("dstack_tpu_torch/csrc/flash_fwd.cu", "dstack_tpu/ops/flash.py:190", "flash_fwd")
     k4 = ("dstack_tpu_torch/csrc/flash_decode.cu", "dstack_tpu/ops/flash_decode.py:266")
@@ -1850,6 +2051,9 @@ def main() -> int:
         "flash_fwd_gpt_oss": (*k1, (GPT_OSS,)),
         "flash_fwd_d256": (*k1, D256),
         "flash_fwd_d576": (*k1_mla, (DEEPSEEK,)),
+        "flash_fwd_d192": (*k1, (DEEPSEEK,)),  # MLA training: K1-K3 at D = 192
+        "flash_bwd_dq_d192": (*k2, (DEEPSEEK,)),
+        "flash_bwd_dkv_d192": (*k3, (DEEPSEEK,)),
         "flash_bwd_dq": (*k2, d64),
         "flash_bwd_dkv": (*k3, d64),
         "flash_bwd_dq_d256": (*k2, D256),

@@ -44,6 +44,18 @@
 //   are computed twice: 6 products' work a key tile for the other forms' 4.
 //   A block owns 64 keys; the K/V tiles and the 2-stage Q/dO ring take
 //   128 KB.
+// - D = 192 (DeepSeek's MLA in training: q/k heads of 128 + 64, v padded
+//   to 192): dK and dV of one consumer's 64 keys would take 2 x 96 f32
+//   registers a thread beside S^T and dP^T, past the 240 of setmaxnreg.
+//   D = 256's column split would put the 96-column boundary inside the
+//   second 64-column swizzle box (an N = 32 half-box product on an MN-major
+//   operand). So here the two consumers split the roles over one 64-key
+//   tile: consumer 0 forms S^T, P^T and dV; consumer 1 forms S^T, dP^T,
+//   dS^T and dK. Each keeps one 64 x 192 accumulator (96 registers), no
+//   column boundary is crossed, and S^T is the one product computed twice:
+//   5 products' work a key tile for 4 (D = 256's split takes 6). The
+//   streamed tile is 64 query rows (S^T and dP^T at N = 64); the K/V tiles
+//   and the 2-stage Q/dO ring take 144 KB.
 // - The causal/window compare runs only on tiles that straddle the
 //   diagonal, the window edge or T; tiles a warpgroup cannot see are
 //   skipped.
@@ -68,7 +80,7 @@ constexpr int NTHREADS = 128 * (1 + NCONS);
 // query rows a streamed tile
 template <int D>
 constexpr int bq() {
-  return D == 64 ? 64 : 32;
+  return D == 64 || D == 192 ? 64 : 32;
 }
 
 // Shared memory, byte offsets from a 1024-aligned base. A tile of R rows
@@ -76,9 +88,11 @@ constexpr int bq() {
 template <int D>
 struct Smem {
   static constexpr int BQ = bq<D>();
-  // D = 256: the consumers split the columns of one 64-key tile, not the keys
+  // D = 256: the consumers split the columns of one 64-key tile, not the
+  // keys; D = 192: they split the roles (dV, dK) over one 64-key tile
   static constexpr bool SPLIT = D == 256;
-  static constexpr int NKT = SPLIT ? 1 : NCONS;           // key tiles a block holds
+  static constexpr bool ROLES = D == 192;
+  static constexpr int NKT = SPLIT || ROLES ? 1 : NCONS;  // key tiles a block holds
   static constexpr int BKV = BM * NKT;                    // keys a block
   static constexpr int TILE = BM * D * 2;                 // stationary 64 keys
   static constexpr int QT = BQ * D * 2;                   // streamed query rows
@@ -89,6 +103,30 @@ struct Smem {
   static constexpr int BAR = LD + STAGES * 2 * BQ * 4;    // full[], empty[], stationary
   static constexpr int BYTES = BAR + 8 * (2 * STAGES + 1);
 };
+
+// P^T in place of S^T (flash.py:382-394): the dV consumer of the D = 192
+// form, which forms no dS^T. Element i as in p_ds_tile below.
+template <int N, bool SOFTCAP, bool MASKED>
+__device__ __forceinline__ void p_tile(float (&s)[N], const float* sl, const int (&kpos)[2], int q_lo,
+                                       int t, const Params& p) {
+  const float sl2 = p.scale * LOG2E;
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      const float lse2 = (e & 1) ? l2.y : l2.x;
+      float pr = SOFTCAP ? exp2f(p.softcap * tanhf(s[i] * p.scale / p.softcap) * LOG2E - lse2)
+                         : exp2f(fmaf(s[i], sl2, -lse2));
+      if (MASKED) {
+        const int qc = q_lo + 8 * j + 2 * t + (e & 1);
+        pr = qc < p.Tq && sees(p.q_offset + qc, kpos[e >> 1], p) ? pr : 0.f;
+      }
+      s[i] = pr;
+    }
+  }
+}
 
 // P^T in place of S^T and dS^T in place of dP^T (flash.py:382-406).
 // Element i = 4j + e of a warpgroup tile is this thread's key e >> 1 (g or
@@ -143,8 +181,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dkv_kernel(
   using S = Smem<D>;
   constexpr int BQ = S::BQ;
   constexpr int CB = D / 64;  // 64-column boxes a row
-  constexpr bool SPLIT = S::SPLIT;
+  constexpr bool SPLIT = S::SPLIT, ROLES = S::ROLES;
   constexpr int CBC = SPLIT ? CB / NCONS : CB;  // column boxes of dK and dV a consumer owns
+  // accumulators a consumer keeps: dV at acc[0] and dK at acc[NACC - 1];
+  // the D = 192 form keeps only its role's one
+  constexpr int NACC = ROLES ? 1 : 2;
   constexpr int BKV = S::BKV;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (dtpu::smem_u32(smem_raw) + 1023) & ~1023u;
@@ -227,23 +268,28 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dkv_kernel(
     }
   } else {
     // consumers: warpgroup c owns keys kc_lo .. kc_lo + 63, with every
-    // column or (SPLIT) column boxes cb0 .. cb0 + CBC - 1
+    // column or (SPLIT) column boxes cb0 .. cb0 + CBC - 1; under ROLES
+    // consumer 0 forms dV and consumer 1 dK of the block's one key tile
     dtpu::setmaxnreg_inc<240>();
     const int c = threadIdx.x / 128 - 1;
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane >> 2, t = lane & 3;
-    const int kt = SPLIT ? 0 : c;  // the key tile it reads
+    const int kt = SPLIT || ROLES ? 0 : c;  // the key tile it reads
+    const bool dv_role = ROLES && c == 0;
     const int cb0 = SPLIT ? c * CBC : 0;
     const int kc_lo = k_lo + kt * BM;
     const int row0 = kc_lo + 16 * warp + g;  // this thread's keys: row0 and row0 + 8
     const int kpos[2] = {p.kv_offset + row0, p.kv_offset + row0 + 8};
     const int kp_lo = p.kv_offset + kc_lo, kp_hi = kp_lo + BM - 1;
 
-    float dka[CBC][32], dva[CBC][32];
+    float acc[NACC][CBC][32];
 #pragma unroll
-    for (int cb = 0; cb < CBC; ++cb) {
+    for (int a = 0; a < NACC; ++a) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dka[cb][i] = dva[cb][i] = 0.f;
+      for (int cb = 0; cb < CBC; ++cb) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[a][cb][i] = 0.f;
+      }
     }
     const uint32_t sk = base + S::K + kt * S::TILE, sv = base + S::V + kt * S::TILE;
     dtpu::mbar_wait(stat, 0);
@@ -259,57 +305,91 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dkv_kernel(
         const bool masked = q_lo + BQ > p.Tq || (p.causal && qp_lo < kp_hi) ||
                             (p.window > 0 && qp_hi - kp_lo >= p.window);
         const uint32_t sq = base + S::QDO + s * 2 * S::QT, sdo = sq + S::QT;
-        float st[BQ / 2], dp[BQ / 2];
-        // S^T = K Q^T and dP^T = V dO^T: contraction over D, 16 columns a
-        // step, both finished before the element-wise pass (unlike K2,
-        // forming P^T while the dP^T product runs measured slower here)
-        dtpu::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t off_a = (kk / 4) * BM * 128 + (kk % 4) * 32;
-          const uint32_t off_b = (kk / 4) * BQ * 128 + (kk % 4) * 32;
-          dtpu::wgmma_ss(st, dtpu::desc_k_major(sk + off_a), dtpu::desc_k_major(sq + off_b), kk > 0);
-          dtpu::wgmma_ss(dp, dtpu::desc_k_major(sv + off_a), dtpu::desc_k_major(sdo + off_b), kk > 0);
-        }
-        dtpu::wgmma_commit();
-        dtpu::wgmma_wait<0>();
-        dtpu::fence_regs(st);
-        dtpu::fence_regs(dp);
-
         const float* sl = reinterpret_cast<const float*>(smem + S::LD + s * 2 * BQ * 4);
-        if (p.softcap > 0.f) {
-          if (masked) p_ds_tile<BQ / 2, true, true>(st, dp, sl, sl + BQ, kpos, q_lo, t, p);
-          else p_ds_tile<BQ / 2, true, false>(st, dp, sl, sl + BQ, kpos, q_lo, t, p);
+        float st[BQ / 2];
+        if (dv_role) {
+          // D = 192, consumer 0: S^T = K Q^T, P^T, then dV += P^T dO
+          dtpu::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t off_a = (kk / 4) * BM * 128 + (kk % 4) * 32;
+            const uint32_t off_b = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+            dtpu::wgmma_ss(st, dtpu::desc_k_major(sk + off_a), dtpu::desc_k_major(sq + off_b), kk > 0);
+          }
+          dtpu::wgmma_commit();
+          dtpu::wgmma_wait<0>();
+          dtpu::fence_regs(st);
+          if (p.softcap > 0.f) {
+            if (masked) p_tile<BQ / 2, true, true>(st, sl, kpos, q_lo, t, p);
+            else p_tile<BQ / 2, true, false>(st, sl, kpos, q_lo, t, p);
+          } else {
+            if (masked) p_tile<BQ / 2, false, true>(st, sl, kpos, q_lo, t, p);
+            else p_tile<BQ / 2, false, false>(st, sl, kpos, q_lo, t, p);
+          }
+          uint32_t pa[BQ / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk) dtpu::acc_to_a(pa[kk], st + 8 * kk, st + 8 * kk + 4);
+          dtpu::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+            for (int cb = 0; cb < CBC; ++cb) {
+              dtpu::wgmma_rs(acc[0][cb], pa[kk], dtpu::desc_mn_major(sdo + cb * BQ * 128 + kk * 2048));
+            }
+          }
         } else {
-          if (masked) p_ds_tile<BQ / 2, false, true>(st, dp, sl, sl + BQ, kpos, q_lo, t, p);
-          else p_ds_tile<BQ / 2, false, false>(st, dp, sl, sl + BQ, kpos, q_lo, t, p);
-        }
-        uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+          float dp[BQ / 2];
+          // S^T = K Q^T and dP^T = V dO^T: contraction over D, 16 columns a
+          // step, both finished before the element-wise pass (unlike K2,
+          // forming P^T while the dP^T product runs measured slower here)
+          dtpu::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) {
-          dtpu::acc_to_a(pa[kk], st + 8 * kk, st + 8 * kk + 4);
-          dtpu::acc_to_a(da[kk], dp + 8 * kk, dp + 8 * kk + 4);
-        }
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t off_a = (kk / 4) * BM * 128 + (kk % 4) * 32;
+            const uint32_t off_b = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+            dtpu::wgmma_ss(st, dtpu::desc_k_major(sk + off_a), dtpu::desc_k_major(sq + off_b), kk > 0);
+            dtpu::wgmma_ss(dp, dtpu::desc_k_major(sv + off_a), dtpu::desc_k_major(sdo + off_b), kk > 0);
+          }
+          dtpu::wgmma_commit();
+          dtpu::wgmma_wait<0>();
+          dtpu::fence_regs(st);
+          dtpu::fence_regs(dp);
 
-        // dV += P^T dO and dK += dS^T Q over this consumer's column boxes:
-        // contraction over the tile's query rows, 16 a step; dO and Q read
-        // MN-major, one 64-column box a product
-        dtpu::wgmma_fence();
+          if (p.softcap > 0.f) {
+            if (masked) p_ds_tile<BQ / 2, true, true>(st, dp, sl, sl + BQ, kpos, q_lo, t, p);
+            else p_ds_tile<BQ / 2, true, false>(st, dp, sl, sl + BQ, kpos, q_lo, t, p);
+          } else {
+            if (masked) p_ds_tile<BQ / 2, false, true>(st, dp, sl, sl + BQ, kpos, q_lo, t, p);
+            else p_ds_tile<BQ / 2, false, false>(st, dp, sl, sl + BQ, kpos, q_lo, t, p);
+          }
+          uint32_t pa[ROLES ? 1 : BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) {
+          for (int kk = 0; kk < BQ / 16; ++kk) {
+            if constexpr (!ROLES) dtpu::acc_to_a(pa[kk], st + 8 * kk, st + 8 * kk + 4);
+            dtpu::acc_to_a(da[kk], dp + 8 * kk, dp + 8 * kk + 4);
+          }
+
+          // dV += P^T dO (not under ROLES: consumer 0's) and dK += dS^T Q
+          // over this consumer's column boxes: contraction over the tile's
+          // query rows, 16 a step; dO and Q read MN-major, one 64-column box
+          // a product
+          dtpu::wgmma_fence();
 #pragma unroll
-          for (int cb = 0; cb < CBC; ++cb) {
-            const uint32_t off = (cb0 + cb) * BQ * 128 + kk * 2048;
-            dtpu::wgmma_rs(dva[cb], pa[kk], dtpu::desc_mn_major(sdo + off));
-            dtpu::wgmma_rs(dka[cb], da[kk], dtpu::desc_mn_major(sq + off));
+          for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+            for (int cb = 0; cb < CBC; ++cb) {
+              const uint32_t off = (cb0 + cb) * BQ * 128 + kk * 2048;
+              if constexpr (!ROLES) dtpu::wgmma_rs(acc[0][cb], pa[kk], dtpu::desc_mn_major(sdo + off));
+              dtpu::wgmma_rs(acc[NACC - 1][cb], da[kk], dtpu::desc_mn_major(sq + off));
+            }
           }
         }
         dtpu::wgmma_commit();
         dtpu::wgmma_wait<0>();
 #pragma unroll
-        for (int cb = 0; cb < CBC; ++cb) {
-          dtpu::fence_regs(dka[cb]);
-          dtpu::fence_regs(dva[cb]);
+        for (int a = 0; a < NACC; ++a) {
+#pragma unroll
+          for (int cb = 0; cb < CBC; ++cb) dtpu::fence_regs(acc[a][cb]);
         }
       }
       dtpu::mbar_arrive(empty0 + 8 * s);
@@ -326,10 +406,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_bwd_dkv_kernel(
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int col = (cb0 + cb) * 64 + 8 * j + 2 * t;
-          *reinterpret_cast<__nv_bfloat162*>(dko + col) =
-              __floats2bfloat162_rn(dka[cb][4 * j + 2 * r], dka[cb][4 * j + 2 * r + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(dvo + col) =
-              __floats2bfloat162_rn(dva[cb][4 * j + 2 * r], dva[cb][4 * j + 2 * r + 1]);
+          if (!dv_role) {
+            *reinterpret_cast<__nv_bfloat162*>(dko + col) = __floats2bfloat162_rn(
+                acc[NACC - 1][cb][4 * j + 2 * r], acc[NACC - 1][cb][4 * j + 2 * r + 1]);
+          }
+          if (!ROLES || dv_role) {
+            *reinterpret_cast<__nv_bfloat162*>(dvo + col) =
+                __floats2bfloat162_rn(acc[0][cb][4 * j + 2 * r], acc[0][cb][4 * j + 2 * r + 1]);
+          }
         }
       }
     }
@@ -359,8 +443,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a head width other than 64, 128 or 256 or a
-// tensor map that cuTensorMapEncodeTiled refuses.
+// cudaErrorInvalidValue for a head width other than 64, 128, 192 or 256 or
+// a tensor map that cuTensorMapEncodeTiled refuses.
 extern "C" int dtpu_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv, int B,
                                   int H, int Hkv, int Tq, int Tk, int D, float scale, int causal,
@@ -374,6 +458,7 @@ extern "C" int dtpu_flash_bwd_dkv(const void* q, const void* k, const void* v, c
   auto* dvp = static_cast<__nv_bfloat16*>(dv);
   if (D == 64) return launch<64>(q, k, v, dout, lp, dlp, dkp, dvp, B, p, s);
   if (D == 128) return launch<128>(q, k, v, dout, lp, dlp, dkp, dvp, B, p, s);
+  if (D == 192) return launch<192>(q, k, v, dout, lp, dlp, dkp, dvp, B, p, s);
   if (D == 256) return launch<256>(q, k, v, dout, lp, dlp, dkp, dvp, B, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

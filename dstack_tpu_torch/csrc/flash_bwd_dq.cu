@@ -27,6 +27,9 @@
 //   the 227 KB a block may have; so the streamed tile is 32 keys (a legal
 //   wgmma N), the ring 64 KB. The dQ accumulator is 64 x 256 f32, 128
 //   registers a thread, beside S and dP at 16 each.
+// - D = 192 (DeepSeek's MLA in training): Q and dO take 96 KB and a
+//   2-stage ring of 64-key K/V tiles 96 KB; dQ is 96 registers a thread,
+//   beside S and dP at 32 each.
 // - Warp specialisation: warpgroup 0 is the producer (one thread issues
 //   TMA loads; setmaxnreg.dec to 24 registers), warpgroups 1-2 consume
 //   (setmaxnreg.inc to 240). K and V stream through a ring of STAGES
@@ -34,8 +37,8 @@
 //   current one is multiplied.
 // - TMA from 3-D tensor maps over [B*H, T, D] in the 128-byte swizzle the
 //   wgmma descriptors read; rows past T arrive as zeros (the ragged edge),
-//   never the next head's rows. A row is D / 64 column boxes (four at
-//   D = 256).
+//   never the next head's rows. A row is D / 64 column boxes (three at
+//   D = 192, four at D = 256).
 // - The causal/window compare runs only on tiles that straddle the
 //   diagonal, the window edge or T; fully masked tiles are never loaded
 //   (the walk is `_causal_kv_clamp`, flash.py:223) or skipped per warpgroup.
@@ -339,8 +342,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a head width other than 64, 128 or 256 or a
-// tensor map that cuTensorMapEncodeTiled refuses.
+// cudaErrorInvalidValue for a head width other than 64, 128, 192 or 256 or
+// a tensor map that cuTensorMapEncodeTiled refuses.
 extern "C" int dtpu_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, int B, int H,
                                  int Hkv, int Tq, int Tk, int D, float scale, int causal,
@@ -353,6 +356,7 @@ extern "C" int dtpu_flash_bwd_dq(const void* q, const void* k, const void* v, co
   auto* dqp = static_cast<__nv_bfloat16*>(dq);
   if (D == 64) return launch<64>(q, k, v, dout, lp, dlp, dqp, B, p, s);
   if (D == 128) return launch<128>(q, k, v, dout, lp, dlp, dqp, B, p, s);
+  if (D == 192) return launch<192>(q, k, v, dout, lp, dlp, dqp, B, p, s);
   if (D == 256) return launch<256>(q, k, v, dout, lp, dlp, dqp, B, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

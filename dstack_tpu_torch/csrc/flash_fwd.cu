@@ -30,13 +30,18 @@
 //   wgmma descriptors read: rows past Tk and past Tq arrive as zeros, never
 //   the next head's rows, and rows past Tq are dropped at the store, so
 //   every chunk size C = 16 ... 256 at any q_offset takes the kernel. A
-//   row is D / 64 column boxes (one at D = 64, four at D = 256), and P V
-//   is one product a box: the MN-major V operand covers 64 columns.
+//   row is D / 64 column boxes (one at D = 64, three at MLA's training
+//   width 192, four at D = 256), and P V is one product a box: the MN-major
+//   V operand covers 64 columns.
 // - D = 256 (Gemma): the two warpgroups' Q tiles take 64 KB and a stage of
 //   K and V 64 KB, so the ring is 2 stages deep (192 KB in all, of the
 //   227 KB a block may have); a consumer's O accumulator is 64 x 256 f32,
 //   128 registers a thread, beside one 64-key S tile (32) and its bf16 P
 //   (16), which the 240 registers of setmaxnreg hold with the overlap.
+// - D = 192 (DeepSeek's MLA in training: q/k heads of 128 + 64, v padded
+//   from 128 to 192 by the caller): the Q tiles take 48 KB and a 3-stage
+//   ring of 64-key K and V tiles 144 KB; O is 64 x 192 f32, 96 registers a
+//   thread.
 // - Tile ranges: K/V tiles past the causal frontier of the block's last
 //   row and before the window's floor of its first row are never loaded
 //   (the role of `_causal_kv_clamp`, flash.py:223); a warpgroup walks only
@@ -380,8 +385,8 @@ int launch(const void* q, const void* k, const void* v, __nv_bfloat16* o, float*
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a head width other than 64, 128 or 256 or a tensor
-// map that cuTensorMapEncodeTiled refuses.
+// cudaErrorInvalidValue for a head width other than 64, 128, 192 or 256 or a
+// tensor map that cuTensorMapEncodeTiled refuses.
 extern "C" int dtpu_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               int B, int H, int Hkv, int Tq, int Tk, int D, float scale,
                               int causal, int q_offset, int kv_offset, int window,
@@ -392,13 +397,14 @@ extern "C" int dtpu_flash_fwd(const void* q, const void* k, const void* v, void*
   auto* lp = static_cast<float*>(lse);
   // 128 keys a tile where every tile but the diagonal one runs unmasked
   // (S a 64 x 128 wgmma: half the softmax steps); with a window or a
-  // softcap, 64 (measured faster there); at D = 128 and 256, 64 so O and
-  // S fit the registers
+  // softcap, 64 (measured faster there); at D = 128, 192 and 256, 64 so
+  // O and S fit the registers
   if (D == 64) {
     return window > 0 || softcap > 0.f ? launch<64, 64>(q, k, v, op, lp, B, p, s)
                                        : launch<64, 128>(q, k, v, op, lp, B, p, s);
   }
   if (D == 128) return launch<128, 64>(q, k, v, op, lp, B, p, s);
+  if (D == 192) return launch<192, 64>(q, k, v, op, lp, B, p, s);
   if (D == 256) return launch<256, 64>(q, k, v, op, lp, B, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

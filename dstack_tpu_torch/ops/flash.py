@@ -35,14 +35,18 @@ is one XLA expression in JAX (flash.py:457). The launchers build the TMA
 tensor maps themselves. Like the Pallas backward (any ``D % 64 == 0``,
 flash.py:688) they take Gemma's D = 256: K2 streams 32-key tiles there,
 and K3's two consumers split dK's and dV's columns over one 64-key tile
-(see the sources).
+(see the sources). They take DeepSeek's MLA training width D = 192 (q/k
+heads of 128 + 64 and v padded from 128, ``_attention_block`` at
+dstack_tpu/models/llama.py:1196-1202), where K3's two consumers split the
+roles over one 64-key tile: one forms dV, the other dK.
 
 K1's absorbed-MLA form (head width 576: DeepSeek's latent row
 ``[ckv ; k_pe]``, ``_prefill_chunk_mla`` at dstack_tpu/serve/engine.py:482)
 is its own source, ``csrc/flash_fwd_mla.cu``: the wgmma/TMA shape of
 ``flash_fwd.cu`` does not carry a 576-wide row (see the source).
 :func:`flash_attention_with_lse` launches it for D = 576, without a
-window or a softcap; K2 and K3 refuse D = 576 (MLA training is later).
+window or a softcap; K2 and K3 refuse D = 576: MLA trains through the
+non-absorbed form at D = 192.
 
 Each wrapper takes the plain version only for tensors on the CPU (the
 CPU tests); for a CUDA tensor it launches the kernel or raises.
@@ -58,7 +62,8 @@ import torch
 from dstack_tpu_torch.ops import cuda_build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 256)  # the compiled head widths of K1, K2 and K3 (256: Gemma)
+# the compiled head widths of K1, K2 and K3 (192: MLA training; 256: Gemma)
+HEAD_DIMS = (64, 128, 192, 256)
 MLA_HEAD_DIM = 576  # K1's absorbed-MLA form (csrc/flash_fwd_mla.cu): DeepSeek's 512 + 64
 
 # kernel launches since each count was last set to 0 (the plain versions

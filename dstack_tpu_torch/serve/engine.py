@@ -52,8 +52,9 @@ from dstack_tpu_torch.models.llama import (
     _attn_out,
     _embed_lookup,
     _head_logits,
+    _mla_latents,
+    _mla_q,
     _mlp_out,
-    _proj,
     _qkv_heads,
     apply_rope,
     dual_rope_freqs,
@@ -62,7 +63,6 @@ from dstack_tpu_torch.models.llama import (
     layer_stack,
     layer_windows,
     model_norm,
-    rms_norm,
     rotate,
 )
 from dstack_tpu_torch.ops.attention import attention
@@ -609,24 +609,6 @@ def _mla_kb(layer: dict, c: LlamaConfig) -> tuple:
     [rank, H, v]) views."""
     w = layer["wkv_b"].view(c.kv_lora_rank, c.n_heads, c.qk_nope_head_dim + c.v_head_dim)
     return w[..., : c.qk_nope_head_dim], w[..., c.qk_nope_head_dim :]
-
-
-def _mla_q(h: torch.Tensor, layer: dict, c: LlamaConfig) -> torch.Tensor:
-    """Normed hidden [B, T, E] → q [B, H, T, qk_head_dim], pre-rope:
-    ``wq``, or ``wq_a`` → ``q_a_norm`` → ``wq_b`` with a q_lora_rank."""
-    b, t, _ = h.shape
-    if c.q_lora_rank:
-        q = _proj(layer, "wq_b", rms_norm(_proj(layer, "wq_a", h), layer["q_a_norm"], c.norm_eps))
-    else:
-        q = _proj(layer, "wq", h)
-    return q.view(b, t, c.n_heads, c.qk_head_dim).transpose(1, 2)
-
-
-def _mla_latents(h: torch.Tensor, layer: dict, c: LlamaConfig) -> tuple:
-    """Normed hidden [B, T, E] → (ckv [B, T, rank] normed, k_pe [B, T,
-    rope] un-roped)."""
-    kv_a = _proj(layer, "wkv_a", h)
-    return rms_norm(kv_a[..., : c.kv_lora_rank], layer["kv_a_norm"], c.norm_eps), kv_a[..., c.kv_lora_rank :]
 
 
 def _mla_layer(x: torch.Tensor, layer: dict, c: LlamaConfig, rope, attend, ck) -> torch.Tensor:

@@ -44,7 +44,20 @@ def _module_dims(c: llama.LlamaConfig, name: str) -> tuple[int, int]:
     return dims[name]
 
 
+def check_lora(config: llama.LlamaConfig) -> None:
+    """Raise ``ValueError`` for a config JAX takes no adapters on
+    (lora.py:73-81): MLA's projections (wq_a/wq_b/wkv_a/wkv_b) and
+    DeepSeek's dense prelude do not map onto the wq/wk/wv adapters over
+    one uniform ``[n_layers, ...]`` stack; those train in full."""
+    if config.mla or config.first_k_dense:
+        raise ValueError(
+            "LoRA adapters are not supported for MLA/DeepSeek configs; "
+            "use a full fine-tune (--full)"
+        )
+
+
 def lora_shapes(config: llama.LlamaConfig, lora_config: LoRAConfig) -> dict:
+    check_lora(config)
     L, r = config.n_layers, lora_config.rank
     layers = {}
     for name in lora_config.target_modules:

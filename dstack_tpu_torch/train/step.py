@@ -1,9 +1,10 @@
 """Training step for the PyTorch port (counterpart of dstack_tpu.train.step).
 
-One step is: forward (``llama.forward`` with ``return_hidden``; K1 flash
-forward per layer, recomputed under remat), the head fused into the
-cross-entropy, backward (K2/K3 per layer), then clip-by-global-norm and
-AdamW under a warmup-cosine schedule. JAX builds the step as one ``jit``
+One step is: forward (``llama.forward`` with ``return_hidden`` and
+``return_aux``; K1 flash forward per layer, recomputed under remat), the
+head fused into the cross-entropy, plus the MoE router aux loss, backward
+(K2/K3 per layer), then clip-by-global-norm and AdamW under a
+warmup-cosine schedule. JAX builds the step as one ``jit``
 over a mesh; the port runs it eagerly on one device and updates the
 parameters and moments in place (the JAX step donates its state, so the
 old state is never read again either).
@@ -100,14 +101,21 @@ def fused_cross_entropy(
     return ((lse - tgt) * m).sum() / total, total
 
 
-def full_loss(params: dict, batch: dict, config: llama.LlamaConfig, impl=None) -> torch.Tensor:
-    """The full fine-tune objective (the JAX step's ``loss_fn`` for a
-    dense model, step.py:308-330: the router aux loss is 0), with the
-    config's final-logit cap inside the fused loss."""
-    x = llama.forward(params, batch["tokens"], config, return_hidden=True, impl=impl)
+def objective(params: dict, batch: dict, config: llama.LlamaConfig, impl=None) -> tuple:
+    """The full fine-tune objective as the JAX step's ``loss_fn`` returns
+    it (step.py:308-331) → (CE + aux, (CE, aux)): the cross-entropy, the
+    config's final-logit cap inside the fused loss, and the router aux
+    loss summed over the MoE layers (0 for a dense model)."""
+    x, aux = llama.forward(params, batch["tokens"], config, return_hidden=True, return_aux=True,
+                           impl=impl)
     head = llama.lm_head_weight(params, config)
-    return fused_cross_entropy(x, head, batch["targets"], batch.get("mask"),
-                               softcap=config.logit_softcap)[0]
+    ce = fused_cross_entropy(x, head, batch["targets"], batch.get("mask"), softcap=config.logit_softcap)[0]
+    return ce + aux, (ce, aux)
+
+
+def full_loss(params: dict, batch: dict, config: llama.LlamaConfig, impl=None) -> torch.Tensor:
+    """The full fine-tune loss, CE + aux: what the JAX step differentiates."""
+    return objective(params, batch, config, impl)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -115,39 +123,54 @@ def full_loss(params: dict, batch: dict, config: llama.LlamaConfig, impl=None) -
 # ---------------------------------------------------------------------------
 
 
-def value_and_grad(fn: Callable, wrt: dict, *args) -> tuple[torch.Tensor, dict]:
+def value_and_grad(fn: Callable, wrt: dict, *args, has_aux: bool = False) -> tuple:
     """(fn(wrt, *args), d fn / d wrt) as a tree shaped like ``wrt``;
-    ``args`` are constants. The leaves share ``wrt``'s storage."""
+    ``args`` are constants. The leaves share ``wrt``'s storage; a leaf
+    the loss does not depend on gets zeros. With
+    ``has_aux`` ``fn`` returns (loss, aux) and the value is that pair
+    (``jax.value_and_grad(..., has_aux=True)``); aux is a tuple of
+    tensors, not differentiated."""
     live = tree_map(lambda t: t.detach().requires_grad_(True), wrt)
-    loss = fn(live, *args)
-    grads = torch.autograd.grad(loss, tree_leaves(live))
-    return loss.detach(), _unflatten(wrt, grads)
+    out = fn(live, *args)
+    loss = out[0] if has_aux else out
+    # a leaf the loss does not reach (DeepSeek's selection bias selects
+    # only) gets zeros, as jax.grad gives it
+    grads = _unflatten(wrt, torch.autograd.grad(loss, tree_leaves(live), materialize_grads=True))
+    if has_aux:
+        return (loss.detach(), tuple(a.detach() for a in out[1])), grads
+    return loss.detach(), grads
 
 
 def accumulate_grads(
-    fn: Callable, wrt: dict, batch: dict, grad_accum: int, *args
-) -> tuple[torch.Tensor, dict]:
+    fn: Callable, wrt: dict, batch: dict, grad_accum: int, *args, has_aux: bool = False
+) -> tuple:
     """``grad_accum`` microbatches over the batch's leading dim, gradients
     averaged with each one weighted by its mask sum (step.py:336-357):
-    f32 accumulators, the mean cast back to each leaf's dtype. ``fn`` is
-    called as ``fn(wrt, microbatch, *args)``."""
+    f32 accumulators, the mean cast back to each leaf's dtype; with
+    ``has_aux`` each aux tensor is averaged with the same weights, as
+    JAX weights the aux loss like the cross-entropy. ``fn`` is called as
+    ``fn(wrt, microbatch, *args)``; the result is
+    :func:`value_and_grad`'s."""
     if grad_accum == 1:
-        return value_and_grad(fn, wrt, batch, *args)
+        return value_and_grad(fn, wrt, batch, *args, has_aux=has_aux)
     n = batch["tokens"].shape[0]
     if n % grad_accum:
         raise ValueError(f"batch {n} not divisible by grad_accum {grad_accum}")
     size = n // grad_accum
     g_acc = tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device), wrt)
-    loss_acc = w_acc = 0.0
+    val_acc = None
+    w_acc = 0.0
     for i in range(grad_accum):
         mb = {k: v[i * size : (i + 1) * size] for k, v in batch.items()}
-        loss, g = value_and_grad(fn, wrt, mb, *args)
+        value, g = value_and_grad(fn, wrt, mb, *args, has_aux=has_aux)
         w = _mask(mb["tokens"], mb.get("mask"))[1]
         tree_map(lambda acc, gi: acc.add_(gi.float() * w), g_acc, g)
-        loss_acc = loss_acc + loss * w
+        flat = [value[0], *value[1]] if has_aux else [value]
+        val_acc = [v * w for v in flat] if val_acc is None else [a + v * w for a, v in zip(val_acc, flat)]
         w_acc = w_acc + w
     grads = tree_map(lambda acc, t: (acc / w_acc).to(t.dtype), g_acc, wrt)
-    return loss_acc / w_acc, grads
+    mean = [a / w_acc for a in val_acc]
+    return ((mean[0], tuple(mean[1:])) if has_aux else mean[0]), grads
 
 
 # ---------------------------------------------------------------------------
@@ -287,24 +310,28 @@ def make_train_step(
     impl: Optional[str] = None,
 ) -> Callable:
     """(state, batch{tokens, targets, mask}) → (state, metrics): the full
-    fine-tune step. ``state`` is updated in place and returned;
-    ``metrics`` hold 0-dim device tensors (``loss``, ``aux_loss``, and
-    ``grad_norm`` before the clip), read without a host sync."""
+    fine-tune step, whose gradients are of CE + the router aux loss.
+    ``state`` is updated in place and returned; ``metrics`` hold 0-dim
+    device tensors (``loss``: the CE, ``aux_loss``, and ``grad_norm``
+    before the clip; the JAX step's, step.py:374), read without a host
+    sync."""
 
     def step(state: dict, batch: dict) -> tuple[dict, dict]:
-        loss, grads = accumulate_grads(full_loss, state["params"], batch, grad_accum, config, impl)
+        (_, (ce, aux)), grads = accumulate_grads(objective, state["params"], batch, grad_accum, config,
+                                                 impl, has_aux=True)
         gnorm = global_norm(grads)
         optimizer.update(grads, state["opt_state"], state["params"])
         state["step"] += 1
-        return state, {"loss": loss, "aux_loss": torch.zeros_like(loss), "grad_norm": gnorm}
+        return state, {"loss": ce, "aux_loss": aux, "grad_norm": gnorm}
 
     return step
 
 
 def flops_per_token(config: llama.LlamaConfig, seq_len: int) -> float:
     """Approximate train FLOPs per token (step.py:402): 6·N plus the
-    attention term. N counts every parameter, Gemma's tied embedding once
-    and its four norms a layer, as JAX's ``num_params`` does (a dense
-    model's active parameters are all of them)."""
+    attention term. N counts the active parameters, as JAX's
+    ``num_active_params`` does: every parameter of a dense model (Gemma's
+    tied embedding once and its four norms a layer), and on an MoE model
+    only the routed experts a token takes."""
     attn = 12 * config.n_layers * config.hidden_size * seq_len  # fwd+bwd qk/av
-    return 6.0 * config.num_params() + attn
+    return 6.0 * config.num_active_params() + attn

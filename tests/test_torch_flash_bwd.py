@@ -7,10 +7,12 @@ gradients of ``FlashAttention`` to ``jax.vjp`` of ``flash_attention``
 and to torch autograd through ``flash_attention_plain``: the same f32
 inputs drawn with numpy, tolerance 2e-5 (the reference's own,
 tests/compute/test_flash_decode.py): 4 query heads over 2 KV heads at
-head_dim 64, and at Gemma's 256 over 2 or 1 KV heads (GQA groups 2 and
-4) with its windows, its softcap of 50 and offsets. The ``cuda``-marked
-tests hold the hand-written K2/K3 kernels to the plain version on the
-card (bf16, 2e-2) and skip where there is none.
+head_dim 64, at Gemma's 256 over 2 or 1 KV heads (GQA groups 2 and 4)
+with its windows, its softcap of 50 and offsets, and at MLA's training
+width 192 (DeepSeek: q/k heads of 128 + 64, v padded to 192; 4 KV heads,
+as MLA is MHA, and a group of 2) with its scale of 192^-0.5 and offsets.
+The ``cuda``-marked tests hold the hand-written K2/K3 kernels to the plain
+version on the card (bf16, 2e-2) and skip where there is none.
 """
 
 import jax
@@ -49,11 +51,17 @@ CASES = [
     (128, True, 128, 64, 0, 0.0, 256, 2),  # a q and a kv offset
     # gemma-3-1b's window of 512 over a GQA group of 4: queries at 600..727
     (128, True, 600, 0, 512, 0.0, 256, 1),
+    # MLA's training width: q/k 128 + 64, MHA (4 KV heads), causal
+    (256, True, 0, 0, 0, 0.0, 192, 4),
+    (128, True, 0, 0, 0, 0.0, 192, 2),  # a GQA group of 2
+    (128, True, 128, 64, 0, 0.0, 192, 4),  # a q and a kv offset
+    (256, True, 0, 0, 96, 30.0, 192, 4),  # a window and a softcap at 192
 ]
 IDS = [
     "T128", "T256", "qoff128", "window96", "softcap30", "noncausal", "no_live_key",
     "d256_group2", "d256_group4", "d256_window1024", "d256_softcap50",
     "d256_window1024_softcap50_group4", "d256_qoff_kvoff", "d256_window512_group4",
+    "d192_mha", "d192_group2", "d192_qoff_kvoff", "d192_window96_softcap30",
 ]
 ARGS = "t,causal,q_offset,kv_offset,window,softcap,d,hkv"
 
@@ -289,5 +297,65 @@ class TestHeadDim256OnTheCard:
         o, lse = tflash.flash_attention_with_lse(q, k, v, **kw)
         first = tflash.flash_bwd(q, k, v, o, lse, do, **kw)
         second = tflash.flash_bwd(q, k, v, o, lse, do, **kw)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+class TestHeadDim192OnTheCard:
+    """K2/K3's D = 192 forms (DeepSeek's MLA in training) vs
+    flash_bwd_plain: K2 streams 64-key tiles and K3's two consumers split
+    the roles (dV, dK) over one 64-key tile with 64-row query tiles, so the
+    edges sit at 64 keys and 64 queries (atol = rtol = 2e-2 and the tile
+    rule, each gradient on its own)."""
+
+    @pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 129, 1000])
+    def test_tile_edges(self, cuda, t):
+        _assert_card_close(*_card_case(cuda, 2, 16, 16, t, t, 192, seed=t, scale=192**-0.5))
+
+    @pytest.mark.parametrize("h,hkv", [(16, 16), (8, 4), (8, 1)], ids=["group1", "group2", "group8"])
+    def test_gqa_groups(self, cuda, h, hkv):
+        _assert_card_close(*_card_case(cuda, 2, h, hkv, 384, 384, 192, seed=h + hkv))
+
+    def test_training_shape(self, cuda):
+        # deepseek-v2-lite's attention in training: 16 heads, T = 2048, causal
+        _assert_card_close(*_card_case(cuda, 2, 16, 16, 2048, 2048, 192, seed=11, scale=192**-0.5))
+
+    @pytest.mark.parametrize("window,softcap", [(512, 0.0), (0, 30.0), (512, 30.0)])
+    def test_window_and_softcap(self, cuda, window, softcap):
+        _assert_card_close(*_card_case(cuda, 2, 8, 8, 1000, 1000, 192, seed=12, window=window, softcap=softcap))
+
+    def test_offsets_with_window(self, cuda):
+        got, want = _card_case(cuda, 2, 8, 8, 192, 448, 192, seed=13, q_offset=320, kv_offset=64, window=128)
+        _assert_card_close(got, want)
+
+    def test_no_live_key(self, cuda):
+        got, want = _card_case(cuda, 2, 8, 8, 128, 128, 192, seed=14, kv_offset=64)
+        _assert_card_close(got, want)
+        dq, dk, dv = got
+        assert not dq[:, :, :64].any()
+        assert not dk[:, :, 64:].any() and not dv[:, :, 64:].any()
+
+    def test_zero_padded_value_columns(self, cuda):
+        """MLA pads v from 128 to 192 with zeros, and the slice after
+        attention gives dO zeros there: o and dv come out zero in those
+        columns, and dq, dk match the plain version."""
+        g = torch.Generator(device=cuda).manual_seed(15)
+        q, k, v, do = (torch.randn(2, 16, 1000, 192, generator=g, device=cuda).bfloat16() for _ in range(4))
+        v[..., 128:] = 0
+        do[..., 128:] = 0
+        kw = dict(scale=192**-0.5)
+        o, lse = tflash.flash_attention_with_lse(q, k, v, **kw)
+        got = tflash.flash_bwd(q, k, v, o, lse, do, **kw)
+        _assert_card_close(got, tflash.flash_bwd_plain(q, k, v, o, lse, do, **kw))
+        assert not o[..., 128:].any() and not got[2][..., 128:].any()
+
+    def test_two_launches_are_bit_identical(self, cuda):
+        g = torch.Generator(device=cuda).manual_seed(16)
+        q, do = (torch.randn(2, 16, 1000, 192, generator=g, device=cuda).bfloat16() for _ in range(2))
+        k, v = (torch.randn(2, 16, 1000, 192, generator=g, device=cuda).bfloat16() for _ in range(2))
+        o, lse = tflash.flash_attention_with_lse(q, k, v)
+        first = tflash.flash_bwd(q, k, v, o, lse, do)
+        second = tflash.flash_bwd(q, k, v, o, lse, do)
         for a, b in zip(first, second):
             assert torch.equal(a, b)

@@ -18,7 +18,8 @@ at D = 576 against the Pallas ``_flash_fwd`` in interpret mode (2e-5, the
 reference's own f32 tolerance), the four MLA step functions (logits and
 the latent cache within 1e-4), the turbo loop, and the serial and
 default engines' greedy tokens, a prefix-cache hit included. Both
-packages refuse the int8 cache for MLA. The ``cuda``-marked tests hold
+packages refuse the int8 cache for MLA. MLA training is held to JAX in
+tests/test_torch_mla_train.py. The ``cuda``-marked tests hold
 K1's D = 576 kernel to its plain version on the card (bf16, 2e-2, both of
 ``chip_smoke.py``'s rules) and skip where there is none.
 """
@@ -174,20 +175,6 @@ class TestParams:
             assert node.dtype == want, path
         assert bool((p["layers"]["kv_a_norm"] == 1).all())
         assert 0.015 < float(p["layers"]["w_shared_gate"].float().std()) < 0.025
-
-    def test_training_refuses_mla(self, model):
-        _, _, tc, _, tp = model
-        with pytest.raises(NotImplementedError, match="MLA"):
-            tllama.forward(tp, torch.zeros(1, 4, dtype=torch.long), tc)
-
-
-def test_finetune_refuses_mla_before_its_weights_are_made(capsys):
-    from dstack_tpu_torch.train import finetune
-
-    with pytest.raises(SystemExit) as e:
-        finetune.main(["--device", "cpu", "--model", "deepseek-v2-lite"])
-    assert e.value.code != 0
-    assert "A5.7" in capsys.readouterr().err
 
 
 class TestRope:

@@ -82,6 +82,25 @@ class TestFlashForwardPlain:
         np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=TOL, rtol=TOL)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=TOL)
 
+    @pytest.mark.parametrize("q_offset,window,softcap", [(0, 0, 0.0), (128, 96, 30.0)])
+    def test_head_dim_192_matches_pallas_interpret(self, q_offset, window, softcap):
+        """MLA's training width (q/k heads of 128 + 64, v padded from 128
+        with zeros): 4 heads, MHA, at DeepSeek's scale 192^-0.5, and a
+        chunk at an offset with a window and a softcap."""
+        rng = np.random.default_rng(7)
+        q = _rand(rng, 1, 4, 128, 192)
+        k = _rand(rng, 1, 4, 256, 192)
+        v = _rand(rng, 1, 4, 256, 192)
+        v[..., 128:] = 0
+        kw = dict(causal=True, scale=192**-0.5, q_offset=q_offset, window=window, softcap=softcap)
+        jo, jl = jax_flash_with_lse(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True, **kw
+        )
+        to, tl = tflash.flash_attention_with_lse(_t(q), _t(k), _t(v), **kw)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=TOL)
+        assert not to[..., 128:].any()
+
     @pytest.mark.parametrize("q_offset", [0, 40])
     def test_ragged_chunk_matches_xla_attention(self, q_offset):
         # C = 16 queries at an offset over a longer row: the shape the
@@ -362,6 +381,41 @@ class TestFlashForwardKernelAtTrainingShapes:
         g = torch.Generator(device=cuda).manual_seed(5)
         q = torch.randn(2, 32, 1000, 64, generator=g, device=cuda).bfloat16()
         k, v = (torch.randn(2, 8, 1000, 64, generator=g, device=cuda).bfloat16() for _ in range(2))
+        first = tflash.flash_attention_with_lse(q, k, v)
+        second = tflash.flash_attention_with_lse(q, k, v)
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+class TestHeadDim192OnTheCard:
+    """K1's D = 192 form (DeepSeek's MLA in training: 3 column boxes a row,
+    a 3-stage ring of 64-key tiles) vs flash_attention_plain, o and lse
+    each on its own (bf16, 2e-2)."""
+
+    def test_training_shape(self, cuda):
+        _assert_fwd_close(*_fwd_case(cuda, 2, 16, 16, 2048, 2048, 192, seed=1, scale=192**-0.5))
+
+    @pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 129, 1000])
+    def test_tile_edges(self, cuda, t):
+        _assert_fwd_close(*_fwd_case(cuda, 2, 16, 16, t, t, 192, seed=t))
+
+    @pytest.mark.parametrize("h,hkv", [(8, 4), (8, 1)], ids=["group2", "group8"])
+    def test_gqa_groups(self, cuda, h, hkv):
+        _assert_fwd_close(*_fwd_case(cuda, 2, h, hkv, 384, 384, 192, seed=h + hkv))
+
+    def test_offsets_with_window_and_softcap(self, cuda):
+        _assert_fwd_close(*_fwd_case(cuda, 2, 8, 8, 192, 448, 192, seed=2, q_offset=320, kv_offset=64,
+                                     window=128, softcap=30.0))
+
+    def test_no_live_key(self, cuda):
+        got, want = _fwd_case(cuda, 2, 8, 8, 128, 128, 192, seed=3, kv_offset=64)
+        _assert_fwd_close(got, want)
+        o, lse = got
+        assert not o[:, :, :64].any() and bool((lse[:, :, :64] == tflash.NEG_INF).all())
+
+    def test_two_launches_are_bit_identical(self, cuda):
+        g = torch.Generator(device=cuda).manual_seed(5)
+        q, k, v = (torch.randn(2, 16, 1000, 192, generator=g, device=cuda).bfloat16() for _ in range(3))
         first = tflash.flash_attention_with_lse(q, k, v)
         second = tflash.flash_attention_with_lse(q, k, v)
         assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
