@@ -13,7 +13,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    source, in parallel) and print the build time; read every compiled
    form's registers and spill bytes from its ``-Xptxas -v`` log (all five
    sources): a spill fails the run, and so does a head width of K1, K2 or
-   K3 (64, 128, 192, 256), or K1's D = 576 form, with no compiled form.
+   K3 (64, 128, 192, 256), or K1's D = 576 form or its combine, with no
+   compiled form.
 2. Kernel phase: each kernel against its plain PyTorch version on the
    card in bf16, within atol = rtol = 2e-2: flash prefill (K1) at the
    serving shapes (C = 16 and 256 with q_offset 0 and 512); ragged flash
@@ -66,12 +67,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    on a global layer without a softcap, else the compiled
    ``flex_attention``). Every K2/K3 gradient, at D = 64, 192 and 256, and
    K1's o at D = 192 and 256, is also held tile by tile (32 rows of one
-   batch row and head) within 1e-2 relative RMS error (``grad_close``). Last, K1's absorbed-MLA form (D =
-   576, ``csrc/flash_fwd_mla.cu``) at deepseek-v2-lite's chunk: q
-   [1,16,256,576] over one KV head [1,1,2048,576] whose last 64 value
-   columns are zero, at q_offsets 512, 0 and 1792, o held by both rules,
-   reruns bit-identical, timed beside SDPA with the offset-causal mask
-   and K/V expanded to 16 heads (the backend SDPA takes is named). Then
+   batch row and head) within 1e-2 relative RMS error (``grad_close``).
+   Last, K1's absorbed-MLA entry (``flash_mla_with_lse``: D = 576,
+   ``csrc/flash_fwd_mla.cu``, V read as the latent row's first 512
+   columns) at deepseek-v2-lite's chunks (``MLA_SHAPES``): q [1,16,C,576]
+   over the latent row [1,1,2048,576] at C = 256 with q_offsets 512, 0 and
+   1792, C = 32 at 0 and 1792, C = 40 at 260; o (512 wide) and lse held
+   by both rules against the plain version, whose value is the row with
+   its rope columns zeroed as the engine builds it; reruns bit-identical;
+   each shape timed beside its bound, the plain version and SDPA with the
+   offset-causal mask and the row expanded to 16 heads (the backend SDPA
+   takes is named), and its split plan against the other NSPLITs in
+   turns. Then
    K1, K2 and K3 at MLA's training width (D = 192: deepseek-v2-lite's q/k
    heads of 128 + 64, v padded from 128), 16 heads, causal, scale
    192^-0.5: q/k/v/dO [4,16,2048,192] and the training run's micro-batch
@@ -973,74 +980,102 @@ def _sdpa_backend(q, k, v, mask, scale: float, causal: bool = False) -> str:
         return str(choice)
 
 
+# K1's MLA entry at deepseek-v2-lite's chunks (C, q_offset) over a 2048-slot
+# row: the serving chunk at three depths, a short prompt's only chunk, the
+# ragged chunk, and a short turn deep in the row. The first is the
+# reported row.
+MLA_SHAPES = ((256, 512), (256, 0), (256, 1792), (32, 0), (40, 260), (32, 1792))
+
+
+def mla_bound(h: int, c: int, q_offset: int, d: int, rank: int) -> tuple[float, str]:
+    """The least time of one MLA chunk: q read, o (``rank`` wide) and the
+    f32 lse written, the row's keys up to the causal frontier read once;
+    2 x D FLOP a live (query, key) pair for S and 2 x ``rank`` for P V,
+    since o is ``rank`` wide."""
+    live = h * (c * q_offset + c * (c + 1) // 2)
+    nbytes = h * c * d * 2 + h * c * rank * 2 + h * c * 4 + (q_offset + c) * d * 2
+    return bound_ms(nbytes, (2 * d + 2 * rank) * live)
+
+
 def mla_kernel_phase() -> dict:
-    """K1's absorbed-MLA form (D = 576, ``csrc/flash_fwd_mla.cu``) at
-    deepseek-v2-lite's serving chunk: q [1,16,256,576] over one KV head
-    [1,1,2048,576] whose last 64 value columns are zero (the latent's rope
-    part), bf16, at q_offset 512 (the reported row), 0 and 1792. o and lse
-    against the plain version, o under the element-wise rule and the
-    tile-wise relative RMS rule (``grad_close``); two launches
-    bit-identical; the zero value columns give zero output columns. Then
-    timed beside its bound (q read, o and the lse written once, the 576
-    keys' k and v the chunk can see read once; 4 x 576 FLOP a live pair),
+    """K1's absorbed-MLA entry (``flash.flash_mla_with_lse``: D = 576,
+    ``csrc/flash_fwd_mla.cu``) at deepseek-v2-lite's chunks (MLA_SHAPES):
+    q [1,16,C,576] over the latent row [1,1,2048,576], whose value is the
+    row with its 64 rope columns zeroed, as the engine gives it. o (512
+    wide) and lse against the plain version, o under the element-wise rule
+    and the tile-wise relative RMS rule (``grad_close``); two launches
+    bit-identical. Each shape is timed beside its bound (``mla_bound``),
     the plain version and one SDPA call with the offset-causal mask and
-    K/V expanded to the 16 heads, naming the backend SDPA takes."""
+    the row expanded to the 16 heads (its value zeroed past 512, naming
+    the backend SDPA takes), and the split plan against the other NSPLITs
+    in turns (each candidate, then each again in reverse order): 1, half
+    the plan's, and the split that fills the SMs. The floor of the timing
+    (an empty kernel through ``time_ms``) is reported beside them."""
     c = llama.CONFIGS[DEEPSEEK]
     g = torch.Generator(device="cuda").manual_seed(8)
     h, rank, t = c.n_heads, c.kv_lora_rank, 2048
     d, scale = rank + c.qk_rope_head_dim, c.attention_scale
-    k = torch.randn(1, 1, t, d, generator=g, device="cuda").bfloat16()
-    v = torch.randn(1, 1, t, d, generator=g, device="cuda").bfloat16()
-    v[..., rank:] = 0
-    errs, tiles, inputs = [], [], {}
-    for q_offset in (512, 0, 1792):
-        q = torch.randn(1, h, CHUNK, d, generator=g, device="cuda").bfloat16()
-        kw = dict(scale=scale, q_offset=q_offset)
-        o, lse = flash.flash_attention_with_lse(q, k, v, **kw)
-        o2, lse2 = flash.flash_attention_with_lse(q, k, v, **kw)
-        po, plse = flash.flash_attention_plain(q, k, v, **kw)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    row = torch.randn(1, 1, t, d, generator=g, device="cuda").bfloat16()
+    value = flash.mla_value(row, rank)
+    kx, vx = row.expand(1, h, t, d), value.expand(1, h, t, d)
+    shapes, errs, tiles = {}, [], []
+    for chunk, q_offset in MLA_SHAPES:
+        q = torch.randn(1, h, chunk, d, generator=g, device="cuda").bfloat16()
+        kw = dict(rank=rank, scale=scale, q_offset=q_offset)
+        what = f"flash_fwd_mla C={chunk} q_offset={q_offset}"
+        o, lse = flash.flash_mla_with_lse(q, row, **kw)
+        o2, lse2 = flash.flash_mla_with_lse(q, row, **kw)
+        po, plse = flash.flash_mla_plain(q, row, **kw)
         torch.cuda.synchronize()
-        what = f"flash_fwd d576 q_offset={q_offset}"
         err, rms = grad_close(o, po, what)
-        errs += [err, assert_close(lse, plse, what + " lse")]
-        tiles.append(rms)
+        err = max(err, assert_close(lse, plse, what + " lse"))
         if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
             raise AssertionError(f"{what}: two launches differ")
-        if o[..., rank:].any():
-            raise AssertionError(f"{what}: the zero value columns gave nonzero output")
-        inputs[q_offset] = (q, kw, po)
-    q, kw, po = inputs[512]
-    q_offset = kw["q_offset"]
-    qi = q_offset + torch.arange(CHUNK, device="cuda")[:, None]
-    mask = qi >= torch.arange(t, device="cuda")[None, :]
-    keys = q_offset + CHUNK  # the causal frontier: what the chunk needs of k and v
-    nbytes = 2 * q.numel() * 2 + h * CHUNK * 4 + 2 * keys * d * 2
-    b_ms, b_by = bound_ms(nbytes, 4 * d * h * int(mask.sum()))
-    kx, vx = k.expand(1, h, t, d), v.expand(1, h, t, d)
-    backend = _sdpa_backend(q, kx, vx, mask, scale)
+        plan = flash.mla_plan(1, h, chunk, t, q_offset, sms)
+        reach = min(-(-t // flash.MLA_TILE), (q_offset + chunk - 1) // flash.MLA_TILE + 1)
+        fill = min(reach, sms // -(-chunk // (flash.MLA_ROWS // h)))
+        candidates = sorted({plan, 1, max(1, plan // 2), fill})
+        for ns in candidates:
+            if ns != plan:
+                oo, olse = flash._flash_mla_launch(q, row, nsplit=ns, **kw)
+                grad_close(oo, po, f"{what} nsplit={ns}")
+                assert_close(olse, plse, f"{what} nsplit={ns} lse")
+        split_ms: dict = {}
+        for ns in candidates + candidates[::-1]:
+            split_ms.setdefault(str(ns), []).append(
+                time_ms(lambda ns=ns: flash._flash_mla_launch(q, row, nsplit=ns, **kw)))
+        ms = sum(split_ms[str(plan)]) / 2
+        qi = q_offset + torch.arange(chunk, device="cuda")[:, None]
+        mask = qi >= torch.arange(t, device="cuda")[None, :]
+        backend = _sdpa_backend(q, kx, vx, mask, scale)
 
-    def library():
-        return torch.nn.functional.scaled_dot_product_attention(q, kx, vx, attn_mask=mask, scale=scale)
+        def library(q=q, mask=mask):
+            return torch.nn.functional.scaled_dot_product_attention(q, kx, vx, attn_mask=mask, scale=scale)
 
-    row = {
-        "ms": time_ms(lambda: flash.flash_attention_with_lse(q, k, v, **kw)),
-        "plain_ms": time_ms(lambda: flash.flash_attention_plain(q, k, v, **kw)),
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "max_abs_err": max(errs),
-        "tile_rel_rms": max(tiles),
-        "q_offsets": [512, 0, 1792],
-    }
-    try:
-        assert_close(library(), po, "SDPA yardstick at D = 576")
-        row["library_ms"] = time_ms(library)
-        row["library_note"] = f"SDPA, offset-causal mask, K/V expanded to {h} heads; backend {backend}"
-    except (RuntimeError, AssertionError) as e:
-        row["library_ms"] = None
-        row["library_note"] = f"no single SDPA call computes it here ({backend}): {str(e)[:200]}"
-    log(f"kernel flash_fwd d576 q {list(q.shape)} q_offset={q_offset} k/v {list(k.shape)}: "
-        + json.dumps(row))
-    return {"flash_fwd_d576": row}
+        b_ms, b_by = mla_bound(h, chunk, q_offset, d, rank)
+        entry = {
+            "ms": ms, "nsplit": plan, "split_ab_ms": split_ms,
+            "plain_ms": time_ms(lambda: flash.flash_mla_plain(q, row, **kw)),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "tile_rel_rms": rms,
+        }
+        try:
+            assert_close(library()[..., :rank], po, f"SDPA yardstick at D = 576, {what}")
+            entry["library_ms"] = time_ms(library)
+            entry["library_note"] = f"SDPA, offset-causal mask, the row expanded to {h} heads; backend {backend}"
+        except (RuntimeError, AssertionError) as e:
+            entry["library_ms"] = None
+            entry["library_note"] = f"no single SDPA call computes it here ({backend}): {str(e)[:200]}"
+        log(f"kernel flash_fwd_mla q {list(q.shape)} q_offset={q_offset} row {list(row.shape)}: "
+            + json.dumps(entry))
+        shapes[f"C{chunk}_q{q_offset}"] = entry
+        errs.append(err)
+        tiles.append(rms)
+    reported = shapes["C%d_q%d" % MLA_SHAPES[0]]
+    floor = time_ms(lambda: torch.cuda._sleep(1))
+    log(f"timing floor (an empty kernel through time_ms): {floor} ms")
+    return {"flash_fwd_d576": {**reported, "max_abs_err": max(errs), "tile_rel_rms": max(tiles),
+                               "shapes": shapes, "timing_floor_ms": floor}}
 
 
 def mla_train_kernel_phase() -> dict:
@@ -1126,8 +1161,9 @@ def ptxas_gate() -> dict:
                        if not any(f.startswith(f"{name}_kernel<{d}") for f in ptxas[name])]
             if missing:
                 raise AssertionError(f"{name}: no compiled form for head_dim {missing}: {ptxas[name]}")
-        if name == "flash_fwd_mla" and f"{name}_kernel<{flash.MLA_HEAD_DIM}>" not in ptxas[name]:
-            raise AssertionError(f"{name}: no compiled form for head_dim {flash.MLA_HEAD_DIM}: {ptxas[name]}")
+        if name == "flash_fwd_mla" and not {f"{name}_kernel<{flash.MLA_HEAD_DIM}>",
+                                            "flash_mla_combine_kernel"} <= set(ptxas[name]):
+            raise AssertionError(f"{name}: no compiled D = {flash.MLA_HEAD_DIM} form or combine: {ptxas[name]}")
     return ptxas
 
 
@@ -1720,7 +1756,8 @@ def _kernel_family(name: str) -> str:
                      ("flash_bwd_dq_kernel", "K2 flash_bwd_dq"),
                      ("flash_bwd_dkv_kernel", "K3 flash_bwd_dkv"),
                      ("flash_decode_kernel", "K4 flash_decode"),
-                     ("flash_decode_combine_kernel", "K4 flash_decode")):
+                     ("flash_decode_combine_kernel", "K4 flash_decode"),
+                     ("flash_mla_combine_kernel", "K1 flash_fwd_mla")):
         if key in name:
             return fam
     low = name.lower()
@@ -2087,7 +2124,7 @@ def main() -> int:
                                           "library_ms")},
             **{k: rows[name][k] for k in ("tile_rel_rms", "training_shape", "trainer_shape", "trainer_shapes",
                                           "nsplit", "rows_per_block", "library_note", "window_0",
-                                          "softcap_50", "q_offsets")
+                                          "softcap_50", "shapes", "timing_floor_ms")
                if k in rows[name]},
             "ptxas": ptxas[src.rsplit("/", 1)[1][:-3]],
         })

@@ -42,11 +42,16 @@ roles over one 64-key tile: one forms dV, the other dK.
 
 K1's absorbed-MLA form (head width 576: DeepSeek's latent row
 ``[ckv ; k_pe]``, ``_prefill_chunk_mla`` at dstack_tpu/serve/engine.py:482)
-is its own source, ``csrc/flash_fwd_mla.cu``: the wgmma/TMA shape of
-``flash_fwd.cu`` does not carry a 576-wide row (see the source).
-:func:`flash_attention_with_lse` launches it for D = 576, without a
-window or a softcap; K2 and K3 refuse D = 576: MLA trains through the
-non-absorbed form at D = 192.
+has its own entry, :func:`flash_mla_with_lse`, and its own source,
+``csrc/flash_fwd_mla.cu``. It takes the latent row once: JAX's value is
+the same row with its rope columns zeroed, whose output columns JAX
+slices away, so the kernel reads V as the first ``rank`` columns of the K
+tile it holds and returns o at width ``rank`` (FlashMLA's design). Its
+block packs the 16 query heads that share the row into a tile's rows,
+and :func:`mla_plan` splits the keys where the grid is short of the SMs.
+:func:`flash_attention_with_lse` refuses D = 576 and names the entry; K2
+and K3 refuse it too: MLA trains through the non-absorbed form at
+D = 192.
 
 Each wrapper takes the plain version only for tensors on the CPU (the
 CPU tests); for a CUDA tensor it launches the kernel or raises.
@@ -65,6 +70,10 @@ NEG_INF = -1e30
 # the compiled head widths of K1, K2 and K3 (192: MLA training; 256: Gemma)
 HEAD_DIMS = (64, 128, 192, 256)
 MLA_HEAD_DIM = 576  # K1's absorbed-MLA form (csrc/flash_fwd_mla.cu): DeepSeek's 512 + 64
+MLA_RANK = 512  # its value columns: the latent row's first 512
+MLA_ROWS = 64  # rows a block of it: 64 / H query positions x H heads
+MLA_TILE = 64  # keys a tile of its walk
+MLA_MAX_SPLIT = 8  # the most key splits it takes: 16 read 6 % slower than 8 at C 32, q_offset 1792 (PERF.md)
 
 # kernel launches since each count was last set to 0 (the plain versions
 # never count): chip_smoke.py reads them to prove a path ran the kernels
@@ -167,7 +176,7 @@ def sink_postscale(o: torch.Tensor, lse: torch.Tensor, sinks: torch.Tensor) -> t
     return (o.float() * gate).to(o.dtype)
 
 
-def _check_kernel_args(q, k, v, head_dims=HEAD_DIMS, **like_q) -> None:
+def _check_kernel_args(q, k, v, **like_q) -> None:
     """Shapes, device, dtype, layout and alignment the kernels take;
     ``like_q`` names more bf16 tensors shaped like q (dO)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -175,8 +184,8 @@ def _check_kernel_args(q, k, v, head_dims=HEAD_DIMS, **like_q) -> None:
     b, h, _, d = q.shape
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[1]:
         raise ValueError(f"flash: mismatched q {tuple(q.shape)} and k/v {tuple(k.shape)}")
-    if d not in head_dims:
-        raise ValueError(f"flash: head_dim {d} not in the kernel's {head_dims}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash: head_dim {d} not in the kernel's {HEAD_DIMS}")
     for name, t in like_q.items():
         if t.shape != q.shape:
             raise ValueError(f"flash: {name} {tuple(t.shape)} is not shaped like q {tuple(q.shape)}")
@@ -208,8 +217,12 @@ def flash_attention_with_lse(
     global positions for the causal mask (``q_offset=start`` for a
     prefill chunk over the whole cache row); ``window`` keeps key j for
     query i iff ``0 <= i - j < window``; ``softcap`` caps raw scores.
-    At D = 576 (MLA) the kernel is ``csrc/flash_fwd_mla.cu``, which takes
-    neither a window nor a softcap."""
+    D = 576, MLA's absorbed form, is :func:`flash_mla_with_lse`'s."""
+    if q.shape[-1] == MLA_HEAD_DIM:
+        raise ValueError(
+            f"flash: D = {MLA_HEAD_DIM} is MLA's absorbed form: call "
+            "flash_mla_with_lse(q_abs, row, rank=..., scale=..., q_offset=...)"
+        )
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, scale=scale, q_offset=q_offset,
@@ -217,25 +230,18 @@ def flash_attention_with_lse(
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash: no kernel for device {q.device}")
-    mla = q.shape[-1] == MLA_HEAD_DIM
-    _check_kernel_args(q, k, v, head_dims=HEAD_DIMS + (MLA_HEAD_DIM,))
-    if mla and (window or softcap):
-        raise ValueError(f"flash: the D = {MLA_HEAD_DIM} form takes no window or softcap")
+    _check_kernel_args(q, k, v)
     b, h, tq, d = q.shape
     scale = float(scale) if scale is not None else d**-0.5
     o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    source = "flash_fwd_mla" if mla else "flash_fwd"
-    err = _fn(source, f"dtpu_{source}", 5)(
+    err = _fn("flash_fwd", "dtpu_flash_fwd", 5)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         *_shape_args(q, k, scale, causal, q_offset, kv_offset, window, softcap),
     )
-    cuda_build.check(err, source)
-    global LAUNCHES, LAUNCHES_MLA
-    if mla:
-        LAUNCHES_MLA += 1
-    else:
-        LAUNCHES += 1
+    cuda_build.check(err, "flash_fwd")
+    global LAUNCHES
+    LAUNCHES += 1
     return o, lse
 
 
@@ -246,6 +252,114 @@ def _shape_args(q, k, scale, causal, q_offset, kv_offset, window, softcap) -> tu
         int(q_offset), int(kv_offset), int(window), float(softcap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
+
+
+# ---------------------------------------------------------------------------
+# MLA's absorbed form (D = 576)
+# ---------------------------------------------------------------------------
+
+
+def mla_value(row: torch.Tensor, rank: int) -> torch.Tensor:
+    """The absorbed value: the latent row with its rope columns (those
+    past ``rank``) zeroed, as JAX builds it (engine.py:525-529)."""
+    return torch.cat([row[..., :rank], torch.zeros_like(row[..., rank:])], dim=-1)
+
+
+def flash_mla_plain(
+    q_abs: torch.Tensor,  # [B, H, C, R]
+    row: torch.Tensor,  # [B, 1, T, R] the slot's latent row
+    *,
+    rank: int,
+    scale: float,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX's absorbed chunk attention, ``attention(q_abs, row,
+    value(row), causal, q_offset)[..., :rank]``, with the f32 logsumexp:
+    (o [B, H, C, rank], lse [B, H, C])."""
+    o, lse = flash_attention_plain(
+        q_abs, row, mla_value(row, rank), causal=True, scale=scale, q_offset=q_offset
+    )
+    return o[..., :rank], lse
+
+
+def mla_plan(b: int, h: int, c: int, t: int, q_offset: int, sms: int = 132) -> int:
+    """NSPLIT of the D = 576 kernel from the host's shapes: its grid is
+    ceil(C / (MLA_ROWS / H)) x B blocks; where that is short of ``sms``
+    the keys are split so the grid reaches about one block an SM, but
+    into no more than MLA_MAX_SPLIT. A split writes f32 partials of all
+    C x H rows for the combine to merge, so it must walk at least one
+    key tile of the longest walk (``q_offset + c`` keys) for each
+    MLA_TILE positions of the chunk."""
+    blocks = b * -(-c // (MLA_ROWS // h))
+    reach = min(-(-t // MLA_TILE), (q_offset + c - 1) // MLA_TILE + 1)
+    return max(1, min(reach // -(-c // MLA_TILE), sms // blocks, MLA_MAX_SPLIT))
+
+
+def flash_mla_with_lse(
+    q_abs: torch.Tensor,  # [B, H, C, 576] bf16
+    row: torch.Tensor,  # [B, 1, T, 576] bf16
+    *,
+    rank: int,
+    scale: float,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """MLA's absorbed chunk attention → (o [B, H, C, rank], lse [B, H,
+    C] f32): the queries over their slot's latent row, causal at
+    ``q_offset``, the value the row's first ``rank`` columns. The plain
+    version (:func:`flash_mla_plain`) only for a CPU tensor; a CUDA
+    tensor launches ``csrc/flash_fwd_mla.cu`` (and its combine when
+    :func:`mla_plan` splits the keys) or raises."""
+    if q_abs.device.type == "cpu":
+        return flash_mla_plain(q_abs, row, rank=rank, scale=scale, q_offset=q_offset)
+    return _flash_mla_launch(q_abs, row, rank=rank, scale=scale, q_offset=q_offset)
+
+
+def _flash_mla_launch(q_abs, row, *, rank, scale, q_offset, nsplit=None):
+    """The D = 576 kernel's launch, with ``nsplit`` splits of the keys
+    (None: :func:`mla_plan`'s). Only the kernel's checks and timings
+    choose another NSPLIT than the plan's."""
+    if q_abs.device.type != "cuda":
+        raise ValueError(f"flash_mla: no kernel for device {q_abs.device}")
+    if q_abs.dim() != 4 or row.dim() != 4 or row.shape[1] != 1 or row.shape[0] != q_abs.shape[0]:
+        raise ValueError(f"flash_mla: want q [B,H,C,D], row [B,1,T,D]; got {tuple(q_abs.shape)}, {tuple(row.shape)}")
+    b, h, c, d = q_abs.shape
+    t = row.shape[2]
+    if d != MLA_HEAD_DIM or row.shape[3] != d or rank != MLA_RANK:
+        raise ValueError(f"flash_mla: the kernel takes D = {MLA_HEAD_DIM}, rank {MLA_RANK}; got D {d}, rank {rank}")
+    if MLA_ROWS % h or q_offset < 0:
+        raise ValueError(f"flash_mla: H = {h} must divide {MLA_ROWS}, q_offset {q_offset} >= 0")
+    for name, x in (("q_abs", q_abs), ("row", row)):
+        if x.device != q_abs.device:
+            raise ValueError(f"flash_mla: {name} on {x.device}, q_abs on {q_abs.device}")
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"flash_mla: {name} is {x.dtype}; the kernel takes bfloat16")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"flash_mla: {name} must be contiguous and 16-byte aligned")
+    if nsplit is None:
+        nsplit = mla_plan(b, h, c, t, int(q_offset),
+                          torch.cuda.get_device_properties(q_abs.device).multi_processor_count)
+    o = torch.empty((b, h, c, rank), dtype=torch.bfloat16, device=q_abs.device)
+    lse = torch.empty((b, h, c), dtype=torch.float32, device=q_abs.device)
+    # the f32 partials in one allocation: acc [nsplit, B*H*C, rank], m, l
+    # [nsplit, B*H*C]; freed after the enqueue, reused in stream order
+    ws = [None, None, None]
+    if nsplit > 1:
+        n = nsplit * b * h * c
+        buf = torch.empty(n * (rank + 2), dtype=torch.float32, device=q_abs.device)
+        ws = [buf.data_ptr() + 4 * n * off for off in (0, rank, rank + 1)]
+    fn = cuda_build.load("flash_fwd_mla").dtpu_flash_mla
+    if fn.argtypes is None:
+        fn.restype = _c_int
+        fn.argtypes = [_c_void] * 7 + [_c_int] * 6 + [_c_float, _c_int, _c_int, _c_void]
+    err = fn(
+        q_abs.data_ptr(), row.data_ptr(), o.data_ptr(), lse.data_ptr(), *ws,
+        b, h, c, t, d, rank, float(scale), int(q_offset), int(nsplit),
+        torch.cuda.current_stream(q_abs.device).cuda_stream,
+    )
+    cuda_build.check(err, "flash_fwd_mla")
+    global LAUNCHES_MLA
+    LAUNCHES_MLA += 1
+    return o, lse
 
 
 # ---------------------------------------------------------------------------

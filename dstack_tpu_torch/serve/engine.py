@@ -28,9 +28,10 @@ theta), q/k norms before rope, the attention softcap inside K1, K4 and
 the masked attention, sandwich norms on both sublayers' outputs, the
 sqrt(H) embedding scale and the final-logit cap. DeepSeek's MLA caches
 one latent row a token (``ckv``, 576 values on V2-Lite) and attends in
-the absorbed form: a serial chunk through K1 at head width 576 over the
-slot's latent row, a packed wave through the masked attention, decode
-and verify through plain products over the row, as JAX's einsums do;
+the absorbed form: a serial chunk through K1's MLA entry
+(``flash_mla_with_lse``) over the slot's latent row, a packed wave
+through the masked attention, decode and verify through plain products
+over the row, as JAX's einsums do;
 its MoE layers add DeepSeek's router deltas and shared expert after a
 dense prelude.
 
@@ -66,6 +67,7 @@ from dstack_tpu_torch.models.llama import (
     rotate,
 )
 from dstack_tpu_torch.ops.attention import attention
+from dstack_tpu_torch.ops.flash import flash_mla_plain, flash_mla_with_lse, mla_value
 from dstack_tpu_torch.ops.flash_decode import (
     flash_decode,
     flash_decode_plain,
@@ -599,9 +601,11 @@ def verify_step(
 # kv_lora_rank + qk_rope_head_dim (576 on DeepSeek-V2) whose value is the
 # latent itself, its rope columns zeroed; the cache never holds per-head
 # K/V (dstack_tpu/serve/engine.py:389-660). A serial chunk attends through
-# K1 at that width; a packed wave through the masked attention (per-row
-# offsets); decode and verify are plain products over the latent row, as
-# JAX's einsums are (K4 has no MLA form on either side).
+# K1's MLA entry, which reads the value as the row's first kv_lora_rank
+# columns and never builds it; a packed wave through the masked attention
+# over the built value (per-row offsets); decode and verify are plain
+# products over the latent row, as JAX's einsums are (K4 has no MLA form
+# on either side).
 
 
 def _mla_kb(layer: dict, c: LlamaConfig) -> tuple:
@@ -632,11 +636,6 @@ def _mla_layer(x: torch.Tensor, layer: dict, c: LlamaConfig, rope, attend, ck) -
     return _mlp(x + _attn_out(o, layer, c), layer, c)
 
 
-def _mla_value(row: torch.Tensor, c: LlamaConfig) -> torch.Tensor:
-    """The absorbed value: the latent row with its rope columns zeroed."""
-    return torch.cat([row[..., : c.kv_lora_rank], torch.zeros_like(row[..., c.kv_lora_rank :])], dim=-1)
-
-
 def _mla_walk(params: dict, cache: dict, x: torch.Tensor, c: LlamaConfig, rope, attend) -> torch.Tensor:
     """Every layer in order (the dense prelude, then the MoE stack: JAX's
     ``_mla_scan``) with its ``[B, 1, T_max, R]`` view of the latent cache,
@@ -650,16 +649,19 @@ def _prefill_chunk_mla(params, cache, tokens, slot, last_ix, c, *, start, impl=N
     """MLA chunked prefill (``_prefill_chunk_mla``, engine.py:482): the
     chunk's latent rows write into the slot's row, then the absorbed
     queries ``[1, H, C, R]`` attend over the whole row as MQA with one
-    KV head of width R, causal at ``q_offset=start``: K1 at D = 576 on the
-    card."""
+    KV head of width R, causal at ``q_offset=start``, the value the row's
+    first ``kv_lora_rank`` columns: ``flash_mla_with_lse`` (K1's MLA
+    kernel on the card), or its plain version with ``impl="plain"``."""
+    if impl not in (None, "plain"):
+        raise ValueError(f"attention: impl={impl!r}: expected None or 'plain'")
     cos, sin = dual_rope_freqs(c, start + torch.arange(tokens.shape[1], device=tokens.device))[0]
 
     def attend(q_abs, rows, ck):
         _cwrite_chunk(ck, rows[:, None], slot, start)
         row = _cread_row(ck, slot, rows.dtype)  # [1, 1, T_max, R]
-        o = attention(q_abs.to(c.dtype).contiguous(), row, _mla_value(row, c), causal=True,
-                      scale=c.attention_scale, q_offset=int(start), impl=impl)
-        return o[..., : c.kv_lora_rank]
+        fwd = flash_mla_plain if impl == "plain" else flash_mla_with_lse
+        return fwd(q_abs.to(c.dtype).contiguous(), row, rank=c.kv_lora_rank,
+                   scale=c.attention_scale, q_offset=int(start))[0]
 
     x = _mla_walk(params, cache, _embed_lookup(params, tokens, c), c,
                   lambda t: apply_rope(t, cos, sin, interleaved=True), attend)
@@ -682,7 +684,7 @@ def _prefill_packed_mla(params, cache, tokens, slots, starts, last_ix, c):
     def attend(q_abs, rows, ck):
         _cwrite_at(ck, si, write_pos, rows[:, :, None])
         row = _cread_rows(ck, si, rows.dtype)  # [G, 1, T_max, R]
-        o = attention(q_abs.to(c.dtype), row, _mla_value(row, c), causal=True,
+        o = attention(q_abs.to(c.dtype), row, mla_value(row, c.kv_lora_rank), causal=True,
                       scale=c.attention_scale, q_offset=starts)
         return o[..., : c.kv_lora_rank]
 

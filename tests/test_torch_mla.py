@@ -19,9 +19,8 @@ reference's own f32 tolerance), the four MLA step functions (logits and
 the latent cache within 1e-4), the turbo loop, and the serial and
 default engines' greedy tokens, a prefix-cache hit included. Both
 packages refuse the int8 cache for MLA. MLA training is held to JAX in
-tests/test_torch_mla_train.py. The ``cuda``-marked tests hold
-K1's D = 576 kernel to its plain version on the card (bf16, 2e-2, both of
-``chip_smoke.py``'s rules) and skip where there is none.
+tests/test_torch_mla_train.py; K1's MLA entry (``flash_mla_with_lse``),
+on the CPU and on the card, in tests/test_torch_mla_kernel.py.
 """
 
 import dataclasses
@@ -98,13 +97,6 @@ def model(request):
     tree = _tree(jc)
     return (request.param, jc, tc, jax.tree.map(jnp.asarray, tree),
             tllama.params_from_jax(tree, tc, device="cpu"))
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the hand-written kernels run only on the card")
-    return torch.device("cuda")
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +220,7 @@ def test_flash_plain_d576_matches_pallas_interpret():
     scale = 192**-0.5
     jo, jl = jflash._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), True, scale, 128, 128,
                                128, 0, True)
-    to, tl = tflash.flash_attention_with_lse(_t(q), _t(k), _t(v), scale=scale, q_offset=128)
+    to, tl = tflash.flash_attention_plain(_t(q), _t(k), _t(v), scale=scale, q_offset=128)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=TOL, rtol=TOL)
     # the Pallas kernel's lse carries a trailing axis of 1
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl).reshape(tl.shape), atol=TOL, rtol=TOL)
@@ -297,6 +289,22 @@ class TestStepFunctions:
         _assert_cache(tcache, jcache)
         assert tcache["ckv"][:, 1, :80].abs().sum(-1).min() > 0  # every prompt row written
         assert not tcache["ckv"][:, 0].any() and not tcache["ckv"][:, 1, 96:].any()
+
+    @pytest.mark.parametrize("impl", ["plain", "flash"])
+    def test_prefill_chunk_step_impl(self, model, impl):
+        """``impl="plain"`` takes the plain version (on the CPU the same
+        as the default); any other value raises, as the GQA path's does."""
+        _, _, tc, _, tp = model
+        toks = torch.tensor(_prompts(3, [CHUNK]))
+        args = (tp, tengine.init_cache(tc, 1, MAX_SEQ, device="cpu"), toks, 0, CHUNK - 1, tc)
+        if impl != "plain":
+            with pytest.raises(ValueError, match="impl="):
+                tengine.prefill_chunk_step(*args, start=0, impl=impl)
+            return
+        want, _ = tengine.prefill_chunk_step(*args, start=0)
+        args = (tp, tengine.init_cache(tc, 1, MAX_SEQ, device="cpu"), *args[2:])
+        got, _ = tengine.prefill_chunk_step(*args, start=0, impl=impl)
+        assert torch.equal(got, want)
 
     def test_prefill_packed_step(self, model):
         _, jc, tc, jp, tp = model
@@ -430,23 +438,28 @@ def test_engines_emit_identical_greedy_tokens(model, mode):
 
 def test_the_mla_path_runs_k1_per_serial_chunk_and_never_k4(model, monkeypatch):
     """The identities chip_smoke.py checks on the card, counted through
-    the plain versions' calls: the attention with an int offset (K1 on the
-    card) n_layers times a serial chunk at D = 576, and no call of K4's
-    wrapper on any step."""
+    the wrappers' calls: K1's MLA entry ``flash_mla_with_lse`` n_layers
+    times a serial chunk, over the latent row alone (no value tensor),
+    the masked attention only with a packed wave's vector offset, and no
+    call of K4's wrapper on any step."""
     _, _, tc, _, tp = model
     calls = {"k1": 0}
-    real = tengine.attention
+    real_mla, real_attention = tengine.flash_mla_with_lse, tengine.attention
+
+    def fm(q_abs, row, **kw):
+        assert q_abs.shape[-1] == row.shape[-1] == tc.kv_lora_rank + tc.qk_rope_head_dim
+        assert row.shape[1] == 1 and kw["rank"] == tc.kv_lora_rank
+        calls["k1"] += 1
+        return real_mla(q_abs, row, **kw)
 
     def fa(q, k, v, **kw):
-        if isinstance(kw["q_offset"], int):
-            assert q.shape[-1] == k.shape[-1] == tc.kv_lora_rank + tc.qk_rope_head_dim
-            assert k.shape[1] == 1
-            calls["k1"] += 1
-        return real(q, k, v, **kw)
+        assert isinstance(kw["q_offset"], torch.Tensor), "a serial MLA chunk took the GQA attention"
+        return real_attention(q, k, v, **kw)
 
     def no_k4(*a, **kw):
         raise AssertionError("an MLA step reached K4")
 
+    monkeypatch.setattr(tengine, "flash_mla_with_lse", fm)
     monkeypatch.setattr(tengine, "attention", fa)
     monkeypatch.setattr(tengine, "flash_decode", no_k4)
     monkeypatch.setattr(tengine, "flash_decode_plain", no_k4)
@@ -456,65 +469,3 @@ def test_the_mla_path_runs_k1_per_serial_chunk_and_never_k4(model, monkeypatch):
     st = eng.stats
     assert st["decode_steps"] + st["spec_steps"] + st["turbo_device_steps"]
     assert calls["k1"] == tc.n_layers * (st["prefill_dispatches"] - st["packed_dispatches"]) > 0
-
-
-# ---------------------------------------------------------------------------
-# on the card
-# ---------------------------------------------------------------------------
-
-
-def _k1_d576(cuda, c, q_offset, t=2048, seed=0):
-    g = torch.Generator(device=cuda).manual_seed(seed)
-    q = torch.randn(1, 16, c, 576, generator=g, device=cuda).bfloat16()
-    k = torch.randn(1, 1, t, 576, generator=g, device=cuda).bfloat16()
-    v = torch.randn(1, 1, t, 576, generator=g, device=cuda).bfloat16()
-    v[..., 512:] = 0
-    return q, k, v
-
-
-@pytest.mark.cuda
-class TestFlashMLAOnTheCard:
-    """K1's D = 576 kernel against its plain version at the MLA chunk's
-    shapes, under both of chip_smoke.py's rules: element-wise within
-    atol = rtol = 2e-2, and per 32-row tile within 1e-2 relative RMS."""
-
-    @pytest.mark.parametrize("chunk", [256, 128])
-    @pytest.mark.parametrize("q_offset", [0, 512, 1792])
-    def test_matches_plain(self, cuda, chunk, q_offset):
-        from chip_smoke import tile_rel_rms
-
-        q, k, v = _k1_d576(cuda, chunk, q_offset)
-        kw = dict(scale=192**-0.5, q_offset=q_offset)
-        before = tflash.LAUNCHES_MLA
-        o, lse = tflash.flash_attention_with_lse(q, k, v, **kw)
-        po, plse = tflash.flash_attention_plain(q, k, v, **kw)
-        torch.cuda.synchronize()
-        assert tflash.LAUNCHES_MLA == before + 1
-        torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
-        torch.testing.assert_close(lse, plse, atol=2e-2, rtol=2e-2)
-        assert tile_rel_rms(o, po) <= 1e-2
-        assert not o[..., 512:].any()
-
-    def test_ragged_edges(self, cuda):
-        """A chunk of 40 rows over 300 keys at q_offset 260: the last query
-        tile and the last key tile are both ragged."""
-        q, k, v = _k1_d576(cuda, 40, 260, t=300, seed=1)
-        kw = dict(scale=0.05, q_offset=260)
-        o, lse = tflash.flash_attention_with_lse(q, k, v, **kw)
-        po, plse = tflash.flash_attention_plain(q, k, v, **kw)
-        torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
-        torch.testing.assert_close(lse, plse, atol=2e-2, rtol=2e-2)
-
-    def test_reruns_are_bit_identical(self, cuda):
-        q, k, v = _k1_d576(cuda, 256, 512, seed=2)
-        a = tflash.flash_attention_with_lse(q, k, v, q_offset=512)
-        b = tflash.flash_attention_with_lse(q, k, v, q_offset=512)
-        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-
-    def test_backward_kernels_refuse_d576(self, cuda):
-        q, k, v = _k1_d576(cuda, 128, 0, t=128, seed=3)
-        o, lse = tflash.flash_attention_with_lse(q, k, v)
-        with pytest.raises(ValueError, match="head_dim 576"):
-            tflash.flash_bwd(q, k, v, o, lse, torch.ones_like(q))
-        with pytest.raises(ValueError, match="window or softcap"):
-            tflash.flash_attention_with_lse(q, k, v, window=64)

@@ -3,6 +3,7 @@ another build of the same sources, in turns on one NVIDIA GPU, and the
 full fine-tune step with each.
 
     python3 tools/torch_kernel_ab.py --other DIR [--sources flash_fwd,flash_bwd_dq,flash_bwd_dkv]
+    python3 tools/torch_kernel_ab.py --other DIR --sources flash_fwd_mla
 
 ``DIR`` holds the other version of each source named by ``--sources``
 (default: ``flash_bwd_dq`` and ``flash_bwd_dkv``) with the headers they
@@ -15,8 +16,14 @@ Each of those launchers keeps its C signature from build to build, so
 swapping the loaded libraries swaps the kernels under the same Python
 wrappers. K4 (``flash_decode``) swaps so only with a build whose
 split-K entry point takes the grid plan and the f32 workspaces, as this
-tree's does. Prints one JSON line per measurement, each with the card's
-name and power limit:
+tree's does. K1's D = 576 form (``flash_fwd_mla``) changed its entry
+between builds, and its exported name with it, so the other build's
+entry is read from the symbol it exports: ``dtpu_flash_mla(q, row,
+...)``, this tree's, is called through ``flash.flash_mla_with_lse`` with
+the library swapped under it; the older ``dtpu_flash_fwd_mla(q, k, v,
+...)`` with v the row with its rope columns zeroed and its o 576 wide.
+Prints one JSON line per measurement, each with the card's name and
+power limit:
 
 1. each selected training kernel's ms (``chip_smoke.time_ms``: CUDA
    events, L2 flushed) at q/dO [B,32,2048,64] over k/v [B,8,2048,64],
@@ -27,7 +34,12 @@ name and power limit:
    [8,8,4,D], verify q [8,8,20,D]) and with sinks from N(0, 1) (G 8 as
    gpt-oss: q [8,8,8,D], verify q [8,8,40,D]), each checked against its
    plain version and timed in the same order;
-3. with a training kernel: the full fine-tune step of llama-3.2-1b at
+3. with ``flash_fwd_mla``: q [1,16,C,576] over a latent row
+   [1,1,2048,576] at ``chip_smoke.MLA_SHAPES``, each build's o (sliced to
+   512) and lse held to the plain version by both of chip_smoke.py's
+   rules, then timed in the order other, this, this, other, beside the
+   bound and this build's NSPLIT;
+4. with a training kernel: the full fine-tune step of llama-3.2-1b at
    batch 8 x 2048 (random weights from seed 0; host clock around each
    step, synchronised): 4 steps a turn in the order other, this, this,
    other, other, this; the median, tokens/s and MFU (``flops_per_token``
@@ -55,7 +67,8 @@ from dstack_tpu_torch.ops import cuda_build, flash, flash_decode  # noqa: E402
 from dstack_tpu_torch.serve import engine  # noqa: E402
 from dstack_tpu_torch.train import step as train_step  # noqa: E402
 
-SOURCES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_decode")  # the swappable launchers
+SOURCES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_decode", "flash_fwd_mla")
+SWAPPED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_decode")  # launchers alike in both builds
 TRAINING = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 KERNEL_TURNS = ("other", "this", "this", "other")
 STEP_TURNS = ("other", "this", "this", "other", "other", "this")
@@ -63,16 +76,18 @@ STEPS_A_TURN = 4
 
 
 def build_other(src: Path, names) -> dict:
-    """nvcc each named source of ``src`` with the port's flags → {name: CDLL}."""
+    """nvcc each named source of ``src`` with the port's flags → {name: CDLL};
+    ptxas's report beside each library as ``<name>.ptxas.log``."""
     libs, procs = {}, {}
     for name in names:
         out = src / f"{name}.so"
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out), str(src / f"{name}.cu")]
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas=-v", "-o", str(out), str(src / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
     for name, (proc, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {src / name}.cu failed:\n{log}")
+        (src / f"{name}.ptxas.log").write_text(log)
         libs[name] = ctypes.CDLL(str(out))
     return libs
 
@@ -110,6 +125,57 @@ def decode_ab(card: str, use) -> None:
                               "q": list(q.shape), "cache": list(k.shape), "ms": ms}), flush=True)
 
 
+def mla_ab(card: str, other: ctypes.CDLL) -> None:
+    """K1's D = 576 form of each build at chip_smoke's MLA shapes
+    (section 3), each build called through the entry it exports."""
+    c = llama.CONFIGS[chip_smoke.DEEPSEEK]
+    h, rank, t = c.n_heads, c.kv_lora_rank, 2048
+    d, scale = rank + c.qk_rope_head_dim, c.attention_scale
+    this = cuda_build.load("flash_fwd_mla")
+    takes_row = hasattr(other, "dtpu_flash_mla")
+    fn = None if takes_row else other.dtpu_flash_fwd_mla
+    if fn is not None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + flash._SHAPE_ARGS
+    g = torch.Generator(device="cuda").manual_seed(8)
+    row = torch.randn(1, 1, t, d, generator=g, device="cuda").bfloat16()
+    value = flash.mla_value(row, rank)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for chunk, q_offset in chip_smoke.MLA_SHAPES:
+        q = torch.randn(1, h, chunk, d, generator=g, device="cuda").bfloat16()
+        o_other = torch.empty_like(q)
+        lse_other = torch.empty(1, h, chunk, dtype=torch.float32, device="cuda")
+        kw = dict(rank=rank, scale=scale, q_offset=q_offset)
+
+        def run_other():
+            if takes_row:
+                cuda_build._libs["flash_fwd_mla"] = other
+                try:
+                    return flash.flash_mla_with_lse(q, row, **kw)
+                finally:
+                    cuda_build._libs["flash_fwd_mla"] = this
+            err = fn(q.data_ptr(), row.data_ptr(), value.data_ptr(), o_other.data_ptr(), lse_other.data_ptr(),
+                     *flash._shape_args(q, row, scale, True, q_offset, 0, 0, 0.0))
+            cuda_build.check(err, "other flash_fwd_mla")
+            return o_other[..., :rank], lse_other
+
+        calls = {"other": run_other, "this": lambda: flash.flash_mla_with_lse(q, row, **kw)}
+        po, plse = flash.flash_mla_plain(q, row, **kw)
+        for tag, call in calls.items():
+            o, lse = call()
+            torch.cuda.synchronize()
+            chip_smoke.grad_close(o, po, f"{tag} flash_fwd_mla C={chunk} q_offset={q_offset}")
+            chip_smoke.assert_close(lse, plse, f"{tag} flash_fwd_mla C={chunk} q_offset={q_offset} lse")
+        ms: dict = {}
+        for tag in KERNEL_TURNS:
+            ms.setdefault(tag, []).append(chip_smoke.time_ms(calls[tag]))
+        b_ms, b_by = chip_smoke.mla_bound(h, chunk, q_offset, d, rank)
+        print(json.dumps({"card": card, "flash_fwd_mla": {"q": list(q.shape), "q_offset": q_offset},
+                          "other_entry": "dtpu_flash_mla" if takes_row else "dtpu_flash_fwd_mla",
+                          "nsplit": flash.mla_plan(1, h, chunk, t, q_offset, sms), "ms": ms,
+                          "bound_ms": b_ms, "bound_by": b_by}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, required=True, help="directory with the other sources")
@@ -124,11 +190,15 @@ def main() -> int:
         return 2
     card = chip_smoke.card_line()
     cuda_build.build_all(names)
-    libs = {"this": {n: cuda_build.load(n) for n in names}, "other": build_other(args.other.resolve(), names)}
+    others = build_other(args.other.resolve(), names)
+    swapped = [n for n in names if n in SWAPPED]
+    libs = {"this": {n: cuda_build.load(n) for n in swapped}, "other": {n: others[n] for n in swapped}}
 
     def use(tag: str) -> None:
         cuda_build._libs.update(libs[tag])
 
+    if "flash_fwd_mla" in names:
+        mla_ab(card, others["flash_fwd_mla"])
     if "flash_decode" in names:
         decode_ab(card, use)
     train = [n for n in names if n in TRAINING]
