@@ -71,7 +71,7 @@ def attention(
     vector_offset = isinstance(q_offset, torch.Tensor) and q_offset.dim() > 0
     if sinks is not None and sinks_forward_only and not vector_offset:
         fwd = flash_attention_plain if impl == "plain" else flash_attention_with_lse
-        o, lse = fwd(q, k, v, **kw)
+        o, lse = fwd(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
         return sink_postscale(o, lse, sinks)
     if vector_offset or sinks is not None:
         return flash_attention_plain(q, k, v, sinks=sinks, **kw)[0]

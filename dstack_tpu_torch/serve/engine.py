@@ -39,7 +39,9 @@ The engine runs the JAX engine's default configuration: packed
 multi-slot prefill (``prefill_pack``), prompt-lookup speculative decoding
 (``spec_draft``), device-side greedy macro-steps (``turbo_steps``), the
 chunk-aligned prefix cache, and the optional int8 KV cache
-(``kv_quant="int8"``). Token logprobs are not ported yet.
+(``kv_quant="int8"``). A request that asks for token logprobs
+(``GenParams.logprobs``) takes the plain step, as in JAX: the speculative,
+turbo and argmax paths never compute them.
 """
 
 import time
@@ -66,6 +68,7 @@ from dstack_tpu_torch.models.llama import (
     model_norm,
     rotate,
 )
+from dstack_tpu_torch.models.moe import topk
 from dstack_tpu_torch.ops.attention import attention
 from dstack_tpu_torch.ops.flash import flash_mla_plain, flash_mla_with_lse, mla_value
 from dstack_tpu_torch.ops.flash_decode import (
@@ -111,6 +114,8 @@ class GenParams:
     seed_skip: int = 0
     eos_id: Optional[int] = None
     stop: Optional[list] = None  # stop strings (matched by the server)
+    # None = off; n >= 0 = collect logprobs with n alternatives (<= 5)
+    logprobs: Optional[int] = None
 
 
 # ---------------------------------------------------------------------------
@@ -876,6 +881,21 @@ def sample(
     return torch.where(temperature <= 0.0, greedy, sampled)
 
 
+TOP_LOGPROBS = 5  # alternatives computed a token (OpenAI's maximum)
+
+
+def token_logprobs(logits: torch.Tensor, tokens: torch.Tensor) -> tuple:
+    """Raw f32 logits [B, V] and the sampled tokens [B] → (chosen logprob
+    [B], top ids [B, K], top logprobs [B, K]) of the model's own
+    distribution, before temperature, penalties and bias (the JAX
+    ``token_logprobs``). The top K come in ``jax.lax.top_k``'s order
+    (:func:`moe.topk`), which ``torch.topk`` does not keep on ties."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    chosen = logp.gather(-1, tokens.long()[:, None])[:, 0]
+    top_lp, top_ids = topk(logp, TOP_LOGPROBS)
+    return chosen, top_ids, top_lp
+
+
 def _mark_seen(counts, gen_counts, rows, tokens) -> None:
     """Count sampled tokens in both maps (in place)."""
     one = torch.ones_like(tokens, dtype=counts.dtype)
@@ -944,6 +964,7 @@ class InferenceEngine:
         self.max_seq = max_seq
         self.kv_quant = kv_quant
         self.cache = init_cache(config, max_batch, max_seq, device=self.device, kv_quant=kv_quant)
+        self._seed = seed
         self._auto_seed = seed
         # per-slot host state
         self.lengths = [0] * max_batch  # tokens currently in cache
@@ -960,6 +981,9 @@ class InferenceEngine:
         self.min_ps = [0.0] * max_batch
         self.has_bias = [False] * max_batch
         self.finish_reason = [None] * max_batch  # "stop" | "length" once done
+        self.want_logprobs = [False] * max_batch
+        # most recent token's (logprob, [(alt_id, alt_lp), ...]) a slot
+        self._last_logprobs: dict = {}
         # per-slot sampling streams and seen-token counts for penalties
         self._generators: list = [None] * max_batch
         v = config.vocab_size
@@ -1260,6 +1284,10 @@ class InferenceEngine:
         )
         tok = int(toks[0])
         _mark_seen(self._seen, self._gen_counts, self._slot_iota[row], toks)
+        self.want_logprobs[slot] = gen.logprobs is not None
+        if gen.logprobs is not None:
+            lp, tids, tlps = (a.tolist() for a in token_logprobs(logits, toks))
+            self._last_logprobs[slot] = (lp[0], list(zip(tids[0], tlps[0])))
         t_admit = self._admit_t0.pop(slot, None)
         if t_admit is not None:
             ttft = time.perf_counter() - t_admit
@@ -1501,9 +1529,9 @@ class InferenceEngine:
         return self._decode_mirror
 
     def _all_greedy(self, live: list) -> bool:
-        """Every live slot plain-greedy with no penalties or bias: the
-        gate of the speculative and turbo paths and the argmax fast
-        path."""
+        """Every live slot plain-greedy with no penalties, bias or
+        logprobs: the gate of the speculative and turbo paths and the
+        argmax fast path."""
         return all(
             self.temps[i] <= 0.0
             and self.rep_pens[i] == 1.0
@@ -1511,6 +1539,7 @@ class InferenceEngine:
             and self.freq_pens[i] == 0.0
             and self.min_ps[i] == 0.0
             and not self.has_bias[i]
+            and not self.want_logprobs[i]
             for i in live
         )
 
@@ -1536,6 +1565,11 @@ class InferenceEngine:
                 pres_pens, freq_pens, self._gen_counts, self._logit_bias, min_ps,
             )
             _mark_seen(self._seen, self._gen_counts, self._slot_iota, sampled)
+            if any(self.want_logprobs[i] for i in live):
+                lp, tids, tlps = (a.tolist() for a in token_logprobs(logits, sampled))
+                for i in live:
+                    if self.want_logprobs[i]:
+                        self._last_logprobs[i] = (lp[i], list(zip(tids[i], tlps[i])))
         adv = advance_decode_state(
             tok_d, pos_d, rem_d, act_d, eos_d, sampled, max_seq=self.max_seq
         )
@@ -1574,16 +1608,39 @@ class InferenceEngine:
             self._advance_slot(i, toks[i])
         return out
 
+    def take_logprobs(self, slot: int):
+        """(logprob, [(alt_id, alt_lp), ...]) of the slot's most recent
+        token, or None when the request did not ask for logprobs."""
+        return self._last_logprobs.pop(slot, None)
+
     def release(self, slot: int) -> None:
         self.active[slot] = False
         self._invalidate_decode_cache()
         self._prefilling.pop(slot, None)
         self._admit_t0.pop(slot, None)
+        self._last_logprobs.pop(slot, None)
 
     def reset_prefix_cache(self) -> None:
         """Forget every registered reusable prompt prefix (no device
         work: the rows just stop being reuse candidates)."""
         self._prefix_registry.clear()
+
+    def forget_requests(self) -> None:
+        """Return an idle engine's request state to a fresh engine's (the
+        server's warmup): no reusable prefix, no seen-token counts or
+        logprobs, no sampling streams, the unseeded requests' seeds and
+        the turbo cap from the start. The stats stay, and so do the
+        cache's rows: no request reads past its own positions."""
+        if any(self.active) or self._prefilling:
+            raise RuntimeError("forget_requests: a request is still in a slot")
+        self.reset_prefix_cache()
+        self._auto_seed = self._seed
+        self._generators = [None] * self.max_batch
+        self._seen.zero_()
+        self._gen_counts.zero_()
+        self._last_logprobs.clear()
+        self._turbo_k = min(8, self.turbo_steps) or self.turbo_steps
+        self._last_admit = 0.0
 
     def kv_cache_utilization(self) -> float:
         """Cached tokens across live (active or prefilling) slots as a

@@ -197,9 +197,12 @@ class TestOpenAIServer:
             await client.close()
 
     @pytest.mark.parametrize(
-        "extra", [{"n": 2}, {"logprobs": 1}, {"tools": [{"type": "function"}]}]
+        "extra", [{"n": 2, "stream": True}, {"n": 9}, {"n": True}]
     )
     async def test_unported_options_are_refused(self, extra):
+        """``n``, logprobs and tools are served now (held to the JAX
+        server in test_torch_server_features.py); what the JAX server
+        refuses stays refused: streaming with n > 1, n outside [1, 8]."""
         client = await _client()
         try:
             r = await client.post("/v1/completions", json={"prompt": "x", **extra})
