@@ -1,0 +1,425 @@
+"""Metric primitives with Prometheus text exposition (own copy of
+``dstack_tpu.obs.metrics``, pure Python: the port imports nothing of the
+JAX package). Rendering is byte-identical to the JAX package's, so a
+dashboard or the routing layer cannot tell a port replica's ``/metrics``
+page from a JAX replica's; ``tests/test_torch_obs_metrics.py`` holds the
+two to the same text, values, quantiles and exemplars.
+
+Design constraints, in order:
+
+- **Bounded label cardinality.** Every family caps its live series
+  count (``max_series``); past the cap new label combinations collapse
+  into one ``{"<truncated>"}`` sentinel series instead of growing the
+  registry without bound (a buggy caller labeling by request id must
+  not OOM the exporter).
+- **Log-spaced latency buckets.** Latency distributions span four
+  orders of magnitude (a 2ms cache hit and a 30s cold start are both
+  real); linear buckets waste resolution where nothing lands.
+- **Correct escaping.** ONE escaper (:func:`escape_label`) implements
+  the Prometheus text-format rules (``\\`` → ``\\\\``, ``"`` → ``\\"``,
+  newline → ``\\n``).
+- **Thread safety.** The serve engine mutates metrics from worker
+  threads (``asyncio.to_thread``) while the event loop renders; one
+  registry-wide lock covers both.
+
+Histograms additionally keep a bounded reservoir of raw observations
+(``sample_window``) so in-process consumers (``serve/bench.py``) can
+read exact quantiles instead of bucket-interpolated ones — the text
+exposition stays pure bucket/sum/count.
+"""
+
+import bisect
+import threading
+from collections import deque
+from typing import Iterable, Optional, Sequence
+
+
+def escape_label(v) -> str:
+    """Prometheus label-value escaping (the single correct copy)."""
+    return (
+        str(v)
+        .replace("\\", "\\\\")
+        .replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
+
+
+def _fmt(v: float) -> str:
+    """Render a sample value: integers stay integral, floats keep
+    enough digits to round-trip sub-millisecond latencies."""
+    f = float(v)
+    if f == int(f) and abs(f) < 1e15:
+        return str(int(f))
+    return repr(f)
+
+
+# Log-spaced buckets (seconds). The wide set covers HTTP requests,
+# TTFT, and train steps (1ms .. 60s); the short set covers per-token
+# decode latencies (0.1ms .. 2.5s); the throughput set covers tokens/s.
+LATENCY_BUCKETS_S = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 25.0, 60.0,
+)
+SHORT_LATENCY_BUCKETS_S = (
+    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+    0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+)
+THROUGHPUT_BUCKETS = (
+    1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0,
+    1000.0, 2500.0, 5000.0, 10000.0, 25000.0, 100000.0,
+)
+
+_TRUNCATED = "<truncated>"
+
+DEFAULT_MAX_SERIES = 256
+
+
+class _Family:
+    """Shared label handling for one metric family."""
+
+    kind = "untyped"
+
+    def __init__(
+        self,
+        name: str,
+        help_: str,
+        labelnames: Sequence[str] = (),
+        max_series: int = DEFAULT_MAX_SERIES,
+        lock: Optional[threading.Lock] = None,
+    ):
+        self.name = name
+        self.help = help_
+        self.labelnames = tuple(labelnames)
+        self.max_series = max_series
+        self._lock = lock or threading.Lock()
+        self._series: dict = {}
+
+    def _key(self, labels: Sequence[str]) -> tuple:
+        labels = tuple(str(v) for v in labels)
+        if len(labels) != len(self.labelnames):
+            raise ValueError(
+                f"{self.name}: expected labels {self.labelnames}, got {labels}"
+            )
+        if labels not in self._series and len(self._series) >= self.max_series:
+            # cardinality cap: collapse the overflow into one sentinel
+            # series per family rather than growing without bound
+            return tuple(_TRUNCATED for _ in self.labelnames)
+        return labels
+
+    def _labelstr(self, key: tuple, extra: str = "") -> str:
+        parts = [
+            f'{n}="{escape_label(v)}"' for n, v in zip(self.labelnames, key)
+        ]
+        if extra:
+            parts.append(extra)
+        return "{" + ",".join(parts) + "}" if parts else ""
+
+    def clear(self) -> None:
+        with self._lock:
+            self._series.clear()
+
+    def remove(self, *labels) -> bool:
+        """Drop one label combination's series (True when it existed).
+        Lifecycle-scoped exporters (the SLO engine's per-scope burn
+        gauges) remove series when their subject is garbage-collected,
+        so label churn cannot fill the cardinality cap with stale
+        values."""
+        with self._lock:
+            return (
+                self._series.pop(tuple(str(v) for v in labels), None)
+                is not None
+            )
+
+    def items(self) -> list:
+        """Thread-safe ``[(labels tuple, value)]`` snapshot — what the
+        SLO engine's signal collectors read (e.g. summing the 5xx
+        subset of a status-labeled counter). Histogram values are the
+        internal series dicts; scalar families yield floats."""
+        with self._lock:
+            return list(self._series.items())
+
+
+class Counter(_Family):
+    kind = "counter"
+
+    def inc(self, amount: float = 1.0, *labels) -> None:
+        with self._lock:
+            key = self._key(labels)
+            self._series[key] = self._series.get(key, 0.0) + amount
+
+    def value(self, *labels) -> float:
+        with self._lock:
+            return self._series.get(tuple(str(v) for v in labels), 0.0)
+
+    def total(self) -> float:
+        """Sum across every label combination (windowed-rate sources
+        aggregate per scope, not per label)."""
+        with self._lock:
+            return float(sum(self._series.values()))
+
+    def render(self) -> list:
+        with self._lock:
+            lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} counter"]
+            for key in sorted(self._series):
+                lines.append(
+                    f"{self.name}{self._labelstr(key)} {_fmt(self._series[key])}"
+                )
+            return lines
+
+
+class Gauge(_Family):
+    kind = "gauge"
+
+    def set(self, value: float, *labels) -> None:
+        with self._lock:
+            self._series[self._key(labels)] = float(value)
+
+    def inc(self, amount: float = 1.0, *labels) -> None:
+        with self._lock:
+            key = self._key(labels)
+            self._series[key] = self._series.get(key, 0.0) + amount
+
+    def value(self, *labels) -> float:
+        with self._lock:
+            return self._series.get(tuple(str(v) for v in labels), 0.0)
+
+    def render(self) -> list:
+        with self._lock:
+            lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} gauge"]
+            for key in sorted(self._series):
+                lines.append(
+                    f"{self.name}{self._labelstr(key)} {_fmt(self._series[key])}"
+                )
+            return lines
+
+
+class Histogram(_Family):
+    """Cumulative-bucket histogram (Prometheus semantics) plus a
+    bounded raw-sample reservoir for exact in-process quantiles."""
+
+    kind = "histogram"
+
+    def __init__(
+        self,
+        name: str,
+        help_: str,
+        labelnames: Sequence[str] = (),
+        buckets: Sequence[float] = LATENCY_BUCKETS_S,
+        max_series: int = DEFAULT_MAX_SERIES,
+        sample_window: int = 1024,
+        lock: Optional[threading.Lock] = None,
+    ):
+        super().__init__(name, help_, labelnames, max_series, lock)
+        self.buckets = tuple(sorted(float(b) for b in buckets))
+        self.sample_window = sample_window
+
+    def _new_series(self) -> dict:
+        return {
+            "counts": [0] * (len(self.buckets) + 1),  # +1 = +Inf
+            "sum": 0.0,
+            "count": 0,
+            "samples": deque(maxlen=self.sample_window),
+            # bucket index -> (value, exemplar id): the latest
+            # exemplar-carrying observation landing in each bucket —
+            # bounded by construction (one slot per bucket)
+            "exemplars": {},
+        }
+
+    def observe(self, value: float, *labels, exemplar=None) -> None:
+        """Record one observation. ``exemplar`` optionally attaches a
+        trace id to the bucket the value lands in (OpenMetrics-style:
+        "show me the trace behind p99" resolves the p99 bucket's
+        exemplar — see :meth:`exemplars`); storage is one slot per
+        bucket, latest wins."""
+        v = float(value)
+        with self._lock:
+            key = self._key(labels)
+            s = self._series.get(key)
+            if s is None:
+                s = self._series[key] = self._new_series()
+            ix = bisect.bisect_left(self.buckets, v)
+            s["counts"][ix] += 1
+            s["sum"] += v
+            s["count"] += 1
+            s["samples"].append(v)
+            if exemplar is not None:
+                s["exemplars"][ix] = (v, str(exemplar))
+
+    def _get(self, labels: Sequence) -> Optional[dict]:
+        return self._series.get(tuple(str(v) for v in labels))
+
+    def sum(self, *labels) -> float:
+        with self._lock:
+            s = self._get(labels)
+            return s["sum"] if s else 0.0
+
+    def count(self, *labels) -> int:
+        with self._lock:
+            s = self._get(labels)
+            return s["count"] if s else 0
+
+    def totals(self):
+        """``(per-bucket counts incl. +Inf, sum, count)`` summed
+        element-wise across every label combination — the cumulative
+        snapshot the SLO engine's sliding windows delta against."""
+        with self._lock:
+            counts = [0.0] * (len(self.buckets) + 1)
+            total_sum = 0.0
+            total_count = 0.0
+            for s in self._series.values():
+                for i, c in enumerate(s["counts"]):
+                    counts[i] += c
+                total_sum += s["sum"]
+                total_count += s["count"]
+            return counts, total_sum, total_count
+
+    def exemplars(self, *labels) -> dict:
+        """{bucket upper bound (float, or ``float("inf")``): (value,
+        exemplar id)} for one series — the in-process path from a
+        quantile to the trace behind it: find the bucket covering the
+        quantile, read its exemplar."""
+        with self._lock:
+            s = self._get(labels)
+            if s is None:
+                return {}
+            bounds = list(self.buckets) + [float("inf")]
+            return {bounds[ix]: ex for ix, ex in s["exemplars"].items()}
+
+    def exemplar_near(self, q: float, *labels):
+        """(value, exemplar id) from the bucket covering quantile ``q``
+        — or, when that bucket holds none, the nearest higher bucket's
+        (a tail exemplar still explains the tail) — else None."""
+        with self._lock:
+            s = self._get(labels)
+            if s is None or s["count"] == 0 or not s["exemplars"]:
+                return None
+            target = q * s["count"]
+            acc = 0
+            q_ix = len(self.buckets)  # +Inf by default
+            for i in range(len(self.buckets) + 1):
+                acc += s["counts"][i]
+                if acc >= target:
+                    q_ix = i
+                    break
+            for ix in sorted(s["exemplars"]):
+                if ix >= q_ix:
+                    return s["exemplars"][ix]
+            return s["exemplars"][max(s["exemplars"])]
+
+    def quantile(self, q: float, *labels) -> Optional[float]:
+        """Exact quantile over the raw-sample window when samples are
+        available, else bucket-interpolated; None with no data."""
+        with self._lock:
+            s = self._get(labels)
+            if s is None or s["count"] == 0:
+                return None
+            if s["samples"]:
+                ordered = sorted(s["samples"])
+                ix = min(
+                    len(ordered) - 1, max(0, int(round(q * (len(ordered) - 1))))
+                )
+                return ordered[ix]
+            # bucket interpolation fallback (window drained/disabled)
+            target = q * s["count"]
+            acc = 0
+            lo = 0.0
+            for i, b in enumerate(self.buckets):
+                nxt = acc + s["counts"][i]
+                if nxt >= target:
+                    frac = (target - acc) / max(s["counts"][i], 1)
+                    return lo + (b - lo) * frac
+                acc, lo = nxt, b
+            return self.buckets[-1] if self.buckets else None
+
+    def render(self) -> list:
+        with self._lock:
+            lines = [
+                f"# HELP {self.name} {self.help}",
+                f"# TYPE {self.name} histogram",
+            ]
+            for key in sorted(self._series):
+                s = self._series[key]
+                acc = 0
+                for i, (b, c) in enumerate(zip(self.buckets, s["counts"])):
+                    acc += c
+                    le = 'le="%s"' % _fmt(b)
+                    lines.append(
+                        f"{self.name}_bucket{self._labelstr(key, le)} {acc}"
+                        + self._exemplar_suffix(s, i)
+                    )
+                inf = 'le="+Inf"'
+                lines.append(
+                    f"{self.name}_bucket{self._labelstr(key, inf)} {s['count']}"
+                    + self._exemplar_suffix(s, len(self.buckets))
+                )
+                lines.append(
+                    f"{self.name}_sum{self._labelstr(key)} {_fmt(s['sum'])}"
+                )
+                lines.append(
+                    f"{self.name}_count{self._labelstr(key)} {s['count']}"
+                )
+            return lines
+
+    @staticmethod
+    def _exemplar_suffix(s: dict, ix: int) -> str:
+        """OpenMetrics exemplar suffix for one bucket line (consumers
+        that relay this text must keep the ``# {...}`` tail intact)."""
+        ex = s["exemplars"].get(ix)
+        if ex is None:
+            return ""
+        value, eid = ex
+        return ' # {trace_id="%s"} %s' % (escape_label(eid), _fmt(value))
+
+
+class Registry:
+    """A set of metric families rendered as one Prometheus page."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._families: dict[str, _Family] = {}
+
+    def _register(self, fam: _Family) -> _Family:
+        existing = self._families.get(fam.name)
+        if existing is not None:
+            if type(existing) is not type(fam):
+                raise ValueError(
+                    f"metric {fam.name} re-registered as a different type"
+                )
+            return existing
+        self._families[fam.name] = fam
+        return fam
+
+    def counter(
+        self, name: str, help_: str, labelnames: Sequence[str] = (), **kw
+    ) -> Counter:
+        return self._register(Counter(name, help_, labelnames, lock=self._lock, **kw))
+
+    def gauge(
+        self, name: str, help_: str, labelnames: Sequence[str] = (), **kw
+    ) -> Gauge:
+        return self._register(Gauge(name, help_, labelnames, lock=self._lock, **kw))
+
+    def histogram(
+        self,
+        name: str,
+        help_: str,
+        labelnames: Sequence[str] = (),
+        buckets: Sequence[float] = LATENCY_BUCKETS_S,
+        **kw,
+    ) -> Histogram:
+        return self._register(
+            Histogram(name, help_, labelnames, buckets, lock=self._lock, **kw)
+        )
+
+    def family(self, name: str) -> Optional[_Family]:
+        return self._families.get(name)
+
+    def metric_names(self) -> list:
+        """Registered family base names."""
+        return sorted(self._families)
+
+    def render(self) -> str:
+        lines: list = []
+        for name in sorted(self._families):
+            lines.extend(self._families[name].render())
+        return "\n".join(lines) + "\n" if lines else ""

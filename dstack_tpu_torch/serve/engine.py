@@ -42,6 +42,13 @@ chunk-aligned prefix cache, and the optional int8 KV cache
 (``kv_quant="int8"``). A request that asks for token logprobs
 (``GenParams.logprobs``) takes the plain step, as in JAX: the speculative,
 turbo and argmax paths never compute them.
+
+Telemetry is recorded at the source, as in JAX: the engine's
+``metrics`` registry (``serve/metrics.py``) takes TTFT at activation,
+each emitting step's seconds, tokens, TPOT and tokens/s, prefill
+dispatches with their pack rows, and prefix hits, from the same clock
+readings as ``stats``, so the two cannot disagree. The server renders the
+registry on ``/metrics`` and the bench (``serve/bench.py``) reads it.
 """
 
 import time
@@ -77,6 +84,7 @@ from dstack_tpu_torch.ops.flash_decode import (
     flash_decode_supported,
     kv_dequant,
 )
+from dstack_tpu_torch.serve.metrics import new_serve_registry
 
 NEG_INF = -1e30
 
@@ -944,6 +952,7 @@ class InferenceEngine:
         turbo_depth: int = 1,
         decode_kernel: Optional[str] = None,  # None/"flash" | "einsum"
         device="cuda",
+        registry=None,  # obs.Registry (default: a fresh serve registry)
     ):
         self.device = resolve_device(device)
         if decode_kernel not in (None, "flash", "einsum"):
@@ -963,6 +972,10 @@ class InferenceEngine:
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.kv_quant = kv_quant
+        # telemetry at the source: the server's /metrics and the bench
+        # read these series (one source of truth with stats below)
+        self.metrics = registry or new_serve_registry()
+        self.metrics.family("dtpu_serve_max_slots").set(max_batch)
         self.cache = init_cache(config, max_batch, max_seq, device=self.device, kv_quant=kv_quant)
         self._seed = seed
         self._auto_seed = seed
@@ -1073,6 +1086,10 @@ class InferenceEngine:
             if not self.active[i] and i not in self._prefilling
         ]
 
+    def prefilling_slots(self) -> list[int]:
+        """Slots with a queued or running chunked prefill (admission order)."""
+        return list(self._prefilling)
+
     def _find_prefix_source(self, prompt: list) -> tuple[int, Optional[int]]:
         """Longest chunk-aligned cached prefix of ``prompt`` among
         registered slots → (reusable length, source slot)."""
@@ -1120,6 +1137,8 @@ class InferenceEngine:
             start = reuse_len
             self.stats["prefix_hits"] += 1
             self.stats["prefix_tokens_reused"] += reuse_len
+            self.metrics.family("dtpu_serve_prefix_hits_total").inc(1)
+            self.metrics.family("dtpu_serve_prefix_tokens_reused_total").inc(reuse_len)
         self._admit_t0[slot] = time.perf_counter()
         self._prefilling[slot] = {
             "prompt": list(prompt),
@@ -1156,6 +1175,8 @@ class InferenceEngine:
             slot, last_ix, self.config, start=start,
         )
         self.stats["prefill_dispatches"] += 1
+        self.metrics.family("dtpu_serve_prefill_dispatches_total").inc(1)
+        self.metrics.family("dtpu_serve_prefill_pack_rows").observe(1)
         if not final:
             st["next"] = start + cl
             return None
@@ -1223,6 +1244,8 @@ class InferenceEngine:
         )
         self.stats["prefill_dispatches"] += 1
         self.stats["packed_dispatches"] += 1
+        self.metrics.family("dtpu_serve_prefill_dispatches_total").inc(1)
+        self.metrics.family("dtpu_serve_prefill_pack_rows").observe(len(rows))
         out: dict[int, int] = {}
         for i, s in enumerate(rows):
             st = self._prefilling.get(s)
@@ -1294,6 +1317,9 @@ class InferenceEngine:
             self.stats["ttft_count"] += 1
             self.stats["ttft_sum_s"] += ttft
             self.stats["ttft_max_s"] = max(self.stats["ttft_max_s"], ttft)
+            # exemplars wait for trace ids (ROADMAP A4)
+            self.metrics.family("dtpu_serve_ttft_seconds").observe(ttft)
+        self.metrics.family("dtpu_serve_tokens_generated_total").inc(1)
         self.active[slot] = True
         if self.prefix_cache:
             # the slot's rows now hold this fully prefilled prompt; they
@@ -1349,9 +1375,18 @@ class InferenceEngine:
         t0 = time.perf_counter()
         out = self._step_dispatch()
         if out:
+            dt = time.perf_counter() - t0
+            n_tokens = sum(len(v) for v in out.values())
             kind = self._last_step_phase
-            self.stats[f"{kind}_tokens"] += sum(len(v) for v in out.values())
-            self.stats[f"{kind}_seconds"] += time.perf_counter() - t0
+            self.stats[f"{kind}_tokens"] += n_tokens
+            self.stats[f"{kind}_seconds"] += dt
+            m = self.metrics
+            m.family("dtpu_serve_decode_steps_total").inc(1)
+            m.family("dtpu_serve_decode_step_seconds").observe(dt)
+            m.family("dtpu_serve_tokens_generated_total").inc(n_tokens)
+            if n_tokens and dt > 0:
+                m.family("dtpu_serve_tpot_seconds").observe(dt / n_tokens)
+                m.family("dtpu_serve_decode_tokens_per_sec").observe(n_tokens / dt)
         return out
 
     def _step_dispatch(self) -> dict:
@@ -1665,6 +1700,26 @@ class InferenceEngine:
             "prefix_occupancy": round(len(cached) / float(self.max_batch), 6),
             "prefix_tokens": sum(len(p) for p in cached),
         }
+
+    def update_state_gauges(self) -> None:
+        """Refresh the engine-state gauges (at scrape time, on the event
+        loop while a step may run on the worker thread: the slot list is
+        snapshotted first, and so are the dicts by the helpers). The
+        device-memory gauges read the allocator's counts of the engine's
+        card; on the CPU they stay unset, absent rather than zero."""
+        active = sum(1 for a in list(self.active) if a)
+        m = self.metrics
+        m.family("dtpu_serve_active_slots").set(active)
+        m.family("dtpu_serve_max_slots").set(self.max_batch)
+        m.family("dtpu_serve_batch_occupancy_ratio").set(active / float(self.max_batch))
+        m.family("dtpu_serve_kv_cache_utilization_ratio").set(round(self.kv_cache_utilization(), 6))
+        m.family("dtpu_serve_prefix_slots").set(self.prefix_stats()["prefix_slots"])
+        if self.device.type == "cuda":
+            in_use = m.family("dtpu_serve_device_memory_bytes_in_use")
+            peak = m.family("dtpu_serve_device_memory_peak_bytes")
+            in_use.set(torch.cuda.memory_allocated(self.device))
+            # a running high-water mark across polls, as JAX keeps it
+            peak.set(max(peak.value(), torch.cuda.max_memory_allocated(self.device)))
 
     def generate(self, prompt: list[int], gen: GenParams) -> list[int]:
         """Convenience single-prompt generation (tests, CLI)."""

@@ -1,0 +1,227 @@
+"""Serve-engine metric families (own copy of ``dstack_tpu.serve.metrics``).
+
+One construction point for every ``dtpu_serve_*`` series, with the JAX
+package's names, types, help texts, label names and buckets, used by:
+
+- :class:`dstack_tpu_torch.serve.engine.InferenceEngine`, which records
+  TTFT, step latency, TPOT, decode throughput, token counts, prefill
+  dispatches and prefix-cache counts at the source, with the same clock
+  readings as its ``stats``, so the server and the bench
+  (``serve/bench.py``) read one set of numbers;
+- ``serve/openai_server.py``, which counts requests, errors and queue
+  waits, refreshes the state gauges and renders the page on ``/metrics``.
+
+Families registered with no source in the port yet (they render and stay
+at zero, or absent for a labelled family, until their slice feeds them):
+
+- the compile families (``dtpu_serve_compiles_total``,
+  ``dtpu_serve_compile_seconds``, ``dtpu_serve_recompiles_total``,
+  ``dtpu_serve_warmup_gap_compiles_total``,
+  ``dtpu_serve_compile_cache_entries``): they count JAX's jit sites.
+  Eager PyTorch has none, and the port's kernels are built by ``nvcc``
+  before the server is ready;
+- ``dtpu_serve_watchdog_aborts_total``, ``dtpu_serve_deadline_expired_total``,
+  ``dtpu_serve_resumed_requests_total`` and ``dtpu_serve_postmortems_total``:
+  the engine watchdog, request deadlines, ``dtpu_resume`` and the flight
+  recorder come with ROADMAP A4.
+"""
+
+from dstack_tpu_torch.obs import (
+    LATENCY_BUCKETS_S,
+    SHORT_LATENCY_BUCKETS_S,
+    THROUGHPUT_BUCKETS,
+    Registry,
+)
+
+# the families of the note above: nothing in the port feeds them yet
+UNFED_FAMILIES = (
+    "dtpu_serve_compiles_total",
+    "dtpu_serve_compile_seconds",
+    "dtpu_serve_recompiles_total",
+    "dtpu_serve_warmup_gap_compiles_total",
+    "dtpu_serve_compile_cache_entries",
+    "dtpu_serve_watchdog_aborts_total",
+    "dtpu_serve_deadline_expired_total",
+    "dtpu_serve_resumed_requests_total",
+    "dtpu_serve_postmortems_total",
+)
+
+
+def new_serve_registry() -> Registry:
+    """Registry pre-populated with every serve metric family."""
+    r = Registry()
+    # request lifecycle
+    r.counter(
+        "dtpu_serve_requests_total", "Requests admitted to the scheduler"
+    )
+    r.counter(
+        "dtpu_serve_tokens_generated_total", "Tokens sampled across all slots"
+    )
+    r.counter(
+        "dtpu_serve_decode_steps_total", "Engine step() calls"
+    )
+    # latency distributions
+    r.histogram(
+        "dtpu_serve_ttft_seconds",
+        "Slot-admission-to-first-token latency (chunked prefill incl. "
+        "any prefix-cache reuse; excludes scheduler queue wait — add "
+        "dtpu_serve_queue_wait_seconds for the client-observed TTFT)",
+        buckets=LATENCY_BUCKETS_S,
+    )
+    r.histogram(
+        "dtpu_serve_queue_wait_seconds",
+        "Submit-to-slot-admission wait in the scheduler queue (the "
+        "saturation component of client-observed TTFT)",
+        buckets=LATENCY_BUCKETS_S,
+    )
+    r.histogram(
+        "dtpu_serve_decode_step_seconds",
+        "Wall time of one engine step (a turbo macro-step counts once)",
+        buckets=LATENCY_BUCKETS_S,
+    )
+    r.histogram(
+        "dtpu_serve_tpot_seconds",
+        "Time per output token: step wall time / tokens emitted",
+        buckets=SHORT_LATENCY_BUCKETS_S,
+    )
+    r.histogram(
+        "dtpu_serve_decode_tokens_per_sec",
+        "Per-step decode throughput across all active slots",
+        buckets=THROUGHPUT_BUCKETS,
+    )
+    # prefill dispatch accounting: the packed multi-slot prefill packs
+    # up to prefill_pack concurrent prompt chunks into one forward —
+    # dispatches per burst is the TTFT-under-load lever these observe
+    r.counter(
+        "dtpu_serve_prefill_dispatches_total",
+        "Prefill forward dispatches (a packed wave counts once)",
+    )
+    r.histogram(
+        "dtpu_serve_prefill_pack_rows",
+        "Prompt chunk rows per prefill dispatch (1 = serial; >1 = "
+        "packed multi-slot prefill)",
+        buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0),
+    )
+    # engine/scheduler state gauges
+    r.gauge("dtpu_serve_queue_depth", "Requests waiting for a slot")
+    r.gauge("dtpu_serve_active_slots", "Slots currently decoding")
+    r.gauge("dtpu_serve_max_slots", "Configured slot count (max_batch)")
+    r.gauge(
+        "dtpu_serve_batch_occupancy_ratio",
+        "active_slots / max_slots (continuous-batching fill)",
+    )
+    r.gauge(
+        "dtpu_serve_kv_cache_utilization_ratio",
+        "Cached tokens across live slots / (max_batch * max_seq)",
+    )
+    r.counter(
+        "dtpu_serve_request_errors_total",
+        "Requests this replica failed server-side (engine/prefill/"
+        "admission errors, watchdog aborts, deadline expiries) — "
+        "behind the router these streams fail over or resume, so "
+        "clients may see none of them; the live SLO engine's "
+        "error-rate objective burns on this, which is exactly how a "
+        "soft-failing replica gets caught before its breaker would "
+        "(obs/slo.py). Honest 503 sheds are NOT counted",
+    )
+    # request lifecycle hardening: deadlines, watchdog, stream resume
+    r.counter(
+        "dtpu_serve_deadline_expired_total",
+        "Requests aborted because their per-request deadline "
+        "(X-DTPU-Deadline / DTPU_REQUEST_DEADLINE_DEFAULT) expired — "
+        "queued or in a slot; an aborted slot frees its KV immediately",
+    )
+    r.counter(
+        "dtpu_serve_watchdog_aborts_total",
+        "Engine-watchdog trips: a step() dispatch exceeded "
+        "DTPU_ENGINE_WATCHDOG_SECONDS and was abandoned (the wedged "
+        "slot — or, unattributable, the whole batch — was aborted)",
+    )
+    r.counter(
+        "dtpu_serve_resumed_requests_total",
+        "Continuations accepted via the router's mid-stream-failover "
+        "resume extension (prompt re-prefilled with already-delivered "
+        "tokens; admission charge stays on the original leg)",
+    )
+    # compile accounting: JAX's jit sites (unfed here, see the note)
+    r.counter(
+        "dtpu_serve_compiles_total",
+        "XLA trace/compile events per engine jit site (first call of a "
+        "new shape/bucket variant; the causing bucket key rides the "
+        "flight ring's compile records)",
+        labelnames=("fn",),
+    )
+    r.histogram(
+        "dtpu_serve_compile_seconds",
+        "Wall time of compile-triggering calls per jit site (trace + "
+        "compile + first execution — the cost the triggering request "
+        "actually paid)",
+        labelnames=("fn",),
+        buckets=LATENCY_BUCKETS_S,
+    )
+    r.counter(
+        "dtpu_serve_recompiles_total",
+        "Steady-state recompiles: compile events observed AFTER "
+        "warmup declared the engine warm — each one is a live "
+        "TTFT/TPOT stall some request paid: an unwarmed grid cell "
+        "(warmup coverage gap) or a broken power-of-two bucketing "
+        "contract (the runtime complement of lint rule DTPU003). "
+        "Identical steady traffic must never advance this (pinned by "
+        "the two-pass regression test)",
+        labelnames=("fn",),
+    )
+    r.counter(
+        "dtpu_serve_warmup_gap_compiles_total",
+        "Steady-state compiles of a variant ABSENT from the "
+        "boot-compile manifest (the per-fn compile keys warmup "
+        "visited): warmup never covered that bucket, so a live "
+        "request paid its first-ever trace. The subset of "
+        "dtpu_serve_recompiles_total that indicts warmup coverage "
+        "rather than cache churn (obs/boot.py manifest helpers; "
+        "gated by the two-pass recompile test)",
+        labelnames=("fn",),
+    )
+    r.gauge(
+        "dtpu_serve_compile_cache_entries",
+        "Entries in the engine's memoized jit grids (fn = chunk/"
+        "packed/turbo/copy) — the compile-cache footprint the "
+        "log2-bucket contracts bound",
+        labelnames=("fn",),
+    )
+    r.counter(
+        "dtpu_serve_postmortems_total",
+        "Flight post-mortem snapshots captured FOR THIS ENGINE "
+        "(watchdog aborts, engine/prefill errors, deadline "
+        "batch-aborts) — the per-replica signal /health embeds; the "
+        "process-wide ring count is dtpu_flight_postmortems_total",
+    )
+    # device-memory watermarks: torch.cuda's allocator counts on the
+    # card; absent, not zero, on the CPU (as on CPU jaxlib)
+    r.gauge(
+        "dtpu_serve_device_memory_bytes_in_use",
+        "Device HBM bytes in use, summed across local devices "
+        "(best-effort jax memory_stats; series absent when the "
+        "backend exposes no stats)",
+    )
+    r.gauge(
+        "dtpu_serve_device_memory_peak_bytes",
+        "Running peak of device HBM bytes in use since engine start "
+        "(high-water mark across polls; series absent when the "
+        "backend exposes no stats)",
+    )
+    # prefix cache
+    r.counter(
+        "dtpu_serve_prefix_hits_total",
+        "Requests that reused a cached chunk-aligned prompt prefix",
+    )
+    r.gauge(
+        "dtpu_serve_prefix_slots",
+        "Prefix-registry slots currently holding a reusable prompt "
+        "(also reported on /health as prefix_slots for the router's "
+        "cache-aware affinity score)",
+    )
+    r.counter(
+        "dtpu_serve_prefix_tokens_reused_total",
+        "Prompt tokens skipped via prefix-cache reuse",
+    )
+    return r

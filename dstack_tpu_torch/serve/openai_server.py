@@ -11,10 +11,12 @@ directory, the model named after it), still with the byte tokenizer: an
 HF tokenizer needs the ``tokenizers`` package, which the port does not
 depend on yet. ``--chat-template`` overrides the Llama-3-style default.
 
-Endpoints: ``/health``, ``/v1/models``, ``/v1/completions`` and
-``/v1/chat/completions``, whole and streamed (SSE), and
-``/v1/embeddings``. One scheduler task admits requests into engine slots,
-runs one prefill wave and one engine step per tick on a worker thread,
+Endpoints: ``/health``, ``/metrics`` (the engine's ``dtpu_serve_*``
+registry in Prometheus text, byte for byte as the JAX server renders
+it), ``/v1/models``, ``/v1/completions`` and ``/v1/chat/completions``,
+whole and streamed (SSE), and ``/v1/embeddings``. One scheduler task
+admits requests into engine slots, runs one prefill wave and one engine
+step per tick on a worker thread,
 and routes tokens to each request with eos, ``max_tokens`` and stop
 strings. An embedding's forward runs on a worker thread between engine
 calls, where the JAX server runs it beside them, so the kernels' launch
@@ -36,7 +38,9 @@ since the last one.
 Not in this slice: the JAX server's QoS (per-tenant buckets and the fan-out
 charge of ``n``), request deadlines, trace spans, the engine watchdog,
 ``dtpu_resume`` (and its refusal of logprobs), the flight and boot
-recorders (``mark_flight_warm``), fault points and ``/metrics``.
+recorders (``mark_flight_warm``), fault points, and the QoS, trace, SLO,
+flight and boot registries that JAX's ``/metrics`` appends to the
+engine's (ROADMAP A4).
 ``warm_prefix_copies`` pre-compiles JAX's jitted prefix-copy variants,
 which eager PyTorch does not have, so the warmup has no counterpart.
 """
@@ -74,6 +78,7 @@ class _Request:
         self.error: Optional[str] = None
         self.finish_reason: Optional[str] = None
         self.cancelled = False
+        self.submitted_at: Optional[float] = None  # perf_counter at submit
         self.gen_ids: list[int] = []  # for stop-string matching
         # per generated token: (logprob, [(alt_id, alt_lp), ...])
         self.logprob_entries: list = []
@@ -121,6 +126,8 @@ class Scheduler:
                 pass
 
     async def submit(self, req: _Request) -> None:
+        req.submitted_at = time.perf_counter()
+        self.engine.metrics.family("dtpu_serve_requests_total").inc(1)
         self.pending.append(req)
         self._wake.set()
 
@@ -135,6 +142,9 @@ class Scheduler:
                     del table[slot]
 
     def _fail(self, req: _Request, error: str) -> None:
+        """Fail one request on an engine, prefill or admission error:
+        counted in ``dtpu_serve_request_errors_total``."""
+        self.engine.metrics.family("dtpu_serve_request_errors_total").inc(1)
         req.error = error
         req.queue.put_nowait(None)
 
@@ -194,6 +204,11 @@ class Scheduler:
                 logger.exception("admission failed: %s", e)
                 self._fail(req, str(e))
                 continue
+            # the queue's share of the client's TTFT; the engine's
+            # dtpu_serve_ttft_seconds starts here
+            self.engine.metrics.family("dtpu_serve_queue_wait_seconds").observe(
+                time.perf_counter() - req.submitted_at
+            )
             self.by_prefill[slot] = req
             free -= 1
         # a request still waiting for a slot is arrival pressure: the
@@ -562,6 +577,7 @@ def build_app(
         hand-written kernel's launches in this process (K4's also by
         variant)."""
         e = sched.engine
+        e.update_state_gauges()
         return web.json_response({
             "status": "ok",
             "model": model_name,
@@ -589,6 +605,15 @@ def build_app(
             },
             "flash_decode_launches": dict(flash_decode.LAUNCHES_BY_VARIANT),
         })
+
+    async def metrics(request):
+        """Prometheus text of the engine's registry, its state gauges and
+        the queue depth refreshed first. Rendered under the registry's
+        lock only: a scrape never waits for a step on the card."""
+        e = sched.engine
+        e.update_state_gauges()
+        e.metrics.family("dtpu_serve_queue_depth").set(len(sched.pending))
+        return web.Response(text=e.metrics.render(), content_type="text/plain")
 
     async def models(request):
         return web.json_response({
@@ -912,6 +937,7 @@ def build_app(
         })
 
     app.router.add_get("/health", health)
+    app.router.add_get("/metrics", metrics)
     app.router.add_get("/v1/models", models)
     app.router.add_post("/v1/completions", completions)
     app.router.add_post("/v1/chat/completions", chat_completions)

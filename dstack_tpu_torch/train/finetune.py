@@ -20,8 +20,14 @@ Output: the ``first_train_step`` JSON event, one line per logged step
 (loss, tokens/s, MFU against the H100 SXM dense-bf16 peak), and as the
 last line a JSON summary (losses, the last step's router aux loss,
 median step time, tokens/s, MFU, peak device memory, kernel launch
-counts). Runs on ``cuda`` unless
-``--device cpu`` asks for the plain versions on the CPU.
+counts). Step times, tokens/s and MFU go through the ``dtpu_train_*``
+registry of ``make_step_callback``, fed at each log window's sync (the
+loss read), as JAX's finetune feeds it, and the lines are read from it;
+the summary's median step is that of the histogram's sample window, the
+last 1024 steps.
+``--profile-dir DIR`` traces three steady steps with ``torch.profiler``
+(the JAX finetune's step arithmetic) into a Chrome trace in DIR. Runs on
+``cuda`` unless ``--device cpu`` asks for the plain versions on the CPU.
 
 Flags of the JAX finetune with no counterpart yet exit non-zero and name the
 slice that brings them (ROADMAP.md, queue A).
@@ -29,7 +35,6 @@ slice that brings them (ROADMAP.md, queue A).
 
 import argparse
 import json
-import statistics
 import sys
 import time
 from pathlib import Path
@@ -43,14 +48,15 @@ from dstack_tpu_torch.serve.engine import resolve_device
 from dstack_tpu_torch.train import data as data_mod
 from dstack_tpu_torch.train import lora as lora_mod
 from dstack_tpu_torch.train.step import (
+    PEAK_FLOPS,
     default_optimizer,
     flops_per_token,
     init_train_state,
+    make_step_callback,
     make_train_step,
     tree_leaves,
 )
 
-PEAK_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (NVIDIA data sheet)
 PEAK_NAME = "H100 SXM dense bf16 peak, 989 TFLOP/s"
 
 
@@ -81,7 +87,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--hf-model", default=None,
                    help="HF save_pretrained dir (llama/gemma/gemma2/gemma3): fine-tune from "
                         "those weights; overrides --model")
-    for flag in ("--ckpt-dir", "--eval-data", "--export-hf", "--profile-dir", "--data-tokenizer"):
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of 3 steady-state steps here")
+    for flag in ("--ckpt-dir", "--eval-data", "--export-hf", "--data-tokenizer"):
         p.add_argument(flag, default=None)
     p.add_argument("--resume", action="store_true")
     return p
@@ -102,8 +110,6 @@ def _refusals(args) -> list[str]:
         out.append("--eval-data comes with the eval slice")
     if args.export_hf:
         out.append("--export-hf (the HF writer) comes with the HF families slice (A3)")
-    if args.profile_dir:
-        out.append("--profile-dir comes with the tracing slice")
     if args.data_tokenizer:
         out.append("--data-tokenizer (text corpora) comes with the HF loader slice")
     return out
@@ -201,20 +207,41 @@ def main(argv=None) -> int:
         def next_batch(i):
             return _synthetic_batch(i, args, config, dev)
 
-    ftok = flops_per_token(config, args.seq_len)
     tokens_per_step = args.batch * args.seq_len
+    # step time, tokens/s and MFU into the train registry, fed at the log
+    # windows' sync points
+    step_cb = make_step_callback(config, tokens_per_step, args.seq_len)
+    step_hist = step_cb.registry.family("dtpu_train_step_seconds")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     # the counts of this run's launches start here
     flash.LAUNCHES = flash.LAUNCHES_DQ = flash.LAUNCHES_DKV = 0
-    first_loss, step_s = None, []
+    first_loss = None
+    # profile 3 steady-state steps, past the first steps' start-up
+    prof_start = min(2, max(args.steps - 3, 0))
+    prof_stop = prof_start + min(3, args.steps)
+    prof = None
     t_window = time.perf_counter()
     for i in range(args.steps):
+        if args.profile_dir and i == prof_start:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if dev.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=activities)
+            prof.start()
         batch = next_batch(i)
         if args.full:
             state, metrics = step_fn(state, batch)
         else:
             state, metrics = step_fn(params, state, batch)
+        if prof is not None and i + 1 == prof_stop:
+            float(metrics["loss"])  # the traced steps' device work is done
+            prof.stop()
+            Path(args.profile_dir).mkdir(parents=True, exist_ok=True)
+            trace_path = Path(args.profile_dir) / "finetune_trace.json"
+            prof.export_chrome_trace(str(trace_path))
+            prof = None
+            print(f"profiler trace saved to {trace_path}", flush=True)
         if first_loss is None:
             first_loss = float(metrics["loss"])  # waits for the step
             # the provision → first-train-step marker the JAX finetune prints
@@ -223,12 +250,11 @@ def main(argv=None) -> int:
             loss = float(metrics["loss"])  # host sync: the window's steps are done
             dt = (time.perf_counter() - t_window) / args.log_every
             t_window = time.perf_counter()
-            step_s.append(dt)
-            tps = tokens_per_step / dt
-            mfu = f"{ftok * tps / PEAK_FLOPS:.2%} of the {PEAK_NAME}" if dev.type == "cuda" else "n/a on the CPU"
+            tel = step_cb(dt, steps=args.log_every)
+            mfu = f"{tel['mfu']:.2%} of the {PEAK_NAME}" if dev.type == "cuda" else "n/a on the CPU"
             print(
-                f"step {i + 1}/{args.steps} loss={loss:.4f} step_s={dt:.4f} "
-                f"tokens/s={tps:,.0f} mfu={mfu}",
+                f"step {i + 1}/{args.steps} loss={loss:.4f} step_s={tel['step_time_s']:.4f} "
+                f"tokens/s={tel['tokens_per_sec']:,.0f} mfu={mfu}",
                 flush=True,
             )
     last_loss = float(metrics["loss"]) if args.steps else None
@@ -249,8 +275,12 @@ def main(argv=None) -> int:
     np.savez(out / fname, **flat)
     print(f"weights saved to {out}/{fname} ({len(tree_leaves(trained))} leaves)", flush=True)
 
-    med = statistics.median(step_s) if step_s else None
+    # the registry's median window: a window's mean step time once a step,
+    # over the histogram's sample window (its last 1024 steps; a longer run
+    # reports the median of those, not of the whole run)
+    med = step_hist.quantile(0.5)
     tps = tokens_per_step / med if med else None
+    ftok = flops_per_token(config, args.seq_len)
     on_card = dev.type == "cuda"
     print(json.dumps({
         "event": "summary",

@@ -11,9 +11,11 @@ old state is never read again either).
 
 Parameters, gradients and moments are plain nested dicts of tensors in
 the JAX package's layout (stacked ``[L, ...]`` layers), so the parity
-tests compare them leaf for leaf. The parallel paths (meshes, pipeline,
-``chunked_cross_entropy``), ``opt8`` and the obs registry of
-``make_step_callback`` are not ported yet (ROADMAP.md).
+tests compare them leaf for leaf. ``make_step_callback`` feeds the
+``dtpu_train_*`` series of ``new_train_registry`` (the port's own
+``obs`` registry) at the trainer's sync points. The parallel paths
+(meshes, pipeline, ``chunked_cross_entropy``) and ``opt8`` are not ported
+yet (ROADMAP.md).
 """
 
 import math
@@ -335,3 +337,67 @@ def flops_per_token(config: llama.LlamaConfig, seq_len: int) -> float:
     only the routed experts a token takes."""
     attn = 12 * config.n_layers * config.hidden_size * seq_len  # fwd+bwd qk/av
     return 6.0 * config.num_active_params() + attn
+
+
+# ---------------------------------------------------------------------------
+# step telemetry (obs registry hook)
+# ---------------------------------------------------------------------------
+
+PEAK_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (NVIDIA data sheet)
+
+
+def new_train_registry():
+    """Registry with every train metric family (JAX's, same names,
+    types, help texts and buckets; the serve twin is serve/metrics.py)."""
+    from dstack_tpu_torch.obs import LATENCY_BUCKETS_S, Registry
+
+    r = Registry()
+    r.histogram(
+        "dtpu_train_step_seconds",
+        "Train-step wall time (averaged over the sync window)",
+        buckets=LATENCY_BUCKETS_S,
+    )
+    r.gauge("dtpu_train_tokens_per_sec", "Training throughput over all chips")
+    r.gauge("dtpu_train_mfu", "Model-FLOPs utilization vs the configured per-chip peak")
+    r.counter("dtpu_train_steps_total", "Optimizer steps completed")
+    r.counter("dtpu_train_tokens_total", "Tokens consumed by training")
+    return r
+
+
+def make_step_callback(
+    config: llama.LlamaConfig,
+    tokens_per_step: int,
+    seq_len: int,
+    peak_flops_per_chip: float = PEAK_FLOPS,
+):
+    """Step-telemetry hook → ``cb(dt_seconds, steps=1)``.
+
+    The trainer calls it at its host-sync points (finetune syncs once a
+    log window, by reading the loss: a sync every step would stall the
+    queued device work), so ``dt_seconds`` is the window's mean step time
+    and ``steps`` its width. Each call observes the step time and
+    refreshes tokens/s and MFU (one card: the port has no multi-card
+    trainer yet); a fresh ``new_train_registry()`` rides on the callback
+    as ``cb.registry``."""
+    reg = new_train_registry()
+    fpt = flops_per_token(config, seq_len)
+    step_hist = reg.family("dtpu_train_step_seconds")
+    tps_gauge = reg.family("dtpu_train_tokens_per_sec")
+    mfu_gauge = reg.family("dtpu_train_mfu")
+    steps_ctr = reg.family("dtpu_train_steps_total")
+    tokens_ctr = reg.family("dtpu_train_tokens_total")
+
+    def cb(dt_seconds: float, steps: int = 1) -> dict:
+        dt = max(float(dt_seconds), 1e-9)
+        tps = tokens_per_step / dt
+        mfu = tps * fpt / peak_flops_per_chip
+        for _ in range(steps):
+            step_hist.observe(dt)
+        tps_gauge.set(round(tps, 3))
+        mfu_gauge.set(round(mfu, 6))
+        steps_ctr.inc(steps)
+        tokens_ctr.inc(tokens_per_step * steps)
+        return {"tokens_per_sec": tps, "mfu": mfu, "step_time_s": dt}
+
+    cb.registry = reg
+    return cb

@@ -431,7 +431,7 @@ class TestFinetuneMain:
         [
             ["--tp", "2"], ["--fsdp", "4"], ["--seq-parallel", "ring"], ["--opt-bits", "8"],
             ["--ckpt-dir", "x"], ["--resume"], ["--eval-data", "x.npy"], ["--export-hf", "x"],
-            ["--data-tokenizer", "x"], ["--profile-dir", "x"], ["--batch", "3", "--grad-accum", "2"],
+            ["--data-tokenizer", "x"], ["--sp", "2"], ["--batch", "3", "--grad-accum", "2"],
         ],
     )
     def test_flags_without_a_counterpart_exit_non_zero(self, extra, capsys):
