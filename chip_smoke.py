@@ -101,11 +101,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    64 experts with 6 a token and 2 shared ones, the dense first layer;
    K1's D = 576 form n_layers times a serial chunk and no K4 launch:
    MLA's decode and verify are products over the latent row, in JAX too).
-   Every server but the serial one warms its paths up before it listens
-   (``_warmup_engine``): its first ``/health`` must show that the warmup
-   ran and left no slot or prefix behind, and every count and metric
-   below is the difference from that snapshot; the serial server runs
-   with ``--no-warmup``, and its counts must read 0. Each server first
+   Every server runs its decode-side steps as CUDA graphs (the engine's
+   step sites, ``serve/graphs.py``). Every server but the serial one
+   warms its paths up before it listens (``_warmup_engine``, which
+   captures every site's variants and marks the engine warm): its first
+   ``/health`` must show that the warmup ran and left no slot or prefix
+   behind, and every count and metric below is the difference from that
+   snapshot; at the end of its drive no site has captured anything more,
+   and ``/metrics`` reads no recompile and no warmup-coverage gap. The
+   serial server runs with ``--no-warmup``, and its counts must read 0. Each server first
    answers one 40-token completion alone (its TTFT: cold on the serial
    path, warm elsewhere), then 4 concurrent greedy ``/v1/completions``
    (prompts of 40, 200, 300 and 700 byte tokens) and one streamed
@@ -130,17 +134,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    common traffic, and again after the extra prompts and one ``n: 2``
    completion: each time the registry's requests, TTFT count, generated
    tokens, prefill dispatches and step seconds must equal what was sent
-   and what the engine's stats counted (``_metrics_identities``). Then
+   and what the engine's stats counted, and the compile families the
+   step sites' captures (``_metrics_identities``). Then
    the serving bench (``bench_phase``): ``dstack_tpu_torch/serve/bench.py``
    on llama-3.2-1b at full width and depth (``BENCH_ARGS``: batch 8,
-   256-token prompts, 128 tokens, bursts of 8), the default engine three
-   times through ``python -m dstack_tpu_torch.serve.bench`` in a fresh
-   process and three times through ``run_bench`` in this process, in
-   turns (each set's median and spread logged, with the host's counters
-   of each run), then in this process the serial engine, the int8 cache
-   and a repetitive prompt with spec_draft 4; each run's K4 launches
+   256-token prompts, 128 tokens, bursts of 8), the default engine once
+   through ``python -m dstack_tpu_torch.serve.bench`` in a fresh process
+   (CUDA graphs), then three pairs of the eager engine
+   (``run_bench(graphs=False)``) and the graph engine in this process,
+   alternated (each set's median and spread logged, with the host's
+   counters of each run), then the serial engine as a pair, the int8
+   cache and a repetitive prompt with spec_draft 4; each run's K4 launches
    over its timed sections must be n_layers x its plain, verify and turbo
-   device steps, its K1 launches n_layers x its serial chunks. Then,
+   device steps, its K1 launches n_layers x its serial chunks. Then the
+   graph phase (``graph_phase``): in this process, llama-3.2-1b,
+   gpt-oss-20b and gemma-3-4b on both caches and deepseek-v2-lite at full
+   width and depth, the graph engine against the eager engine
+   (``graphs=False``) on the same traffic (a burst of four prompts, a
+   verify, seeded sampling with penalties and logprobs, a seed skip): the
+   same tokens, bitwise the same logits of every plain decode and verify
+   call, the same launches by form; each site's captures and capture
+   seconds; then the host ms of a plain step, a turbo macro-step of 8 and
+   a verify at 8 live slots, eager and graph in turns. Then,
    in this process, a teacher-forced
    comparison on one prompt over the prefill, 8 decode steps and one
    verify of 5 tokens, on the bf16 and on the int8 cache: the kernel
@@ -157,8 +172,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    width and 4 layers (the dense prelude and 3 MoE layers), routing
    pinned as on gpt-oss, on its latent cache. One decode step of gpt-oss
    and of deepseek-v2-lite at the server's batch of 8 on those 4 layers,
-   traced with torch.profiler: device time by kernel family and the
-   device's busy share of the step.
+   traced with torch.profiler, eager and as a CUDA graph's replay: device
+   time by kernel family and the device's busy share of the step.
 4. Training path phase: ``python -m dstack_tpu_torch.train.finetune``
    at ``--batch 8 --seq-len 2048`` (full width and depth, random weights
    from seed 0), each run in its own process whose launch counts start at
@@ -211,6 +226,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -232,6 +248,7 @@ from dstack_tpu_torch.ops import cuda_build, flash, flash_decode
 from dstack_tpu_torch.ops.attention import attention
 from dstack_tpu_torch.serve import engine
 from dstack_tpu_torch.serve.chat_template import render_chat
+from dstack_tpu_torch.serve.graphs import GraphSet
 from dstack_tpu_torch.serve.tokenizer import ByteTokenizer
 from dstack_tpu_torch.train import step as train_step
 
@@ -342,13 +359,16 @@ EOS_ID = ByteTokenizer.eos_id
 # full width and depth: its runs and the settings of each
 BENCH_ARGS = dict(model=MODEL, batch=8, max_seq=2048, prompt_len=256, gen_len=128,
                   prefill_chunk=256, prefill_pack=4, arrival_burst=8, turbo_steps=8, spec_draft=0)
-# the default engine (turbo 8, spec 0) BENCH_DEFAULT_RUNS times in a fresh
-# process and as often in this one, in turns; then the other modes here
-BENCH_DEFAULT_RUNS = 3
+# the default engine (turbo 8, spec 0) once through the bench's entry
+# point in a fresh process (CUDA graphs, its default), then in this process
+# BENCH_PAIRS pairs of the eager engine and the graph engine, alternated
+# (eager first in odd pairs); then the other modes here: the serial
+# engine as a pair, the int8 cache and the repetitive prompt on graphs
+BENCH_PAIRS = 3
 BENCH_RUNS = {
-    "serial": {"turbo_steps": 0, "prefill_pack": 1},
-    "int8": {"kv_quant": "int8"},
-    "repetitive": {"repetitive": True, "spec_draft": 4},
+    "serial": ({"turbo_steps": 0, "prefill_pack": 1}, (False, True)),
+    "int8": ({"kv_quant": "int8"}, (True,)),
+    "repetitive": ({"repetitive": True, "spec_draft": 4}, (True,)),
 }
 # each phase's wall seconds, logged before the total
 PHASE_S: dict = {}
@@ -367,6 +387,15 @@ def phase(name: str):
         yield
     finally:
         PHASE_S[name] = round(PHASE_S.get(name, 0.0) + time.perf_counter() - t0, 1)
+
+
+def free_card() -> None:
+    """Return what this process no longer holds to the card: an engine and
+    its step sites refer to each other (``serve/graphs.py``), so their
+    tensors wait for the cycle collector, which knows nothing of the
+    card's memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def card_line() -> str:
@@ -989,7 +1018,7 @@ def gemma_backward_kernel_phase() -> dict:
     }
     rows["flash_fwd_d256"] = {"training_shape": fwd, "trainer_shapes": {}}
     del q, k, v, do
-    torch.cuda.empty_cache()
+    free_card()
 
     # each Gemma fine-tune run's micro-batch, on every window its layers use
     for run, (model, _, accum, _) in TRAIN_RUNS.items():
@@ -1046,7 +1075,7 @@ def gemma_backward_kernel_phase() -> dict:
                     f"window={window} softcap={c.attn_softcap}: " + json.dumps(row))
             del r, lse, delta
         del q, k, v, do
-        torch.cuda.empty_cache()
+        free_card()
     return rows
 
 
@@ -1223,7 +1252,7 @@ def mla_train_kernel_phase() -> dict:
                 f"{' (the training micro-batch, v and dO zero-padded)' if key == 'trainer' else ''}: "
                 + json.dumps(row))
         del q, k, v, do, r, o, lse, delta
-        torch.cuda.empty_cache()
+        free_card()
     return rows
 
 
@@ -1372,7 +1401,7 @@ def backward_kernel_phase() -> dict:
         )
         log(f"kernel {name} q/dO [{b},{h},{t},{d}] k/v [{b},{hkv},{t},{d}] causal: {json.dumps(row)}")
     del main, q, k, v, o, lse, do, delta
-    torch.cuda.empty_cache()
+    free_card()
 
     # the trainer's shape: twice the batch (the plain version, ~4 GB a
     # [B, H, T, T] f32 intermediate here, is not timed again)
@@ -1525,21 +1554,36 @@ def _scrape(base: str) -> dict:
     return series
 
 
+def _family_sum(m: dict, name: str) -> float:
+    """The sum of a labelled family's series in a scrape."""
+    return sum(v for k, v in m.items() if k.startswith(name + "{"))
+
+
 def _metrics_identities(what: str, sent: int, m0: dict, m1: dict, h0: dict, h1: dict) -> dict:
     """The registry's series on ``/metrics`` against what was served
     between two scrapes (each beside a ``/health`` read, no request in
     flight): requests by the requests sent (``n`` fanned out), TTFTs by the
     requests admitted, tokens by the step kinds' tokens plus one first
     token a request, prefill dispatches by the stats', and the step
-    seconds' sum by the step kinds' seconds within 1e-6."""
+    seconds' sum by the step kinds' seconds within 1e-6. The compile
+    families, whole: one compile and one compile-seconds observation a
+    captured variant of the step sites (``/health``'s ``graph_sites``),
+    the turbo compile-cache entries those sites', and after the warm mark
+    no recompile and no warmup-coverage gap."""
     d = {k: m1.get(k, 0.0) - m0.get(k, 0.0) for k in m1}
     st, _, _ = _since(h1, h0)
+    sites = h1["graph_sites"]
     got = {
         "requests": d["dtpu_serve_requests_total"],
         "ttft_count": d["dtpu_serve_ttft_seconds_count"],
         "tokens": d["dtpu_serve_tokens_generated_total"],
         "prefill_dispatches": d["dtpu_serve_prefill_dispatches_total"],
         "step_seconds": d["dtpu_serve_decode_step_seconds_sum"],
+        "compiles": _family_sum(m1, "dtpu_serve_compiles_total"),
+        "compile_seconds_count": sum(v for k, v in m1.items() if k.startswith("dtpu_serve_compile_seconds_count")),
+        "turbo_cache_entries": m1.get('dtpu_serve_compile_cache_entries{fn="turbo"}'),
+        "recompiles_and_gaps": (_family_sum(m1, "dtpu_serve_recompiles_total")
+                                + _family_sum(m1, "dtpu_serve_warmup_gap_compiles_total")),
     }
     want = {
         "requests": sent,
@@ -1547,6 +1591,10 @@ def _metrics_identities(what: str, sent: int, m0: dict, m1: dict, h0: dict, h1: 
         "tokens": sum(st[f"{k}_tokens"] for k in ("decode", "spec", "turbo")) + st["ttft_count"],
         "prefill_dispatches": st["prefill_dispatches"],
         "step_seconds": sum(st[f"{k}_seconds"] for k in ("decode", "spec", "turbo")),
+        "compiles": sum(r["entries"] for r in sites.values()),
+        "compile_seconds_count": sum(r["entries"] for r in sites.values()),
+        "turbo_cache_entries": sites["turbo"]["entries"],
+        "recompiles_and_gaps": 0,
     }
     if not (all(got[k] == want[k] for k in got if k != "step_seconds") and st["ttft_count"] == sent
             and abs(got["step_seconds"] - want["step_seconds"]) <= 1e-6):
@@ -1801,7 +1849,7 @@ def feature_drive(c, base: str) -> dict:
         timed.append(("logprobs" if extra else "greedy", time.perf_counter() - t0))
     report["greedy_vs_logprobs_s"] = timed
     del params
-    torch.cuda.empty_cache()
+    free_card()
     log("feature drive [default]: " + json.dumps(report))
     return report
 
@@ -1919,6 +1967,22 @@ def _drive_server(c, base: str, mode: str, h0: dict, ready_s: float, warmup_s) -
     h = _get(base + "/health")
     st, launches, variants = _since(h, h0)
     n = c.n_layers
+    # the step sites: after a warmup every variant the traffic reached was
+    # captured before the warm mark (no recompile, no coverage gap)
+    m_end = _scrape(base)
+    compile_check = {
+        "flight_warm": h["flight_warm"],
+        "compiles": _family_sum(m_end, "dtpu_serve_compiles_total"),
+        "recompiles": _family_sum(m_end, "dtpu_serve_recompiles_total"),
+        "warmup_gaps": _family_sum(m_end, "dtpu_serve_warmup_gap_compiles_total"),
+        "sites_after_warmup": h0["graph_sites"],
+        "sites": h["graph_sites"],
+    }
+    if warmup_s is not None and not (h["flight_warm"] and compile_check["recompiles"] == 0
+                                     and compile_check["warmup_gaps"] == 0
+                                     and h["graph_sites"] == h0["graph_sites"]):
+        raise AssertionError(f"[{mode}] the traffic compiled past the warmup: {json.dumps(compile_check)}")
+    log(f"[{mode}] step sites: " + json.dumps(compile_check))
     embed_k1 = n * features.get("embed_inputs", 0)  # the embeddings' forwards
     if c.mla:
         # K1's D = 576 form on every serial chunk; no K4: MLA's decode and
@@ -1979,6 +2043,7 @@ def _drive_server(c, base: str, mode: str, h0: dict, ready_s: float, warmup_s) -
         "all_traffic": _serving_metrics(st),
         "features": features,
         "metrics_check": metrics_check,
+        "compile_check": compile_check,
     }
     log(f"path [{mode}]: " + json.dumps(path))
     return path
@@ -2014,7 +2079,10 @@ def _check_bench(name: str, r: dict, seconds: float) -> dict:
         raise AssertionError(f"bench [{name}]: {json.dumps(r)}")
     if lc["flash_decode"] != n * steps or not steps or lc["flash_fwd"] != n * serial_chunks or lc["flash_fwd_mla"]:
         raise AssertionError(f"bench [{name}]: launches {lc} against {n} x the timed steps {st}")
-    line = {**_bench_line(name, r), "seconds": round(seconds, 2)}
+    if x["graphs"] != (not name.startswith("eager")):
+        raise AssertionError(f"bench [{name}] ran with graphs={x['graphs']}")
+    line = {**_bench_line(name, r), "seconds": round(seconds, 2), "timed_compiles": x["timed_compiles"],
+            "capture_s": round(sum(v["capture_s"] for v in x["graph_sites"].values()), 3)}
     log(f"bench [{name}]: " + json.dumps(line))
     return line
 
@@ -2027,18 +2095,20 @@ def _spread(values: list) -> dict:
 
 def bench_phase() -> dict:
     """The serving bench (``serve/bench.py``) on llama-3.2-1b at full
-    width and depth. The default engine (turbo 8, spec 0) runs
-    BENCH_DEFAULT_RUNS times through ``python -m
-    dstack_tpu_torch.serve.bench`` in a fresh process (its one JSON line
-    parsed) and as often through ``run_bench`` in this process, in turns,
-    so the two sets meet the same host; then here the serial engine, the
-    int8 cache and a repetitive prompt with spec_draft 4, each once. Each
-    run's launches over its timed sections are held to its dispatch
-    counts; the counts of each in-process run are set to 0 before it and
-    read after (its path in the kernels line), a fresh process's are its
-    own. Each run logs the host's counters over its timed sections
-    (``extra.host``) and its wall seconds. → {"runs", "launches" by run,
-    "default": median and spread of each set}."""
+    width and depth. The default engine (turbo 8, spec 0) runs once
+    through ``python -m dstack_tpu_torch.serve.bench`` in a fresh process
+    (its one JSON line parsed; CUDA graphs, the entry point's default),
+    then BENCH_PAIRS times as the eager engine (``run_bench(graphs=False)``)
+    and as the graph engine in this process, alternated; then here the
+    serial engine as a pair, and the int8 cache and a repetitive prompt
+    with spec_draft 4 on graphs (BENCH_RUNS). Each run's launches over its
+    timed sections are held to its dispatch counts; the counts of each
+    in-process run are set to 0 before it and read after (its path in the
+    kernels line), the fresh process's are its own. Each run logs the
+    host's counters over its timed sections (``extra.host``), the
+    variants first compiled inside them, its capture seconds and its wall
+    seconds. → {"runs", "launches" by run, "default": median and spread
+    of each set, and their ratio}."""
     from dstack_tpu_torch.serve.bench import run_bench
 
     runs, launches = {}, {}
@@ -2046,41 +2116,194 @@ def bench_phase() -> dict:
     for k, v in BENCH_ARGS.items():
         cmd += [f"--{k.replace('_', '-')}", str(v)]
 
-    def in_process(name: str, delta: dict) -> None:
+    def in_process(name: str, delta: dict, graphs: bool) -> None:
         reset_counts()
         t0 = time.perf_counter()
-        r = run_bench(**{**BENCH_ARGS, **delta}, device=DEVICE)
+        r = run_bench(**{**BENCH_ARGS, **delta}, device=DEVICE, graphs=graphs)
         launches[name] = read_counts()
         runs[name] = _check_bench(name, r, time.perf_counter() - t0)
-        torch.cuda.empty_cache()
+        free_card()
 
-    for i in range(1, BENCH_DEFAULT_RUNS + 1):
-        name = f"process_{i}"
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"the bench's entry point exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-        r = json.loads(proc.stdout.strip().splitlines()[-1])
-        runs[name] = _check_bench(name, r, time.perf_counter() - t0)
-        lc = r["extra"]["kernel_launches"]
-        launches[name] = {"flash_fwd": lc["flash_fwd"], "flash_decode": lc["flash_decode"],
-                          **lc["flash_decode_by_variant"]}
-        in_process(f"in_process_{i}", {})
-    for name, delta in BENCH_RUNS.items():
-        in_process(name, delta)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the bench's entry point exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    runs["process"] = _check_bench("process", r, time.perf_counter() - t0)
+    lc = r["extra"]["kernel_launches"]
+    launches["process"] = {"flash_fwd": lc["flash_fwd"], "flash_decode": lc["flash_decode"],
+                           **lc["flash_decode_by_variant"]}
+    for i in range(1, BENCH_PAIRS + 1):
+        for graphs in ((False, True) if i % 2 else (True, False)):
+            in_process(f"{'graph' if graphs else 'eager'}_{i}", {}, graphs)
+    for name, (delta, kinds) in BENCH_RUNS.items():
+        for graphs in kinds:
+            in_process(f"{'graph' if graphs else 'eager'}_{name}", delta, graphs)
     default = {}
-    for where in ("process", "in_process"):
-        sel = [runs[f"{where}_{i}"] for i in range(1, BENCH_DEFAULT_RUNS + 1)]
-        default[where] = {"value": _spread([r["value"] for r in sel]),
-                          "ttft_ms_p50": _spread([r["ttft_ms_p50"] for r in sel]),
-                          # the share of the timed wall time the engine's thread ran on a
-                          # core, and the collector's seconds in it
-                          "thread_cpu_share": _spread([r["host"]["thread_cpu_s"] / r["host"]["wall_s"]
-                                                       for r in sel]),
-                          "gc_s": _spread([r["host"]["gc_s"] for r in sel])}
-    log(f"bench [default, {BENCH_DEFAULT_RUNS} runs each in a fresh process and in this one]: "
-        + json.dumps(default))
+    for kind in ("eager", "graph"):
+        sel = [runs[f"{kind}_{i}"] for i in range(1, BENCH_PAIRS + 1)]
+        default[kind] = {"value": _spread([r["value"] for r in sel]),
+                         "ttft_ms_p50": _spread([r["ttft_ms_p50"] for r in sel]),
+                         "burst_ttft_ms_p50_packed": _spread([r["burst_ttft_ms_p50"][0] for r in sel]),
+                         # the share of the timed wall time the engine's thread ran on a
+                         # core, and the collector's seconds in it
+                         "thread_cpu_share": _spread([r["host"]["thread_cpu_s"] / r["host"]["wall_s"]
+                                                      for r in sel]),
+                         "gc_s": _spread([r["host"]["gc_s"] for r in sel])}
+    default["graph_over_eager"] = default["graph"]["value"]["median"] / default["eager"]["value"]["median"]
+    log(f"bench [default, {BENCH_PAIRS} pairs of the eager and the graph engine]: " + json.dumps(default))
     return {"runs": runs, "launches": launches, "default": default}
+
+
+# ---------------------------------------------------------------------------
+# the compiled step sites: the graph engine against the eager engine
+# ---------------------------------------------------------------------------
+
+
+def _graph_models() -> list:
+    """(key, config, params factory, kv_quant) of ``graph_phase``: every
+    model at full width and depth, random weights from seed 0 (gpt-oss
+    with its sinks and biases drawn nonzero, Gemma with its norms at
+    identity)."""
+    def full(name):
+        c = llama.CONFIGS[name]
+        return c, llama.init_params(c, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+
+    def gpt_oss():
+        c, params = full(GPT_OSS)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        for name, std in GPT_OSS_NONZERO.items():
+            leaf = params["layers"][name]
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device="cuda") * std)
+        return c, params
+
+    return [(MODEL, lambda: full(MODEL), (None, "int8")), (GPT_OSS, gpt_oss, (None, "int8")),
+            (GEMMA3, lambda: gemma_tf_params(GEMMA3), (None, "int8")), (DEEPSEEK, lambda: full(DEEPSEEK), (None,))]
+
+
+def _graph_engine(c, params, kv_quant, graphs: bool):
+    """The server's default engine (max_batch 8, max_seq 2048, chunk 256,
+    pack 4, spec 4, turbo 8), arrival-busy throughout so that both engines
+    pick the same turbo steps."""
+    return engine.InferenceEngine(c, params, max_batch=8, max_seq=2048, prefill_chunk=CHUNK,
+                                  kv_quant=kv_quant, turbo_quiet_s=1e9, graphs=graphs, device="cuda")
+
+
+def _graph_traffic(e, vocab: int) -> tuple:
+    """``graph_phase``'s traffic on one engine → (tokens of each request,
+    the logits of each plain decode and verify call, the launches). A
+    burst of PROMPT_LENS random prompts of MAX_TOKENS greedy tokens
+    (packed waves, plain steps beside a prefilling prompt, turbo), a
+    verify of a draft (``warm_verify``: random weights rarely draft), a
+    seeded sampled request with penalties and logprobs, and one with a
+    seed skip."""
+    logits = []
+    sites = {name: getattr(e, name) for name in ("_decode", "_verify")}
+    for name, site in sites.items():
+        setattr(e, name, lambda *a, site=site: logits.append(site(*a).clone()) or logits[-1])
+    rng = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(1, vocab, (n,), generator=rng).tolist() for n in PROMPT_LENS]
+    reset_counts()
+    slots = {e.start_request(p, engine.GenParams(max_new_tokens=MAX_TOKENS)): i for i, p in enumerate(prompts)}
+    outs = [[] for _ in prompts]
+    while e.prefilling_slots() or any(e.active[s] for s in slots):
+        for s, t in e.prefill_wave().items():
+            outs[slots[s]].append(t)
+        for s, toks in e.step().items():
+            outs[slots[s]].extend(toks)
+    for s in slots:
+        e.release(s)
+    e.warm_verify()
+    for gen in (engine.GenParams(max_new_tokens=16, temperature=0.8, seed=3, repetition_penalty=1.1,
+                                 presence_penalty=0.2, logprobs=3),
+                engine.GenParams(max_new_tokens=8, temperature=1.0, seed=5, seed_skip=3, top_k=40)):
+        outs.append(e.generate(prompts[0][:100], gen))
+    for name, site in sites.items():
+        setattr(e, name, site)
+    return outs, logits, read_counts()
+
+
+def _host_ms(e, kind: str, calls: int) -> float:
+    """Median host ms of ``calls`` engine calls of ``kind`` with 8 slots
+    live, each ending in its tokens' copy to the host: a plain decode step
+    (turbo off), a turbo macro-step of 8, or a verify of 4 drafted tokens a
+    slot. One untimed call first."""
+    live = [i for i in range(e.max_batch) if e.active[i]]
+    turbo, spec = e.turbo_steps, e.spec_draft
+    e.turbo_steps = 8 if kind == "turbo" else 0
+    e.spec_draft = spec if kind == "verify" else 0  # no draft turns a step into a verify
+    if kind == "verify":
+        call = lambda: e._spec_step(live, {i: [e.last_token[i]] * e.spec_draft for i in live})  # noqa: E731
+    else:
+        call = e.step
+    times = []
+    for _ in range(calls + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        times.append(time.perf_counter() - t0)
+    e.turbo_steps, e.spec_draft = turbo, spec
+    times = sorted(times[1:])
+    return 1e3 * times[len(times) // 2]
+
+
+def graph_phase() -> dict:
+    """The decode-side step sites as CUDA graphs (``serve/graphs.py``)
+    against the eager engine (``graphs=False``), in this process, on
+    llama-3.2-1b, gpt-oss-20b and gemma-3-4b on the bf16 and the int8
+    cache (K4's every form inside the graphs) and deepseek-v2-lite, at
+    full width and depth: the same traffic
+    (``_graph_traffic``) must give the same tokens, the same logits of
+    every plain decode and verify call (bitwise: the same kernels on the
+    same inputs) and the same kernel launches by form. Each site's
+    captures and capture seconds and the turbo compile-cache entries are
+    reported. Then, with 8 slots live at 256-token prompts, the host ms of
+    a plain step, a turbo macro-step of 8 and a verify, eager and graph in
+    turns (eager, graph, graph, eager). → {key: report}; the launches by
+    path go to the kernels line."""
+    out = {}
+    for name, make, caches in _graph_models():
+        c, params = make()
+        for kv_quant in caches:
+            key = f"{name}_{kv_quant or 'bf16'}"
+            t0 = time.perf_counter()
+            engines = {g: _graph_engine(c, params, kv_quant, g) for g in (True, False)}
+            runs = {g: _graph_traffic(e, c.vocab_size) for g, e in engines.items()}
+            (gout, glog, glaunch), (eout, elog, elaunch) = runs[True], runs[False]
+            diffs = [float((a - b).abs().max()) for a, b in zip(glog, elog)]
+            if gout != eout or len(glog) != len(elog) or not glog or any(diffs) or glaunch != elaunch:
+                raise AssertionError(
+                    f"graph [{key}]: tokens equal {gout == eout}, logit calls {len(glog)}/{len(elog)}, "
+                    f"max |diff| {max(diffs, default=None)}, launches {glaunch} != {elaunch}")
+            ge = engines[True]
+            ge.update_state_gauges()
+            report = {
+                "requests": len(gout), "tokens": sum(len(o) for o in gout), "logit_calls": len(glog),
+                "max_abs_logit_diff": max(diffs), "launches": glaunch,
+                "sites": {k: {"entries": v["entries"], "capture_s": round(v["capture_s"], 4)}
+                          for k, v in ge.graphs.report().items()},
+                "compile_cache_entries_turbo": ge.metrics.family("dtpu_serve_compile_cache_entries").value("turbo"),
+            }
+            rng = torch.Generator().manual_seed(1)
+            for e in engines.values():
+                for _ in range(e.max_batch):
+                    e.start_request(torch.randint(1, c.vocab_size, (CHUNK,), generator=rng).tolist(),
+                                    engine.GenParams(max_new_tokens=1500))
+                while e.prefilling_slots():
+                    e.prefill_wave()
+            host = {kind: {"eager": [], "graph": []} for kind in ("plain", "turbo", "verify")}
+            for g in (False, True, True, False):
+                for kind, calls in (("plain", 8), ("turbo", 4), ("verify", 4)):
+                    host[kind]["graph" if g else "eager"].append(round(_host_ms(engines[g], kind, calls), 3))
+            report["host_ms"] = host
+            report["seconds"] = round(time.perf_counter() - t0, 1)
+            log(f"graph [{key}]: " + json.dumps(report))
+            out[key] = report
+            del engines, runs
+            free_card()
+        del params
+        free_card()
+    return out
 
 
 def weights_server_phase() -> dict:
@@ -2101,7 +2324,7 @@ def weights_server_phase() -> dict:
     load_s = time.perf_counter() - t0
     toks, entries = _engine_logprobs(c, params, list(prompt.encode()), MAX_TOKENS, 0)
     del params
-    torch.cuda.empty_cache()
+    free_card()
     ch = body["choices"][0]
     served = ch["logprobs"]["token_logprobs"]
     if not (ch["text"] == ByteTokenizer().decode(toks) and len(served) == len(toks)
@@ -2447,7 +2670,7 @@ def train_profile_phase() -> dict:
     report = profile_step(lambda: fn(state, batch))
     log("train step profile (full fine-tune, batch 8 x 2048): " + json.dumps(report))
     del state, fn, batch
-    torch.cuda.empty_cache()
+    free_card()
     return report
 
 
@@ -2519,7 +2742,7 @@ def deepseek_train_phase() -> dict:
     log(f"{DEEPSEEK} train step profile ({c.n_layers} layers, batch {BWD_TRAIN_BATCH} x 2048): "
         + json.dumps(report["profile"]))
     del state, step
-    torch.cuda.empty_cache()
+    free_card()
     return report
 
 
@@ -2529,26 +2752,37 @@ def decode_profile_phase(name: str, c, params) -> dict:
     on deepseek-v2-lite the latent products), traced with
     ``profile_step``, and its host-clock time untraced (median of 10):
     where a decode step's time goes, per layer of ``c`` (the comparison's
-    depth; the servers run 24 and 27)."""
+    depth; the servers run 24 and 27). Then the same step as a CUDA graph
+    (a step site of ``serve/graphs.py``, captured once) traced and timed
+    alike beside it: the device's busy share of a replay."""
     b = 8
     cache = engine.init_cache(c, b, 2048, device="cuda")
     tok = torch.arange(b, device="cuda") + 97
     positions = torch.arange(300, 1900, 200, dtype=torch.int32, device="cuda")
 
     def step():
-        engine.decode_step(params, cache, tok, positions, c)
+        return engine.decode_step(params, cache, tok, positions, c)[0]
+
+    def timed_ms(fn) -> float:
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return 1e3 * sorted(times)[len(times) // 2]
 
     report = profile_step(step)
-    times = []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    report["step_ms"] = 1e3 * sorted(times)[len(times) // 2]
+    report["step_ms"] = timed_ms(step)
     report["layers"] = c.n_layers
-    log(f"decode step profile ({c.n_layers}-layer {name}, batch {b}): " + json.dumps(report))
+    replay = GraphSet("cuda", capture=True).site("decode", step)
+    replay()  # the capture
+    graph = profile_step(replay)
+    graph["step_ms"] = timed_ms(replay)
+    report["graph"] = graph
+    log(f"decode step profile ({c.n_layers}-layer {name}, batch {b}, eager; graph under 'graph'): "
+        + json.dumps(report))
     return report
 
 
@@ -2633,7 +2867,7 @@ def grad_parity_phase(name: str = MODEL) -> dict:
     report = {"model": name, "layers": c.n_layers, "loss": loss, "rel_rms_vs_f32": leaves}
     log(f"gradient parity {name} (rel RMS vs the f32 path, per leaf): " + json.dumps(report))
     del params, params32, grads
-    torch.cuda.empty_cache()
+    free_card()
     return report
 
 
@@ -2667,14 +2901,16 @@ def main() -> int:
         rows.update(mla_kernel_phase())
         rows.update(mla_train_kernel_phase())
         embed_kernel_phase(rows)
-    torch.cuda.empty_cache()  # the servers need the card's memory
+    free_card()  # the servers need the card's memory
     serve = {}
     for mode in SERVER_MODES:
         with phase(f"server_{mode}"):
             serve[mode] = path_phase(mode)
     with phase("bench"):
         bench = bench_phase()
-    torch.cuda.empty_cache()
+    free_card()
+    with phase("graphs"):
+        graphs = graph_phase()
     teacher = {}
     for name, make, caches, prompt_len in (
         (MODEL, llama_tf_params, (None, "int8"), 300),
@@ -2690,7 +2926,7 @@ def main() -> int:
             if name in (GPT_OSS, DEEPSEEK):
                 decode_profile_phase(name, c, params)
             del params
-            torch.cuda.empty_cache()
+            free_card()
     train = {}
     for run in TRAIN_RUNS:
         with phase(f"train_{run}"):
@@ -2710,6 +2946,7 @@ def main() -> int:
         **{f"serve_{mode}": (SERVER_MODES[mode][0], path["launches"]) for mode, path in serve.items()},
         "serve_weights": (MODEL, weights_server["launches"]),
         **{f"bench_{name}": (MODEL, counts) for name, counts in bench["launches"].items()},
+        **{f"graph_{key}": (key.rsplit("_", 1)[0], report["launches"]) for key, report in graphs.items()},
         **{f"teacher_forced_{key}": (key.rsplit("_", 1)[0], report["launches"])
            for key, report in teacher.items()},
         **{f"train_{run}": (TRAIN_RUNS[run][0], summary["launches"]) for run, summary in train.items()},

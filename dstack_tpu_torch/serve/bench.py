@@ -26,8 +26,13 @@ Deltas from it:
   launches can be held to n_layers x (plain + verify + turbo device
   steps); ``host``: what the host did over the same sections (wall
   seconds, the CPU seconds of this process and of the engine's thread,
-  garbage collections and their seconds: the step is host-bound); and
-  the card's name and power limit (``utils/backend.py``);
+  garbage collections and their seconds); ``graphs``: whether the
+  engine's decode-side steps ran as CUDA graphs (``serve/graphs.py``;
+  ``run_bench(graphs=False)`` runs the eager engine, the reference, and
+  is no CLI flag), each site's captures and capture seconds
+  (``graph_sites``), and the variants first compiled inside the timed
+  sections (``timed_compiles``: 0 when the warmup covered them); and the
+  card's name and power limit (``utils/backend.py``);
 - ``--sessions`` and its flags (``run_session_bench``) need ``routing/``
   and come with ROADMAP A4; ``--quantize int8`` (int8 weights) comes with
   A3.5. Both are refused.
@@ -49,28 +54,19 @@ import torch
 
 from dstack_tpu_torch.loadgen.textgen import repetitive_prompts, token_prompts
 from dstack_tpu_torch.models import llama
-from dstack_tpu_torch.ops import cuda_build, flash, flash_decode
+from dstack_tpu_torch.ops import cuda_build, flash_decode
 from dstack_tpu_torch.serve.engine import (
     GenParams,
     InferenceEngine,
     copy_cache_prefix,
     resolve_device,
 )
+from dstack_tpu_torch.serve.graphs import launch_counts
 from dstack_tpu_torch.utils.backend import backend_info
 
 # the engine's dispatch counts that the kernels' launches are held to
 _STEP_KEYS = ("decode_steps", "spec_steps", "turbo_device_steps", "prefill_dispatches",
               "packed_dispatches")
-
-
-def _launch_counts() -> dict:
-    """The hand-written kernels' launch counts in this process (flat)."""
-    return {
-        "flash_fwd": flash.LAUNCHES,
-        "flash_fwd_mla": flash.LAUNCHES_MLA,
-        "flash_decode": flash_decode.LAUNCHES,
-        **{f"flash_decode_{k}": v for k, v in flash_decode.LAUNCHES_BY_VARIANT.items()},
-    }
 
 
 def _host_counters() -> dict:
@@ -91,7 +87,8 @@ class _Timed:
 
     def __init__(self, eng):
         self.eng = eng
-        self.launches = {k: 0 for k in _launch_counts()}
+        self.launches = {k: 0 for k in launch_counts()}
+        self.compiles = 0
         self.steps = {k: 0 for k in _STEP_KEYS}
         self.host = {"wall_s": 0.0, "cpu_s": 0.0, "thread_cpu_s": 0.0, "gc_collections": 0, "gc_s": 0.0}
         self._gc_t0 = None
@@ -104,8 +101,12 @@ class _Timed:
             self.host["gc_s"] += time.perf_counter() - self._gc_t0
             self._gc_t0 = None
 
+    def _variants(self) -> int:
+        return sum(site._cache_size() for site in self.eng.graphs.sites)
+
     def __enter__(self):
-        self._l0 = _launch_counts()
+        self._c0 = self._variants()
+        self._l0 = launch_counts()
         self._s0 = {k: self.eng.stats[k] for k in _STEP_KEYS}
         gc.callbacks.append(self._gc)
         self._h0 = _host_counters()
@@ -115,8 +116,9 @@ class _Timed:
         for k, v in _host_counters().items():
             self.host[k] += v - self._h0[k]
         gc.callbacks.remove(self._gc)
-        for k, v in _launch_counts().items():
+        for k, v in launch_counts().items():
             self.launches[k] += v - self._l0[k]
+        self.compiles += self._variants() - self._c0
         for k in _STEP_KEYS:
             self.steps[k] += self.eng.stats[k] - self._s0[k]
         return False
@@ -209,6 +211,7 @@ def run_bench(
     arrival_burst: int = 0,  # 0 = off; else the concurrent-arrival burst's size
     decode_kernel=None,  # None (K4 where it takes the model) | "flash" | "einsum"
     device="cuda",
+    graphs: bool = True,  # False: the eager engine on the card (the reference)
 ) -> dict:
     """Measure the engine directly → result dict (the importable core)."""
     if quantize is not None:
@@ -230,7 +233,7 @@ def run_bench(
         spec_draft=spec_draft, turbo_steps=turbo_steps,
         turbo_depth=turbo_depth, kv_quant=kv_quant,
         prefill_chunk=prefill_chunk, prefill_pack=prefill_pack,
-        decode_kernel=decode_kernel, device=dev,
+        decode_kernel=decode_kernel, device=dev, graphs=graphs,
     )
     rng = np.random.default_rng(0)
     if repetitive:
@@ -251,14 +254,27 @@ def run_bench(
     while eng.active[slot]:
         eng.step()
     eng.release(slot)
+    # each smaller power-of-two turbo variant (a budget of s + 1 picks
+    # steps = s): a verify's uneven advance leaves such budgets, and on
+    # the card each variant's first call captures its graph
+    s = turbo_steps // 2
+    while s >= 1:
+        slot, _ = eng.add_request(list(prompts[0][:16]), GenParams(max_new_tokens=s + 1))
+        while eng.active[slot]:
+            eng.step()
+        eng.release(slot)
+        s //= 2
     eng.spec_draft = spec
     if spec:
         phrase = prompts[0][:16]
         warm = (phrase * (prompt_len // 16 + 1))[:prompt_len]
+        spec_steps = eng.stats["spec_steps"]
         slot, _ = eng.add_request(warm, GenParams(max_new_tokens=6))
         while eng.active[slot]:
             eng.step()  # repetition drafts → verify
         eng.release(slot)
+        if eng.stats["spec_steps"] == spec_steps:
+            eng.warm_verify()  # the model drafted nothing: verify once all the same
 
     # cold TTFT must stay cold: the warmup request registered its prompt
     # for prefix reuse (repetitive mode's identical prompts would hit it)
@@ -379,6 +395,9 @@ def run_bench(
             "kernel_launches": timed.kernel_launches(),
             "timed_steps": dict(timed.steps),
             "host": timed.host_counters(),
+            "graphs": eng.graphs.capture,
+            "graph_sites": eng.graphs.report(),
+            "timed_compiles": timed.compiles,
             **backend,
         },
     }

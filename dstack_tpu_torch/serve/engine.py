@@ -43,6 +43,24 @@ chunk-aligned prefix cache, and the optional int8 KV cache
 (``GenParams.logprobs``) takes the plain step, as in JAX: the speculative,
 turbo and argmax paths never compute them.
 
+The decode side runs as the JAX engine's compiled step functions do:
+each of ``decode``, ``verify``, ``sample``, ``argmax``, ``advance_state``,
+``logprobs``, ``mark_seen`` and ``skip_key``, and ``turbo`` (``decode_loop``)
+once per power-of-two ``steps``, is a step site (``serve/graphs.py``): a
+CUDA graph captured on a variant's first call and replayed after that,
+the same function run eagerly on the CPU, or on the card with
+``graphs=False`` (the graphs' reference). The sites read the engine's
+fixed buffers in place: the cache, the device mirrors of the slot state
+and of the sampling parameters (rewritten with ``copy_`` after a host
+mutation), the seen-token counts, the logit bias and the per-slot key
+data. Sampling is one batched draw: Gumbel noise hashed from each slot's
+(seed, draw counter) and the vocab index in plain integer ops
+(:func:`draw_bits`), where JAX splits a threefry key a slot. Each site's
+first call of a variant counts as a compile in the flight recorder
+(``obs/flight.py``), which feeds the compile families; the server's
+warmup marks the engine warm (:meth:`InferenceEngine.mark_flight_warm`).
+Prefill stays eager.
+
 Telemetry is recorded at the source, as in JAX: the engine's
 ``metrics`` registry (``serve/metrics.py``) takes TTFT at activation,
 each emitting step's seconds, tokens, TPOT and tokens/s, prefill
@@ -53,6 +71,7 @@ registry on ``/metrics`` and the bench (``serve/bench.py``) reads it.
 
 import time
 from dataclasses import dataclass
+from functools import partial
 from typing import Optional
 
 import torch
@@ -84,7 +103,13 @@ from dstack_tpu_torch.ops.flash_decode import (
     flash_decode_supported,
     kv_dequant,
 )
+from dstack_tpu_torch.obs import boot as obs_boot
+from dstack_tpu_torch.obs import flight
+from dstack_tpu_torch.serve.graphs import GraphSet
 from dstack_tpu_torch.serve.metrics import new_serve_registry
+from dstack_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("serve.engine")
 
 NEG_INF = -1e30
 
@@ -253,12 +278,14 @@ def _cwrite_at(ckv, batch_ix: torch.Tensor, write_pos: torch.Tensor, new: torch.
     wp = write_pos.reshape(-1).long()
     vals = new.reshape(-1, *new.shape[2:])  # [N, H, (D)]
     valid = (wp >= 0) & (wp < t)
-    donor = valid.to(torch.int32).argmax()  # the first kept entry, else 0
-    bi = torch.where(valid, bi, bi[donor])
-    wp = torch.where(valid, wp, wp[donor]).clamp(0, t - 1)
+    # the first kept entry, else 0, as a [1] index: indexing with a 0-d
+    # tensor would read it on the host (a sync, which breaks a capture)
+    donor = valid.to(torch.int32).argmax().view(1)
+    bi = torch.where(valid, bi, bi.index_select(0, donor))
+    wp = torch.where(valid, wp, wp.index_select(0, donor)).clamp(0, t - 1)
     shape = (-1, *([1] * (vals.dim() - 1)))
-    vals = torch.where(valid.view(shape), vals, vals[donor])
-    vals = torch.where(valid[donor], vals, ckv[bi, :, wp])
+    vals = torch.where(valid.view(shape), vals, vals.index_select(0, donor))
+    vals = torch.where(valid.index_select(0, donor).view(shape), vals, ckv[bi, :, wp])
     ckv[bi, :, wp] = vals
     return ckv
 
@@ -815,25 +842,68 @@ def decode_loop(
 # ---------------------------------------------------------------------------
 
 
-def _gumbel(generator: torch.Generator, v: int, device) -> torch.Tensor:
-    """One draw of the slot's stream: [V] Gumbel noise (JAX's
-    ``categorical`` is Gumbel-max too)."""
-    u = torch.rand((v,), generator=generator, device=device)
-    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """The low 32 bits of ``x * c`` for int64 ``x`` in [0, 2^32): ``c``
+    split into 16-bit halves, so that no product leaves int64's range."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & MASK32
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finaliser on int64 tensors holding [0, 2^32):
+    a bijection whose every output bit depends on every input bit."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def draw_bits(key_data: torch.Tensor, v: int) -> torch.Tensor:
+    """The counter-based hash of the batched draw: key data [B, 2] int64
+    (seed, draw counter) per row → [B, V] int64 in [0, 2^32), each
+    element a hash of (seed, counter, vocab index). Plain integer ops,
+    so the CPU and the card give the same bits, and a row's draw depends
+    on its own key alone: the port's counterpart of JAX's per-slot
+    threefry keys (a different stream)."""
+    seed, ctr = key_data[:, 0], key_data[:, 1]
+    k = _fmix32(((ctr >> 32) & MASK32) ^ 0x9E3779B9)
+    k = _fmix32(k ^ (ctr & MASK32))
+    k = _fmix32(k ^ ((seed >> 32) & MASK32))
+    k1 = _fmix32(k ^ (seed & MASK32))[:, None]  # two row keys [B, 1]
+    k2 = _fmix32(k1 ^ 0x7F4A7C15)
+    ix = torch.arange(v, dtype=torch.int64, device=key_data.device)[None, :]
+    return _fmix32(_fmix32(ix ^ k1) ^ k2)
+
+
+def gumbel_noise(key_data: torch.Tensor, v: int) -> torch.Tensor:
+    """[B, V] f32 Gumbel noise of one draw a row: the top 23 hash bits
+    as a uniform u = (n + 1/2) / 2^23 in (0, 1), exact in f32, then
+    -log(-log(u)) (JAX's ``categorical`` is Gumbel-max too)."""
+    u = ((draw_bits(key_data, v) >> 9).float() + 0.5) * (2.0 ** -23)
     return -torch.log(-torch.log(u))
 
 
-def skip_draws(generator: torch.Generator, n: int, v: int, device) -> None:
-    """Advance a slot's stream by ``n`` draws, replaying exactly what
-    :func:`sample` consumes per token (counterpart of ``skip_key_data``):
-    a resumed seeded request continues the original stream."""
-    for _ in range(int(n)):
-        torch.rand((v,), generator=generator, device=device)
+def skip_key_data(kd: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Advance one slot's key data ``kd`` [2] by ``n`` draws (a 0-d int64
+    tensor): the counter offset that replays what :func:`sample`
+    consumes a token, so a resumed seeded request continues the original
+    stream (the counterpart of JAX's ``skip_key_data``)."""
+    return kd + torch.stack([torch.zeros_like(n), n])
+
+
+def _keys_of(generators: list, device) -> torch.Tensor:
+    """Key data [B, 2] for a list of per-row ``torch.Generator`` (or
+    None): one draw of each generator seeds its row at counter 0."""
+    seeds = [0 if g is None else int(torch.randint(0, 2**62, (1,), generator=g)) for g in generators]
+    return torch.tensor([[s, 0] for s in seeds], dtype=torch.int64, device=device)
 
 
 def sample(
     logits: torch.Tensor,  # [B, V] f32
-    generators: list,  # [B] torch.Generator, or None for a row that draws nothing
+    keys,  # [B, 2] int64 key data (seed, draw counter), or a list of torch.Generator / None
     temperature: torch.Tensor,  # [B]
     top_p: torch.Tensor,  # [B]
     top_k: torch.Tensor,  # [B] int, 0 = off
@@ -847,11 +917,15 @@ def sample(
 ) -> torch.Tensor:
     """→ tokens [B]. Greedy where temperature == 0, else penalized
     temperature / min-p / top-k / top-p sampling, as the JAX ``sample``
-    computes it. Each sampling row draws from its own slot generator
-    (one draw per token), so a request's stream depends only on its seed;
-    the stream differs from JAX's threefry, so only greedy output is
-    comparable token for token across the two packages."""
+    computes it, with one batched draw (:func:`gumbel_noise`) from each
+    row's key data; the caller advances the counters. A list of
+    generators (a caller outside the engine) seeds each row's key from
+    one draw of its generator. The stream differs from JAX's threefry,
+    so only greedy output is comparable token for token across the two
+    packages."""
     v = logits.shape[-1]
+    if not isinstance(keys, torch.Tensor):
+        keys = _keys_of(keys, logits.device)
     if logit_bias is not None:
         logits = logits + logit_bias
     seen = counts > 0
@@ -882,10 +956,7 @@ def sample(
     cutoff = sorted_logits.gather(-1, cutoff_ix[:, None])
     masked = torch.where(scaled >= cutoff, scaled, neg)
     masked = torch.where(top_p[:, None] >= 1.0, scaled, masked)
-    sampled = greedy.clone()
-    for i, g in enumerate(generators):
-        if g is not None:
-            sampled[i] = (masked[i] + _gumbel(g, v, logits.device)).argmax()
+    sampled = (masked + gumbel_noise(keys, v)).argmax(dim=-1)
     return torch.where(temperature <= 0.0, greedy, sampled)
 
 
@@ -953,6 +1024,7 @@ class InferenceEngine:
         decode_kernel: Optional[str] = None,  # None/"flash" | "einsum"
         device="cuda",
         registry=None,  # obs.Registry (default: a fresh serve registry)
+        graphs: bool = True,  # False: the eager engine on the card (the graphs' reference)
     ):
         self.device = resolve_device(device)
         if decode_kernel not in (None, "flash", "einsum"):
@@ -997,18 +1069,33 @@ class InferenceEngine:
         self.want_logprobs = [False] * max_batch
         # most recent token's (logprob, [(alt_id, alt_lp), ...]) a slot
         self._last_logprobs: dict = {}
-        # per-slot sampling streams and seen-token counts for penalties
-        self._generators: list = [None] * max_batch
+        # per-slot sampling streams (key data: seed, draw counter) and
+        # seen-token counts for penalties
         v = config.vocab_size
         dev = self.device
+        self._key_data = torch.zeros((max_batch, 2), dtype=torch.int64, device=dev)
         self._seen = torch.zeros((max_batch, v), dtype=torch.int32, device=dev)
         self._gen_counts = torch.zeros((max_batch, v), dtype=torch.int32, device=dev)
         self._logit_bias = torch.zeros((max_batch, v), dtype=torch.float32, device=dev)
         self._slot_iota = torch.arange(max_batch, device=dev)
-        # device mirrors of host lists, rebuilt after a host-side slot
-        # mutation (_invalidate_decode_cache)
-        self._sampling_state = None
-        self._decode_mirror = None
+        # fixed device mirrors of host lists: (token, position, budget,
+        # active, eos) and the seven sampling parameters, rewritten in
+        # place after a host-side slot mutation (_invalidate_decode_cache),
+        # so that a graph's addresses stay valid
+        self._state = (
+            torch.zeros(max_batch, dtype=torch.long, device=dev),
+            torch.zeros(max_batch, dtype=torch.int32, device=dev),
+            torch.zeros(max_batch, dtype=torch.int32, device=dev),
+            torch.zeros(max_batch, dtype=torch.bool, device=dev),
+            torch.zeros(max_batch, dtype=torch.long, device=dev),
+        )
+        self._sampling = tuple(
+            torch.zeros(max_batch, dtype=dt, device=dev)
+            for dt in (torch.float32, torch.float32, torch.int64, torch.float32,
+                       torch.float32, torch.float32, torch.float32)
+        )
+        self._state_valid = False
+        self._sampling_valid = False
         # pending chunked prefills: slot → {prompt, tp, next, gen}
         self._prefilling: dict[int, dict] = {}
         # prompt-lookup speculative decoding (greedy slots): draft
@@ -1079,6 +1166,87 @@ class InferenceEngine:
             "ttft_max_s": 0.0,
         }
         self._admit_t0: dict[int, float] = {}
+        # the compiled step sites (serve/graphs.py), with the JAX jit
+        # sites' names and keys: CUDA graphs on the card unless
+        # graphs=False, the same functions run eagerly on the CPU. Each is
+        # wrapped for compile accounting (obs/flight.py: identity when
+        # DTPU_FLIGHT=0); a compile after mark_flight_warm() is a
+        # steady-state recompile, and one of a key the boot-compile
+        # manifest lacks is a warmup-coverage gap
+        self.graphs = GraphSet(self.device, capture=graphs and self.device.type == "cuda")
+        self.graphs.fix(
+            *self.cache.values(), self._key_data, self._seen, self._gen_counts,
+            self._logit_bias, self._slot_iota, *self._state, *self._sampling,
+        )
+        self._flight_warm = False
+        self._compile_manifest: set = set()
+        self._site = lambda name, fn, key=None: flight.watch_jit(
+            self.graphs.site(name, fn, key=key), name, registry=self.metrics, key=key,
+            warm=lambda: self._flight_warm, on_compile=self._note_boot_compile,
+        )
+        self._decode = self._site("decode", self._decode_fn)
+        self._verify = self._site("verify", self._verify_fn)
+        self._sample = self._site("sample", self._sample_fn)
+        self._argmax = self._site("argmax", partial(torch.argmax, dim=-1))
+        self._advance_state = self._site("advance_state", self._advance_fn)
+        self._logprobs = self._site("logprobs", token_logprobs)
+        self._mark_seen = self._site("mark_seen", self._mark_seen_fn)
+        self._skip_key = self._site("skip_key", skip_key_data)
+        self._turbo_sites: dict = {}  # steps → the decode_loop site
+
+    # -- the step sites' functions: the engine's fixed buffers in place --
+
+    def _decode_fn(self) -> torch.Tensor:
+        tok, pos, _, act, _ = self._state
+        return decode_step(self.params, self.cache, tok, pos, self.config,
+                           write_mask=act, decode_kernel=self.decode_kernel)[0]
+
+    def _verify_fn(self, tokens: torch.Tensor) -> torch.Tensor:
+        _, pos, _, act, _ = self._state
+        return verify_step(self.params, self.cache, tokens, pos, self.config,
+                           write_mask=act, decode_kernel=self.decode_kernel)[0]
+
+    def _sample_fn(self, logits: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """:func:`sample` over the slots ``rows`` (all of them, or the one
+        a prompt just filled), then each of those rows' draw counter
+        advances by one."""
+        temps, top_ps, top_ks, rep_pens, pres_pens, freq_pens, min_ps = self._sampling
+        toks = sample(
+            logits, self._key_data[rows], temps[rows], top_ps[rows], top_ks[rows], rep_pens[rows],
+            self._seen[rows], pres_pens[rows], freq_pens[rows], self._gen_counts[rows],
+            self._logit_bias[rows], min_ps[rows],
+        )
+        one_draw = torch.stack([torch.zeros_like(rows), torch.ones_like(rows)], dim=1)
+        self._key_data.index_add_(0, rows, one_draw)
+        return toks
+
+    def _mark_seen_fn(self, rows: torch.Tensor, tokens: torch.Tensor) -> tuple:
+        _mark_seen(self._seen, self._gen_counts, rows, tokens)
+        return ()
+
+    def _advance_fn(self, sampled: torch.Tensor) -> tuple:
+        """:func:`advance_decode_state` written back into the mirror."""
+        new = advance_decode_state(*self._state, sampled, max_seq=self.max_seq)
+        for buf, t in zip(self._state, new):
+            buf.copy_(t)
+        return ()
+
+    def _turbo_fn(self, steps: int) -> torch.Tensor:
+        """:func:`decode_loop` from the mirror, its advanced state written
+        back into it → emitted [steps, B]."""
+        emitted, _, *new = decode_loop(
+            self.params, self.cache, *self._state, self.config, steps=steps,
+            max_seq=self.max_seq, decode_kernel=self.decode_kernel,
+        )
+        for buf, t in zip(self._state, new):
+            buf.copy_(t)
+        return emitted
+
+    def _turbo_site(self, steps: int):
+        if steps not in self._turbo_sites:
+            # steps is a power of two at most turbo_steps (_turbo_step)
+            self._turbo_sites[steps] = self._site("turbo", partial(self._turbo_fn, steps), key=steps)
+        return self._turbo_sites[steps]
 
     def free_slots(self) -> list[int]:
         return [
@@ -1274,11 +1442,15 @@ class InferenceEngine:
         else:
             self._auto_seed += 1
             req_seed = self._auto_seed
-        g = torch.Generator(device=self.device)
-        g.manual_seed(req_seed)
+        dev = self.device
+        req_seed = (req_seed + 2**63) % 2**64 - 2**63  # its 64 bits as int64
+        kd = torch.tensor([req_seed, 0], dtype=torch.int64, device=dev)
         if gen.seed is not None and gen.seed_skip > 0:
-            skip_draws(g, gen.seed_skip, self.config.vocab_size, self.device)
-        self._generators[slot] = g
+            # resumable generation: the draw counter starts past the
+            # delivered tokens, so the continuation samples from the
+            # original stream
+            kd = self._skip_key(kd, torch.tensor(int(gen.seed_skip), dtype=torch.int64, device=dev))
+        self._key_data[slot] = kd
         _mark_prompt(self._seen, self._gen_counts, slot, prompt[:tp])
         if gen.logit_bias or self.has_bias[slot]:
             row = torch.zeros((self.config.vocab_size,), dtype=torch.float32)
@@ -1296,20 +1468,14 @@ class InferenceEngine:
         self.pres_pens[slot] = gen.presence_penalty
         self.freq_pens[slot] = gen.frequency_penalty
         self._invalidate_decode_cache()
-        temps, top_ps, top_ks, rep_pens, pres_pens, freq_pens, min_ps = self._sampling_params()
-        row = slice(slot, slot + 1)
-        toks = sample(
-            logits,
-            [g if gen.temperature > 0.0 else None],
-            temps[row], top_ps[row], top_ks[row], rep_pens[row],
-            self._seen[row], pres_pens[row], freq_pens[row],
-            self._gen_counts[row], self._logit_bias[row], min_ps[row],
-        )
+        self._sampling_params()
+        rows = self._slot_iota[slot : slot + 1]
+        toks = self._sample(logits, rows)
         tok = int(toks[0])
-        _mark_seen(self._seen, self._gen_counts, self._slot_iota[row], toks)
+        self._mark_seen(rows, toks)
         self.want_logprobs[slot] = gen.logprobs is not None
         if gen.logprobs is not None:
-            lp, tids, tlps = (a.tolist() for a in token_logprobs(logits, toks))
+            lp, tids, tlps = (a.tolist() for a in self._logprobs(logits, toks))
             self._last_logprobs[slot] = (lp[0], list(zip(tids[0], tlps[0])))
         t_admit = self._admit_t0.pop(slot, None)
         if t_admit is not None:
@@ -1409,22 +1575,15 @@ class InferenceEngine:
 
     def _spec_step(self, live: list, drafts: dict) -> dict:
         """One verify_step call emits 1 .. spec_draft + 1 tokens a slot."""
-        self._invalidate_decode_cache()  # advancing outside the turbo replay
         sdraft = self.spec_draft + 1
         rows = []
         for i in range(self.max_batch):
             row = [self.last_token[i]] + drafts.get(i, [])
             rows.append((row + [0] * (sdraft - len(row)))[:sdraft])
-        dev = self.device
-        logits, self.cache = verify_step(
-            self.params, self.cache,
-            torch.tensor(rows, dtype=torch.long, device=dev),
-            torch.tensor(self.lengths, dtype=torch.int32, device=dev),
-            self.config,
-            write_mask=torch.tensor(self.active, dtype=torch.bool, device=dev),
-            decode_kernel=self.decode_kernel,
-        )
-        preds = logits.argmax(dim=-1).tolist()  # [B, S]: one device-to-host copy
+        self._decode_state()  # positions and write mask: the host lists
+        logits = self._verify(torch.tensor(rows, dtype=torch.long, device=self.device))
+        preds = self._argmax(logits).tolist()  # [B, S]: one device-to-host copy
+        self._state_valid = False  # the host replay below advances outside the mirror
         self.stats["spec_steps"] += 1
         out: dict = {}
         for i in live:
@@ -1453,6 +1612,16 @@ class InferenceEngine:
             # _seen is not updated: the spec path is gated to requests
             # without penalties, where the counts have no effect
         return out
+
+    def warm_verify(self) -> None:
+        """One speculative verify over a throwaway request, whatever the
+        model drafts (the server's warmup: a model with random weights
+        rarely repeats a prompt's n-gram, and then no draft fires)."""
+        slot, tok = self.add_request([1, 2, 3], GenParams(max_new_tokens=self.spec_draft + 2))
+        if self.active[slot]:
+            self._last_step_phase = "spec"
+            self._spec_step([slot], {slot: [tok] * self.spec_draft})
+        self.release(slot)
 
     def _arrival_busy(self) -> bool:
         """Requests waiting or recently admitted: the regime where long
@@ -1496,14 +1665,11 @@ class InferenceEngine:
             and not self._arrival_busy()
         ):
             depth = min(self.turbo_depth, -(-budget // steps))
-        tok_d, pos_d, rem_d, act_d, eos_d = self._decode_state()
-        segs = []
-        for _ in range(depth):
-            toks_dev, self.cache, tok_d, pos_d, rem_d, act_d = decode_loop(
-                self.params, self.cache, tok_d, pos_d, rem_d, act_d, eos_d, self.config,
-                steps=steps, max_seq=self.max_seq, decode_kernel=self.decode_kernel,
-            )
-            segs.append(toks_dev)
+        self._decode_state()
+        turbo = self._turbo_site(steps)
+        # each segment advances the mirror in place for the next; its
+        # tokens are copied out before the next replay overwrites them
+        segs = [turbo().clone() for _ in range(depth)]
         self.stats["turbo_dispatches"] += 1
         self.stats["turbo_device_steps"] += steps * depth
         # ONE device-to-host copy for every segment ([depth * steps, B])
@@ -1521,47 +1687,38 @@ class InferenceEngine:
             if emitted:
                 out[i] = emitted
         # the host replay applied the device's transitions, so the
-        # advanced arrays are the valid next inputs
-        self._decode_mirror = (tok_d, pos_d, rem_d, act_d, eos_d)
+        # mirror the graph advanced holds the valid next inputs
+        self._state_valid = True
         return out
 
     def _invalidate_decode_cache(self) -> None:
         """EVERY host-side slot-state mutation must call this, or the
         next step would run from stale device mirrors."""
-        self._decode_mirror = None
-        self._sampling_state = None
+        self._state_valid = False
+        self._sampling_valid = False
 
     def _sampling_params(self) -> tuple:
-        """Device mirrors of the seven per-slot sampling-parameter lists."""
-        if self._sampling_state is None:
-            fields = (
-                (self.temps, torch.float32),
-                (self.top_ps, torch.float32),
-                (self.top_ks, torch.int64),
-                (self.rep_pens, torch.float32),
-                (self.pres_pens, torch.float32),
-                (self.freq_pens, torch.float32),
-                (self.min_ps, torch.float32),
-            )
-            self._sampling_state = tuple(
-                torch.tensor(v, dtype=dt, device=self.device) for v, dt in fields
-            )
-        return self._sampling_state
+        """The device mirror of the seven per-slot sampling-parameter
+        lists, rewritten in place when stale."""
+        if not self._sampling_valid:
+            lists = (self.temps, self.top_ps, self.top_ks, self.rep_pens, self.pres_pens,
+                     self.freq_pens, self.min_ps)
+            for buf, v in zip(self._sampling, lists):
+                buf.copy_(torch.tensor(v, dtype=buf.dtype))
+            self._sampling_valid = True
+        return self._sampling
 
     def _decode_state(self) -> tuple:
-        """Device mirrors of (token, position, budget, active, eos),
-        shared by the plain and turbo paths."""
-        if self._decode_mirror is None:
+        """The device mirror of (token, position, budget, active, eos),
+        shared by the plain, verify and turbo paths, rewritten in place
+        when stale."""
+        if not self._state_valid:
             eos = [e if e is not None else -1 for e in self.eos]
-            dev = self.device
-            self._decode_mirror = (
-                torch.tensor(self.last_token, dtype=torch.long, device=dev),
-                torch.tensor(self.lengths, dtype=torch.int32, device=dev),
-                torch.tensor(self.remaining, dtype=torch.int32, device=dev),
-                torch.tensor(self.active, dtype=torch.bool, device=dev),
-                torch.tensor(eos, dtype=torch.long, device=dev),
-            )
-        return self._decode_mirror
+            lists = (self.last_token, self.lengths, self.remaining, self.active, eos)
+            for buf, v in zip(self._state, lists):
+                buf.copy_(torch.tensor(v, dtype=buf.dtype))
+            self._state_valid = True
+        return self._state
 
     def _all_greedy(self, live: list) -> bool:
         """Every live slot plain-greedy with no penalties, bias or
@@ -1579,42 +1736,23 @@ class InferenceEngine:
         )
 
     def _plain_step(self, live: list) -> dict[int, int]:
-        tok_d, pos_d, rem_d, act_d, eos_d = self._decode_state()
-        logits, self.cache = decode_step(
-            self.params, self.cache, tok_d, pos_d, self.config,
-            write_mask=act_d, decode_kernel=self.decode_kernel,
-        )
-        sp = None
+        self._decode_state()
+        logits = self._decode()
         if self._all_greedy(live):
             # argmax only: the sampler's [B, V] sort buys nothing here
-            sampled = logits.argmax(dim=-1)
+            sampled = self._argmax(logits)
         else:
-            sp = self._sampling_params()
-            temps, top_ps, top_ks, rep_pens, pres_pens, freq_pens, min_ps = sp
-            gens = [
-                self._generators[i] if self.active[i] and self.temps[i] > 0.0 else None
-                for i in range(self.max_batch)
-            ]
-            sampled = sample(
-                logits, gens, temps, top_ps, top_ks, rep_pens, self._seen,
-                pres_pens, freq_pens, self._gen_counts, self._logit_bias, min_ps,
-            )
-            _mark_seen(self._seen, self._gen_counts, self._slot_iota, sampled)
+            self._sampling_params()
+            sampled = self._sample(logits, self._slot_iota)
+            self._mark_seen(self._slot_iota, sampled)
             if any(self.want_logprobs[i] for i in live):
-                lp, tids, tlps = (a.tolist() for a in token_logprobs(logits, sampled))
+                lp, tids, tlps = (a.tolist() for a in self._logprobs(logits, sampled))
                 for i in live:
                     if self.want_logprobs[i]:
                         self._last_logprobs[i] = (lp[i], list(zip(tids[i], tlps[i])))
-        adv = advance_decode_state(
-            tok_d, pos_d, rem_d, act_d, eos_d, sampled, max_seq=self.max_seq
-        )
+        self._advance_state(sampled)
         out = self._emit(live, sampled.tolist())
         self.stats["decode_steps"] += 1
-        # the host replay applied the same transition as the device
-        # advance, so the advanced arrays are the valid next inputs
-        self._decode_mirror = (*adv, eos_d)
-        if sp is not None:
-            self._sampling_state = sp  # the per-token advance never touches them
         return out
 
     def _advance_slot(self, i: int, tok: int) -> bool:
@@ -1635,8 +1773,9 @@ class InferenceEngine:
         return self.active[i]
 
     def _emit(self, live: list, toks: list) -> dict[int, int]:
-        """Publish one sampled token per live slot (host bookkeeping)."""
-        self._invalidate_decode_cache()
+        """Publish one sampled token per live slot (host bookkeeping). The
+        mirror stays valid: ``advance_state`` applied the same transition
+        on the device."""
         out: dict[int, int] = {}
         for i in live:
             out[i] = toks[i]
@@ -1655,6 +1794,39 @@ class InferenceEngine:
         self._admit_t0.pop(slot, None)
         self._last_logprobs.pop(slot, None)
 
+    def mark_flight_warm(self) -> None:
+        """Declare the warmup complete: any compile the flight recorder
+        observes from here on is a steady-state recompile
+        (``dtpu_serve_recompiles_total``), and one of a key the warmup
+        never visited also a warmup-coverage gap. Called by the server's
+        warmup after its traffic; per engine."""
+        self._flight_warm = True
+
+    @property
+    def flight_warm(self) -> bool:
+        return self._flight_warm
+
+    def _note_boot_compile(self, fn_name: str, key, seconds: float, recompile: bool) -> None:
+        """``watch_jit``'s on_compile hook: a compile before the warm mark
+        joins the boot-compile manifest; one after it, of a variant the
+        manifest lacks, is a warmup-coverage gap
+        (``dtpu_serve_warmup_gap_compiles_total{fn}``)."""
+        mk = obs_boot.manifest_key(fn_name, key)
+        if not self._flight_warm:
+            self._compile_manifest.add(mk)
+            return
+        if mk not in self._compile_manifest:
+            self.metrics.family("dtpu_serve_warmup_gap_compiles_total").inc(1, fn_name)
+            logger.warning(
+                "warmup-coverage gap: %s compiled %.3fs post-warm but was never visited by "
+                "warmup (manifest of %d variants)", mk, seconds, len(self._compile_manifest),
+            )
+
+    def compile_manifest(self) -> set:
+        """The boot-compile manifest: every ``manifest_key`` the warmup
+        visited (a copy)."""
+        return set(self._compile_manifest)
+
     def reset_prefix_cache(self) -> None:
         """Forget every registered reusable prompt prefix (no device
         work: the rows just stop being reuse candidates)."""
@@ -1670,7 +1842,7 @@ class InferenceEngine:
             raise RuntimeError("forget_requests: a request is still in a slot")
         self.reset_prefix_cache()
         self._auto_seed = self._seed
-        self._generators = [None] * self.max_batch
+        self._key_data.zero_()
         self._seen.zero_()
         self._gen_counts.zero_()
         self._last_logprobs.clear()
@@ -1714,6 +1886,9 @@ class InferenceEngine:
         m.family("dtpu_serve_batch_occupancy_ratio").set(active / float(self.max_batch))
         m.family("dtpu_serve_kv_cache_utilization_ratio").set(round(self.kv_cache_utilization(), 6))
         m.family("dtpu_serve_prefix_slots").set(self.prefix_stats()["prefix_slots"])
+        # the decode_loop sites (one a power-of-two steps), as JAX counts
+        # its memoized turbo grid
+        m.family("dtpu_serve_compile_cache_entries").set(len(self._turbo_sites), "turbo")
         if self.device.type == "cuda":
             in_use = m.family("dtpu_serve_device_memory_bytes_in_use")
             peak = m.family("dtpu_serve_device_memory_peak_bytes")

@@ -7,19 +7,21 @@ package's names, types, help texts, label names and buckets, used by:
   TTFT, step latency, TPOT, decode throughput, token counts, prefill
   dispatches and prefix-cache counts at the source, with the same clock
   readings as its ``stats``, so the server and the bench
-  (``serve/bench.py``) read one set of numbers;
+  (``serve/bench.py``) read one set of numbers, and whose compiled step
+  sites (``serve/graphs.py``: decode, verify, sample, argmax,
+  advance_state, logprobs, mark_seen, skip_key and turbo, CUDA graphs on
+  the card) feed the compile families through ``obs.flight.watch_jit``
+  as JAX's jit sites do;
 - ``serve/openai_server.py``, which counts requests, errors and queue
   waits, refreshes the state gauges and renders the page on ``/metrics``.
 
 Families registered with no source in the port yet (they render and stay
 at zero, or absent for a labelled family, until their slice feeds them):
 
-- the compile families (``dtpu_serve_compiles_total``,
-  ``dtpu_serve_compile_seconds``, ``dtpu_serve_recompiles_total``,
-  ``dtpu_serve_warmup_gap_compiles_total``,
-  ``dtpu_serve_compile_cache_entries``): they count JAX's jit sites.
-  Eager PyTorch has none, and the port's kernels are built by ``nvcc``
-  before the server is ready;
+- the compile families' prefill series: the port's prefill runs eagerly,
+  so no ``chunk``, ``packed``, ``copy`` or ``mark_prompt`` site compiles
+  and ``dtpu_serve_compile_cache_entries`` has only its ``turbo`` series
+  (the prefill sites are next in ROADMAP A2.2);
 - ``dtpu_serve_watchdog_aborts_total``, ``dtpu_serve_deadline_expired_total``,
   ``dtpu_serve_resumed_requests_total`` and ``dtpu_serve_postmortems_total``:
   the engine watchdog, request deadlines, ``dtpu_resume`` and the flight
@@ -33,18 +35,16 @@ from dstack_tpu_torch.obs import (
     Registry,
 )
 
-# the families of the note above: nothing in the port feeds them yet
+# the families of the note above that nothing in the port feeds yet
 UNFED_FAMILIES = (
-    "dtpu_serve_compiles_total",
-    "dtpu_serve_compile_seconds",
-    "dtpu_serve_recompiles_total",
-    "dtpu_serve_warmup_gap_compiles_total",
-    "dtpu_serve_compile_cache_entries",
     "dtpu_serve_watchdog_aborts_total",
     "dtpu_serve_deadline_expired_total",
     "dtpu_serve_resumed_requests_total",
     "dtpu_serve_postmortems_total",
 )
+# the JAX jit sites (the compile families' ``fn`` label) that the port
+# still runs eagerly: its prefill
+UNFED_COMPILE_SITES = ("chunk", "packed", "copy", "mark_prompt")
 
 
 def new_serve_registry() -> Registry:
@@ -143,7 +143,7 @@ def new_serve_registry() -> Registry:
         "resume extension (prompt re-prefilled with already-delivered "
         "tokens; admission charge stays on the original leg)",
     )
-    # compile accounting: JAX's jit sites (unfed here, see the note)
+    # compile accounting: JAX's jit sites, the port's step sites
     r.counter(
         "dtpu_serve_compiles_total",
         "XLA trace/compile events per engine jit site (first call of a "

@@ -604,6 +604,9 @@ def build_app(
                 "flash_decode": flash_decode.LAUNCHES,
             },
             "flash_decode_launches": dict(flash_decode.LAUNCHES_BY_VARIANT),
+            # the step sites: graphs (eager variants on the CPU) and capture seconds
+            "graph_sites": e.graphs.report(),
+            "flight_warm": e.flight_warm,
         })
 
     async def metrics(request):
@@ -949,15 +952,20 @@ def _warmup_engine(engine: InferenceEngine) -> float:
     """Run, at start-up and not in the first request's TTFT, every path
     real requests take (the JAX ``_warmup_engine``'s grid): the full
     prefill chunk with the largest turbo macro-step, the short prompt,
-    each smaller power-of-two turbo variant, the sampled path, a packed
-    wave at every power-of-two G up to ``prefill_pack``, and a verify when
-    ``spec_draft`` is on. Eager PyTorch compiles nothing, but on the card
-    this moves the CUDA context, cuBLAS's handles, the allocator's first
+    each smaller power-of-two turbo variant, the sampled path (seeded with
+    a skip, so the resume's counter offset is visited too), a request
+    with logprobs, a plain greedy step (turbo off for it), a packed wave
+    at every power-of-two G up to ``prefill_pack``, and a verify when
+    ``spec_draft`` is on. On the card this captures every decode-side
+    step site's graph (serve/graphs.py) for every key real requests reach,
+    and moves the CUDA context, cuBLAS's handles, the allocator's first
     blocks and each kernel's first launch out of the first request. Then
     the engine forgets the warmup (:meth:`InferenceEngine.forget_requests`,
-    with ``spec_draft`` restored): no request can see it. → seconds."""
+    with ``spec_draft`` and ``turbo_steps`` restored): no request can see
+    it; and it is marked warm (:meth:`InferenceEngine.mark_flight_warm`):
+    a later compile counts as a recompile. → seconds."""
     t0 = time.perf_counter()
-    spec = engine.spec_draft
+    spec, turbo = engine.spec_draft, engine.turbo_steps
     full = [(i % 251) + 1 for i in range(engine.prefill_chunk)]
     runs = 0
 
@@ -979,7 +987,12 @@ def _warmup_engine(engine: InferenceEngine) -> float:
         while s >= 2:
             run(full[:5], GenParams(max_new_tokens=s + 1))
             s //= 2
-        run(full[:5], GenParams(max_new_tokens=2, temperature=0.7, seed=0))  # the sampler
+        # the sampler, the skip of a resumed seeded stream, and logprobs
+        run(full[:5], GenParams(max_new_tokens=2, temperature=0.7, seed=0, seed_skip=1))
+        run(full[:5], GenParams(max_new_tokens=2, logprobs=0))
+        engine.turbo_steps = 0  # a plain greedy step (a prompt prefilling beside it)
+        run(full[:5], GenParams(max_new_tokens=2))
+        engine.turbo_steps = turbo
         # packed waves at every power-of-two G, at the full chunk width
         g = 2
         while g <= engine.prefill_pack and g <= engine.max_batch:
@@ -997,16 +1010,21 @@ def _warmup_engine(engine: InferenceEngine) -> float:
         if spec:
             # a repetitive prompt: drafts fire, and verify_step runs
             rep = (full[:4] * (engine.prefill_chunk // 4 + 1))[: engine.prefill_chunk]
+            spec_steps = engine.stats["spec_steps"]
             run(rep, GenParams(max_new_tokens=spec + 2))
+            if engine.stats["spec_steps"] == spec_steps:
+                engine.warm_verify()  # the model drafted nothing: verify once all the same
+                runs += 1
     finally:
-        engine.spec_draft = spec
+        engine.spec_draft, engine.turbo_steps = spec, turbo
     # warmup prompts are not real: none may linger as a reusable prefix,
     # a seen-token count or a sampling stream
     engine.forget_requests()
+    engine.mark_flight_warm()
     seconds = time.perf_counter() - t0
     logger.info(
-        "warmup: %d requests ran prefill/decode/sample%s in %.2fs",
-        runs, "/verify" if spec else "", seconds,
+        "warmup: %d requests ran prefill/decode/sample/logprobs%s in %.2fs (%d compiled variants)",
+        runs, "/verify" if spec else "", seconds, len(engine.compile_manifest()),
     )
     return seconds
 

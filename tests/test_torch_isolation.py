@@ -29,6 +29,14 @@ def _port_modules() -> list[str]:
     return mods
 
 
+def test_the_scan_covers_the_step_sites_and_their_accounting():
+    """The modules below hold copies of JAX-package code (the flight
+    recorder's compile accounting, the boot manifest's keys) beside the
+    graph sites: the two scans here must reach them."""
+    assert {"dstack_tpu_torch.obs.flight", "dstack_tpu_torch.obs.boot",
+            "dstack_tpu_torch.serve.graphs"} <= set(_port_modules())
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"

@@ -12,13 +12,17 @@
   ``tests/test_torch_serve_breadth.py`` wave by wave on both caches; after
   each wave every counter, every histogram's count, the pack rows' bucket
   counts and the gauges after ``update_state_gauges()`` are equal, and the
-  port's ``stats`` seconds sum to its step histogram's sum. Left out are
-  the families the port registers but does not feed yet
-  (``serve.metrics.UNFED_FAMILIES``: JAX's jit-compile accounting, and the
-  watchdog, deadline, resume and post-mortem counts of ROADMAP A4), which
-  must read zero or be absent in the port, and the device-memory gauges,
-  absent on the CPU in the port (JAX sets them only where its flight
-  recorder runs).
+  port's ``stats`` seconds sum to its step histogram's sum. The compile
+  families (both flight recorders on, JAX's jit caches emptied first)
+  count the same compiles of the decode-side sites the port compiles;
+  JAX's prefill sites' series (``serve.metrics.UNFED_COMPILE_SITES``) are
+  left out. Left out too are the families the port registers but does
+  not feed yet (``serve.metrics.UNFED_FAMILIES``: the watchdog, deadline,
+  resume and post-mortem counts of ROADMAP A4), which must read zero in
+  the port, and the device-memory gauges, absent on the CPU in the port
+  (JAX sets them only where its flight recorder runs).
+- ``obs/flight.py``: the same compile events noted by JAX's recorder and
+  the port's render the compile families byte-identically.
 - ``train/step.py``: ``make_step_callback`` gives JAX's registry values
   for the same step times and peak, and ``finetune --profile-dir`` writes
   a trace.
@@ -30,6 +34,7 @@ import pytest
 import torch
 
 from dstack_tpu import obs as jobs
+from dstack_tpu.obs import flight as jflight
 from dstack_tpu.models import llama as jllama
 from dstack_tpu.serve import engine as jengine
 from dstack_tpu.serve.metrics import new_serve_registry as jax_serve_registry
@@ -37,7 +42,8 @@ from dstack_tpu.train import step as jstep
 from dstack_tpu_torch import obs as tobs
 from dstack_tpu_torch.models import llama as tllama
 from dstack_tpu_torch.serve import engine as tengine
-from dstack_tpu_torch.serve.metrics import UNFED_FAMILIES
+from dstack_tpu_torch.obs import flight as tflight
+from dstack_tpu_torch.serve.metrics import UNFED_COMPILE_SITES, UNFED_FAMILIES
 from dstack_tpu_torch.serve.metrics import new_serve_registry as port_serve_registry
 from dstack_tpu_torch.train import finetune as tfinetune
 from dstack_tpu_torch.train import step as tstep
@@ -206,13 +212,15 @@ def _wave(eng, gen_cls, prompts) -> list:
 
 def _snapshot(reg) -> dict:
     """Every fed family's comparable reading: counter and gauge series,
-    histogram counts, and the pack rows' bucket counts."""
+    histogram counts, and the pack rows' bucket counts (the compile
+    families without JAX's prefill sites)."""
     out = {}
     for name in reg.metric_names():
         if name in UNFED_FAMILIES or name in MEMORY_GAUGES:
             continue
         fam = reg.family(name)
-        series = dict(fam.items())
+        series = {k: v for k, v in fam.items() if not (
+            name.startswith("dtpu_serve_compile") and k[0] in UNFED_COMPILE_SITES)}
         if fam.kind == "histogram":
             out[name] = {k: s["count"] for k, s in series.items()}
             if name == "dtpu_serve_prefill_pack_rows":
@@ -222,8 +230,24 @@ def _snapshot(reg) -> dict:
     return out
 
 
+@pytest.fixture
+def recorders():
+    """Both flight recorders on (the prior ones put back), and JAX's jit
+    caches empty: a function jitted by an earlier engine in this process
+    would otherwise compile nothing here."""
+    jax.clear_caches()
+    priors = [(mod, mod.get_recorder()) for mod in (jflight, tflight)]
+    recs = jflight.enable(buffer=512), tflight.enable(buffer=512)
+    yield recs
+    for mod, prior in priors:
+        if prior is None:
+            mod.disable()
+        else:
+            mod._recorder, mod.record = prior, prior.record
+
+
 @pytest.mark.parametrize("kv_quant", [None, "int8"])
-def test_engine_metrics_match_jax(weights, kv_quant):
+def test_engine_metrics_match_jax(weights, recorders, kv_quant):
     jp, tp = weights
     kw = dict(max_batch=4, max_seq=MAX_SEQ, prefill_chunk=CHUNK, turbo_quiet_s=1e9,
               kv_quant=kv_quant, decode_kernel="flash")
@@ -248,12 +272,35 @@ def test_engine_metrics_match_jax(weights, kv_quant):
     assert m.family("dtpu_serve_prefix_hits_total").value() == 1
     assert m.family("dtpu_serve_prefix_tokens_reused_total").value() == 128
     assert m.family("dtpu_serve_prefill_pack_rows").count() == te.stats["prefill_dispatches"]
+    compiles = dict(m.family("dtpu_serve_compiles_total").items())
+    assert {"verify", "turbo", "sample", "mark_seen"} <= {fn for (fn,) in compiles}
+    assert m.family("dtpu_serve_recompiles_total").items() == []
     # the unfed families read zero (labelled ones: no series at all), and
     # the CPU engine sets no device-memory gauge
     for name in UNFED_FAMILIES:
         fam = m.family(name)
         assert fam.items() == [] and (fam.kind == "histogram" or fam.value() == 0.0)
     assert all(m.family(name).items() == [] for name in MEMORY_GAUGES)
+
+
+def test_compile_families_render_as_jax(recorders):
+    """The same compile events through JAX's recorder into its registry
+    and the port's into the port's: byte-identical pages; the rings carry
+    the same compile and recompile records."""
+    events = [("decode", None, 0.25, False), ("turbo", 8, 1.5, False), ("turbo", 1, 0.0625, False),
+              ("sample", None, 3e-3, False), ("turbo", 2, 0.5, True), ("verify", None, 12.0, True)]
+    regs = jax_serve_registry(), port_serve_registry()
+    for rec, reg in zip(recorders, regs):
+        for fn, key, seconds, recompile in events:
+            rec.note_compile(fn, key, seconds, reg, recompile=recompile)
+        reg.family("dtpu_serve_warmup_gap_compiles_total").inc(1, "turbo")
+        reg.family("dtpu_serve_compile_cache_entries").set(3, "turbo")
+    assert regs[1].render() == regs[0].render()
+    strip = lambda recs: [{k: v for k, v in r.items() if k not in ("t", "seq")} for r in recs]  # noqa: E731
+    jrec, trec = recorders
+    assert strip(trec.records(20)) == strip(jrec.records(20))
+    assert strip(trec.compile_events()) == strip(jrec.compile_events())
+    assert trec.compile_totals() == jrec.compile_totals()
 
 
 def test_state_gauges_while_slots_are_live(weights):

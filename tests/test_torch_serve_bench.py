@@ -35,6 +35,7 @@ from dstack_tpu_torch.models import llama
 from dstack_tpu_torch.serve import bench as tbench
 from dstack_tpu_torch.serve import engine as engine_mod
 from dstack_tpu_torch.serve.engine import InferenceEngine
+from dstack_tpu_torch.serve.graphs import GraphSet
 from dstack_tpu_torch.serve.metrics import new_serve_registry
 from dstack_tpu_torch.serve.openai_server import build_app
 from dstack_tpu_torch.serve.tokenizer import ByteTokenizer
@@ -42,7 +43,7 @@ from dstack_tpu_torch.utils import backend
 
 SMALL = dict(model="llama-tiny", batch=4, max_seq=256, prompt_len=64, gen_len=16,
              prefill_chunk=32, arrival_burst=4, turbo_steps=8, spec_draft=0)
-PORT_EXTRA = {"kernel_launches", "timed_steps", "host"}
+PORT_EXTRA = {"kernel_launches", "timed_steps", "host", "graphs", "graph_sites", "timed_compiles"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -73,6 +74,9 @@ def test_bench_counts_match_jax(delta):
                 "spec_draft", "turbo_steps", "turbo_depth", "quantize", "kv_quant", "backend"):
         assert gx[key] == wx[key], key
     assert gx["tokens"] == SMALL["batch"] * (SMALL["gen_len"] - 1)
+    # the CPU runs the step sites eagerly; the bench's warmup reaches every
+    # variant its timed sections run
+    assert gx["graphs"] is False and gx["timed_compiles"] == 0 and gx["graph_sites"]["decode"]["entries"] == 1
     for run in ("packed", "serial"):
         assert set(gx["concurrent"][run]) == set(wx["concurrent"][run])
         assert gx["concurrent"][run]["prefill_dispatches"] == wx["concurrent"][run]["prefill_dispatches"]
@@ -99,6 +103,7 @@ def test_timed_sums_the_host_over_its_sections():
 
     class Eng:
         stats = dict.fromkeys(tbench._STEP_KEYS, 0)
+        graphs = GraphSet("cpu", capture=False)  # no step site: no compile
 
     timed = tbench._Timed(Eng())
     callbacks = list(gc.callbacks)
@@ -112,6 +117,7 @@ def test_timed_sums_the_host_over_its_sections():
     assert gc.callbacks == callbacks
     assert host["gc_collections"] == 2 and 0 < host["gc_s"] <= host["wall_s"]
     assert 0 < host["thread_cpu_s"] <= host["cpu_s"] + 0.01
+    assert timed.compiles == 0
 
 
 def test_bench_labels_k4_where_it_takes_the_model():
@@ -193,6 +199,7 @@ HEALTH_KEYS = {
     "status", "model", "device", "decode_kernel", "engine", "queue_depth", "inflight",
     "active_slots", "max_slots", "kv_cache_utilization", "prefix_hits", "prefix_slots",
     "prefix_occupancy", "prefix_tokens", "stats", "kernel_launches", "flash_decode_launches",
+    "graph_sites", "flight_warm",
 }
 
 
@@ -249,6 +256,10 @@ class TestMetricsEndpoint:
                 sum(st[f"{k}_seconds"] for k in ("decode", "spec", "turbo")), abs=1e-9)
             assert d.get("dtpu_serve_request_errors_total", 0.0) == 0
             assert m1["dtpu_serve_active_slots"] == 0 and m1["dtpu_serve_prefix_slots"] >= 1
+            # every step site's first call of a variant is one compile
+            compiles = sum(v for k, v in m1.items() if k.startswith("dtpu_serve_compiles_total{"))
+            assert compiles == sum(r["entries"] for r in h1["graph_sites"].values()) > 0
+            assert not h1["flight_warm"]  # no warmup ran here
         finally:
             await client.close()
 
