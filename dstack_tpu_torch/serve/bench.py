@@ -58,7 +58,6 @@ from dstack_tpu_torch.ops import cuda_build, flash_decode
 from dstack_tpu_torch.serve.engine import (
     GenParams,
     InferenceEngine,
-    copy_cache_prefix,
     resolve_device,
 )
 from dstack_tpu_torch.serve.graphs import launch_counts
@@ -343,9 +342,10 @@ def run_bench(
             while eng.active[slot]:
                 eng.step()
         eng.release(slot)
-        # the row copy once outside the timed window (slot 0 onto itself
-        # changes nothing)
-        copy_cache_prefix(eng.cache, 0, 0, p=reuse)
+        # the row copy's site once outside the timed window (slot 0 onto
+        # itself changes nothing)
+        zero = eng.slot_index(0)
+        eng.get_copy_fn(reuse)(zero, zero)
         hits0 = eng.stats["prefix_hits"]
         ttft_hist.clear()
         with timed:

@@ -43,23 +43,28 @@ chunk-aligned prefix cache, and the optional int8 KV cache
 (``GenParams.logprobs``) takes the plain step, as in JAX: the speculative,
 turbo and argmax paths never compute them.
 
-The decode side runs as the JAX engine's compiled step functions do:
-each of ``decode``, ``verify``, ``sample``, ``argmax``, ``advance_state``,
-``logprobs``, ``mark_seen`` and ``skip_key``, and ``turbo`` (``decode_loop``)
-once per power-of-two ``steps``, is a step site (``serve/graphs.py``): a
-CUDA graph captured on a variant's first call and replayed after that,
-the same function run eagerly on the CPU, or on the card with
-``graphs=False`` (the graphs' reference). The sites read the engine's
-fixed buffers in place: the cache, the device mirrors of the slot state
-and of the sampling parameters (rewritten with ``copy_`` after a host
-mutation), the seen-token counts, the logit bias and the per-slot key
-data. Sampling is one batched draw: Gumbel noise hashed from each slot's
-(seed, draw counter) and the vocab index in plain integer ops
-(:func:`draw_bits`), where JAX splits a threefry key a slot. Each site's
-first call of a variant counts as a compile in the flight recorder
-(``obs/flight.py``), which feeds the compile families; the server's
-warmup marks the engine warm (:meth:`InferenceEngine.mark_flight_warm`).
-Prefill stays eager.
+Every step runs as the JAX engine's compiled step functions do: on the
+decode side each of ``decode``, ``verify``, ``sample``, ``argmax``,
+``advance_state``, ``logprobs``, ``mark_seen`` and ``skip_key``, and
+``turbo`` (``decode_loop``) once per power-of-two ``steps``; on the
+prefill side ``chunk`` per (C, start), ``packed`` per (G, C), ``copy``
+per prefix length and ``mark_prompt``, is a step site
+(``serve/graphs.py``): a CUDA graph captured on a variant's first call
+and replayed after that, the same function run eagerly on the CPU, or on
+the card with ``graphs=False`` (the graphs' reference). K1 runs inside
+the chunk graphs. A site's varying scalars (a slot, an index, a prompt
+length) are ``[1]`` device tensors, as JAX traces them, so that a graph
+replays at any slot; only the static key is a Python int. The sites read
+the engine's fixed buffers in place: the cache, the device mirrors of
+the slot state and of the sampling parameters (rewritten with ``copy_``
+after a host mutation), the seen-token counts, the logit bias and the
+per-slot key data. Sampling is one batched draw: Gumbel noise hashed
+from each slot's (seed, draw counter) and the vocab index in plain
+integer ops (:func:`draw_bits`), where JAX splits a threefry key a slot.
+Each site's first call of a variant counts as a compile in the flight
+recorder (``obs/flight.py``), which feeds the compile families; the
+server's warmup marks the engine warm
+(:meth:`InferenceEngine.mark_flight_warm`).
 
 Telemetry is recorded at the source, as in JAX: the engine's
 ``metrics`` registry (``serve/metrics.py``) takes TTFT at activation,
@@ -213,30 +218,57 @@ def _cache_layer(cache: dict, i: int) -> tuple:
     return cache["k"][i], cache["v"][i]
 
 
-def _cwrite_chunk(ckv, new: torch.Tensor, slot: int, start: int):
+def _slot_ix(slot, b: int, device) -> torch.Tensor:
+    """A slot as the ``[1]`` long index the cache helpers take, clamped to
+    ``[0, b)`` as ``lax.dynamic_slice`` clamps it: on the device for a
+    tensor (the step sites' traced scalars, never read on the host), on
+    the host for an int (a caller outside the sites)."""
+    if isinstance(slot, torch.Tensor):
+        return slot.reshape(1).long().clamp(0, b - 1)
+    return torch.tensor([min(max(int(slot), 0), b - 1)], dtype=torch.long, device=device)
+
+
+def _cwrite_chunk(ckv, new: torch.Tensor, slot, start: int):
     """Write a prefill chunk ``new [1, H, C, D]`` at (slot, start) in
-    place. ``lax.dynamic_update_slice`` CLAMPS an out-of-range start so
-    the slice fits; torch slicing would silently shorten the write, so
-    the clamp is explicit (the engine keeps ``start + C <= T_max``)."""
+    place. ``slot`` is an int, or a ``[1]`` long tensor already clamped
+    (:func:`_slot_ix`); ``start`` is static. ``lax.dynamic_update_slice``
+    CLAMPS an out-of-range start so the slice fits; torch slicing would
+    silently shorten the write, so the clamp is explicit (the engine keeps
+    ``start + C <= T_max``)."""
     if isinstance(ckv, tuple):
         q, s = kv_quantize(new)
         _cwrite_chunk(ckv[0], q, slot, start)
         _cwrite_chunk(ckv[1], s, slot, start)
         return ckv
     b, t, c = ckv.shape[0], ckv.shape[2], new.shape[2]
-    slot = min(max(int(slot), 0), b - 1)
+    if not isinstance(slot, torch.Tensor):
+        slot = _slot_ix(slot, b, ckv.device)
     start = min(max(int(start), 0), t - c)
-    ckv[slot, :, start : start + c] = new[0]
+    ckv[:, :, start : start + c].index_copy_(0, slot, new.to(ckv.dtype))
     return ckv
 
 
-def _cread_row(ckv, slot: int, dtype) -> torch.Tensor:
-    """One slot's row ``[1, H, T_max, D]`` in the compute dtype (bf16
-    cache: a view; slot clamped as ``dynamic_slice`` does)."""
+def _cread_row(ckv, slot, dtype) -> torch.Tensor:
+    """One slot's row ``[1, H, T_max, D]`` in the compute dtype: a gather
+    (a copy) at an int slot or at a ``[1]`` long tensor already clamped
+    (:func:`_slot_ix`)."""
     if isinstance(ckv, tuple):
         return kv_dequant(_cread_row(ckv[0], slot, dtype), _cread_row(ckv[1], slot, dtype), dtype)
-    slot = min(max(int(slot), 0), ckv.shape[0] - 1)
-    return ckv[slot : slot + 1]
+    if not isinstance(slot, torch.Tensor):
+        slot = _slot_ix(slot, ckv.shape[0], ckv.device)
+    return ckv.index_select(0, slot)
+
+
+def _row_at(x: torch.Tensor, ix) -> torch.Tensor:
+    """``x [1, C, E]`` at the chunk index ``ix`` (an int or a ``[1]``
+    tensor) → ``[1, E]``, as ``jnp.take_along_axis`` takes it: a negative
+    index counts from the end, one out of range gives NaN. No host read."""
+    c = x.shape[1]
+    ix = torch.as_tensor(ix, device=x.device).reshape(1).long()
+    ix = torch.where(ix < 0, ix + c, ix)
+    row = x.index_select(1, ix.clamp(0, c - 1))[:, 0]
+    ok = (ix >= 0) & (ix < c)
+    return torch.where(ok[:, None], row, torch.full_like(row, float("nan")))
 
 
 def _cread_rows(ckv, slots: torch.Tensor, dtype) -> torch.Tensor:
@@ -298,17 +330,21 @@ def _cfull(ckv, dtype) -> torch.Tensor:
     return ckv
 
 
-def copy_cache_prefix(cache: dict, src: int, dst: int, *, p: int) -> dict:
+def copy_cache_prefix(cache: dict, src, dst, *, p: int) -> dict:
     """Copy the first ``p`` cached positions of slot ``src`` into slot
     ``dst`` in place, for every cache tensor (k/v and the int8 scales:
     the token axis is the fourth; MLA's latent ``ckv``: the third):
     prefix caching, a new request whose prompt shares a prefix with an
-    already-cached sequence skips prefilling it."""
+    already-cached sequence skips prefilling it. ``p`` is static; ``src``
+    and ``dst`` are ints or ``[1]`` long tensors (JAX's traced scalars,
+    clamped on the device as ``dynamic_index_in_dim`` and
+    ``dynamic_update_slice`` clamp them), so one site serves every pair
+    of slots."""
     for name, a in cache.items():
-        if name == "ckv":
-            a[:, dst, :p] = a[:, src, :p]
-        else:
-            a[:, dst, :, :p] = a[:, src, :, :p]
+        b = a.shape[1]
+        s, d = (_slot_ix(x, b, a.device) for x in (src, dst))
+        head = a.narrow(2 if name == "ckv" else 3, 0, p)  # [L, B, (H,) p, ...]
+        head.index_copy_(1, d, head.index_select(1, s))
     return cache
 
 
@@ -394,29 +430,34 @@ def prefill_chunk_step(
     params: dict,
     cache: dict,
     tokens: torch.Tensor,  # [1, C] int (right-padded on the last chunk)
-    slot: int,
-    last_ix: int,  # the prompt's last real index MINUS start
+    slot,  # [1] long tensor (an int from a caller outside the engine's sites)
+    last_ix,  # [1] long tensor (or int): the prompt's last real index MINUS start
     config: LlamaConfig,
     *,
-    start: int,  # global position of the chunk's first token
+    start: int,  # static: global position of the chunk's first token
     impl: Optional[str] = None,  # attention impl: None = by device | "plain"
 ) -> tuple[torch.Tensor, dict]:
     """One prompt chunk → (f32 logits at ``last_ix`` [1, V], cache).
 
     The chunk's K/V are written into the slot's cache row first, then
     the chunk queries attend over the row with causal masking at the
-    offset ``start`` — the flash kernel's ``q_offset``. An MLA config
-    takes :func:`_prefill_chunk_mla`."""
+    offset ``start`` — the flash kernel's ``q_offset``. ``slot`` and
+    ``last_ix`` are device scalars, as JAX traces them: a CUDA graph of
+    the function replays at any slot and index, with no host read (the
+    slot clamped as ``dynamic_update_slice`` clamps it, the row taken as
+    :func:`_row_at` takes it). An MLA config takes
+    :func:`_prefill_chunk_mla`."""
     c = config
     if c.mla:
         return _prefill_chunk_mla(params, cache, tokens, slot, last_ix, c, start=start, impl=impl)
     x = _embed_lookup(params, tokens, c)
     chunk_pos = start + torch.arange(tokens.shape[1], device=tokens.device)
+    si = _slot_ix(slot, cache["k"].shape[1], tokens.device)
 
     def kv_update(ck, cv, k, v):
-        _cwrite_chunk(ck, k, slot, start)
-        _cwrite_chunk(cv, v, slot, start)
-        return _cread_row(ck, slot, k.dtype), _cread_row(cv, slot, v.dtype)
+        _cwrite_chunk(ck, k, si, start)
+        _cwrite_chunk(cv, v, si, start)
+        return _cread_row(ck, si, k.dtype), _cread_row(cv, si, v.dtype)
 
     one_layer = _prefill_one_layer(
         c, dual_rope_freqs(c, chunk_pos), rope_apply=apply_rope, kv_update=kv_update,
@@ -424,7 +465,7 @@ def prefill_chunk_step(
     )
     x, cache = _scan_layers_kv(params, cache, x, one_layer, c)
     x = model_norm(x, params["final_norm"], c)
-    return _head_logits(params, x[:, int(last_ix)], c), cache
+    return _head_logits(params, _row_at(x, last_ix), c), cache
 
 
 def prefill_packed_step(
@@ -695,17 +736,18 @@ def _prefill_chunk_mla(params, cache, tokens, slot, last_ix, c, *, start, impl=N
     if impl not in (None, "plain"):
         raise ValueError(f"attention: impl={impl!r}: expected None or 'plain'")
     cos, sin = dual_rope_freqs(c, start + torch.arange(tokens.shape[1], device=tokens.device))[0]
+    si = _slot_ix(slot, cache["ckv"].shape[1], tokens.device)
 
     def attend(q_abs, rows, ck):
-        _cwrite_chunk(ck, rows[:, None], slot, start)
-        row = _cread_row(ck, slot, rows.dtype)  # [1, 1, T_max, R]
+        _cwrite_chunk(ck, rows[:, None], si, start)
+        row = _cread_row(ck, si, rows.dtype)  # [1, 1, T_max, R]
         fwd = flash_mla_plain if impl == "plain" else flash_mla_with_lse
         return fwd(q_abs.to(c.dtype).contiguous(), row, rank=c.kv_lora_rank,
                    scale=c.attention_scale, q_offset=int(start))[0]
 
     x = _mla_walk(params, cache, _embed_lookup(params, tokens, c), c,
                   lambda t: apply_rope(t, cos, sin, interleaved=True), attend)
-    return _head_logits(params, x[:, int(last_ix)], c), cache
+    return _head_logits(params, _row_at(x, last_ix), c), cache
 
 
 def _prefill_packed_mla(params, cache, tokens, slots, starts, last_ix, c):
@@ -982,13 +1024,22 @@ def _mark_seen(counts, gen_counts, rows, tokens) -> None:
     gen_counts.index_put_((rows, tokens.long()), one, accumulate=True)
 
 
-def _mark_prompt(counts, gen_counts, slot: int, prompt: list) -> None:
-    """Reset the slot's rows and count the prompt in the all-tokens map
-    only (out-of-vocab ids dropped, as JAX's ``mode="drop"``)."""
+def _mark_prompt(counts, gen_counts, slot: torch.Tensor, padded: torch.Tensor, tp: torch.Tensor) -> None:
+    """Reset the slot's rows (``slot`` a ``[1]`` long tensor) and count
+    the first ``tp`` (a ``[1]`` tensor) ids of ``padded`` (the prompt
+    padded to a power-of-two length) in the all-tokens map only, in
+    place: the JAX ``_mark_prompt``'s scatter-add, where an index counts
+    from the end when negative and drops when out of range (``.at[]``
+    with ``mode="drop"``), as does every position past ``tp``."""
     v = counts.shape[-1]
-    ids = torch.tensor([t for t in prompt if 0 <= t < v], dtype=torch.long)
-    counts[slot] = torch.bincount(ids, minlength=v).to(counts.device, counts.dtype)
-    gen_counts[slot].zero_()
+    ids = padded.long()
+    ids = torch.where(ids < 0, ids + v, ids)
+    keep = (torch.arange(ids.shape[0], device=ids.device) < tp) & (ids >= 0) & (ids < v)
+    row = torch.zeros(v + 1, dtype=counts.dtype, device=counts.device)  # column v: the drops
+    row.index_add_(0, torch.where(keep, ids, torch.full_like(ids, v)),
+                   torch.ones_like(ids, dtype=counts.dtype))
+    counts.index_copy_(0, slot, row[None, :v])
+    gen_counts.index_fill_(0, slot, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -1180,9 +1231,10 @@ class InferenceEngine:
         )
         self._flight_warm = False
         self._compile_manifest: set = set()
-        self._site = lambda name, fn, key=None: flight.watch_jit(
-            self.graphs.site(name, fn, key=key), name, registry=self.metrics, key=key,
-            warm=lambda: self._flight_warm, on_compile=self._note_boot_compile,
+        self._site = lambda name, fn, key=None, fixed_outputs=True: flight.watch_jit(
+            self.graphs.site(name, fn, key=key, fixed_outputs=fixed_outputs), name,
+            registry=self.metrics, key=key, warm=lambda: self._flight_warm,
+            on_compile=self._note_boot_compile,
         )
         self._decode = self._site("decode", self._decode_fn)
         self._verify = self._site("verify", self._verify_fn)
@@ -1193,6 +1245,14 @@ class InferenceEngine:
         self._mark_seen = self._site("mark_seen", self._mark_seen_fn)
         self._skip_key = self._site("skip_key", skip_key_data)
         self._turbo_sites: dict = {}  # steps → the decode_loop site
+        # the prefill side, keyed as JAX keys its jit grids: a serial
+        # chunk by (C, start), a packed wave by (G, C), a prefix copy by
+        # its length p; mark_prompt's variants by the padded prompt's
+        # length alone
+        self._chunk_fns: dict = {}
+        self._packed_fns: dict = {}
+        self._copy_fns: dict = {}
+        self._mark_prompt = self._site("mark_prompt", self._mark_prompt_fn)
 
     # -- the step sites' functions: the engine's fixed buffers in place --
 
@@ -1241,6 +1301,60 @@ class InferenceEngine:
         for buf, t in zip(self._state, new):
             buf.copy_(t)
         return emitted
+
+    def _chunk_site_fn(self, tokens, slot, last_ix, *, start: int) -> torch.Tensor:
+        return prefill_chunk_step(self.params, self.cache, tokens, slot, last_ix, self.config,
+                                  start=start)[0]
+
+    def _packed_site_fn(self, tokens, slots, starts, last_ix) -> torch.Tensor:
+        return prefill_packed_step(self.params, self.cache, tokens, slots, starts, last_ix,
+                                   self.config)[0]
+
+    def _copy_site_fn(self, src, dst, *, p: int) -> tuple:
+        copy_cache_prefix(self.cache, src, dst, p=p)
+        return ()
+
+    def _mark_prompt_fn(self, slot, padded, tp) -> tuple:
+        _mark_prompt(self._seen, self._gen_counts, slot, padded, tp)
+        return ()
+
+    def _chunk_fn(self, cl: int, start: int):
+        """The serial chunk's site at (C, start): C a power-of-two bucket,
+        start chunk-aligned (prefill_step), so the grid is at most
+        log2(C) x (T/C). Its logits feed the sampler through the
+        sampler's own input buffer (``fixed_outputs=False``): one capture
+        of ``sample`` serves every chunk and wave key."""
+        key = (cl, start)
+        if key not in self._chunk_fns:
+            self._chunk_fns[key] = self._site(
+                "chunk", partial(self._chunk_site_fn, start=start), key=key, fixed_outputs=False)
+        return self._chunk_fns[key]
+
+    def _packed_fn(self, g: int, cl: int):
+        """The packed wave's site at (G, C), both powers of two
+        (prefill_wave); its starts are arguments, so one variant serves
+        every mix of starts."""
+        key = (g, cl)
+        if key not in self._packed_fns:
+            self._packed_fns[key] = self._site(
+                "packed", self._packed_site_fn, key=key, fixed_outputs=False)
+        return self._packed_fns[key]
+
+    def get_copy_fn(self, p: int):
+        """The prefix copy's site for reuse length ``p``, called with the
+        source and destination slots' :meth:`slot_index`: the single
+        construction point (the warmup's :meth:`warm_prefix_copies` and
+        the bench build through it, so their variants cannot drift from
+        what start_request builds)."""
+        if p not in self._copy_fns:
+            # p is chunk-aligned (_find_prefix_source): at most T/C keys
+            self._copy_fns[p] = self._site("copy", partial(self._copy_site_fn, p=p), key=p)
+        return self._copy_fns[p]
+
+    def slot_index(self, slot: int) -> torch.Tensor:
+        """Slot ``slot`` as the ``[1]`` long device tensor the prefill
+        sites take (a view of a fixed buffer: no upload)."""
+        return self._slot_iota[slot : slot + 1]
 
     def _turbo_site(self, steps: int):
         if steps not in self._turbo_sites:
@@ -1301,7 +1415,7 @@ class InferenceEngine:
         self._prefix_registry.pop(slot, None)  # rows about to be overwritten
         start = 0
         if src is not None and reuse_len > 0:
-            copy_cache_prefix(self.cache, src, slot, p=reuse_len)
+            self.get_copy_fn(reuse_len)(self.slot_index(src), self.slot_index(slot))
             start = reuse_len
             self.stats["prefix_hits"] += 1
             self.stats["prefix_tokens_reused"] += reuse_len
@@ -1337,11 +1451,9 @@ class InferenceEngine:
         final = start + cl >= tp
         chunk = chunk + [0] * (cl - len(chunk))
         last_ix = (tp - 1 - start) if final else (cl - 1)
-        logits, self.cache = prefill_chunk_step(
-            self.params, self.cache,
-            torch.tensor([chunk], dtype=torch.long, device=self.device),
-            slot, last_ix, self.config, start=start,
-        )
+        # the chunk and its index in one upload, outside the site
+        up = torch.tensor([chunk + [last_ix]], dtype=torch.long, device=self.device)
+        logits = self._chunk_fn(cl, start)(up[:, :cl], self.slot_index(slot), up[0, cl:])
         self.stats["prefill_dispatches"] += 1
         self.metrics.family("dtpu_serve_prefill_dispatches_total").inc(1)
         self.metrics.family("dtpu_serve_prefill_pack_rows").observe(1)
@@ -1401,15 +1513,10 @@ class InferenceEngine:
             slot_ix.append(0)
             starts.append(0)
             last_ix.append(-1)
-        dev = self.device
-        logits, self.cache = prefill_packed_step(
-            self.params, self.cache,
-            torch.tensor(tok_rows, dtype=torch.long, device=dev),
-            torch.tensor(slot_ix, dtype=torch.long, device=dev),
-            torch.tensor(starts, dtype=torch.long, device=dev),
-            torch.tensor(last_ix, dtype=torch.long, device=dev),
-            self.config,
-        )
+        # the rows and their three columns in one upload, outside the site
+        up = torch.tensor([r + [sl, s0, ix] for r, sl, s0, ix in zip(tok_rows, slot_ix, starts, last_ix)],
+                          dtype=torch.long, device=self.device)
+        logits = self._packed_fn(g, cl)(up[:, :cl], up[:, cl], up[:, cl + 1], up[:, cl + 2])
         self.stats["prefill_dispatches"] += 1
         self.stats["packed_dispatches"] += 1
         self.metrics.family("dtpu_serve_prefill_dispatches_total").inc(1)
@@ -1423,6 +1530,8 @@ class InferenceEngine:
                 st["next"] += cl
                 continue
             self._prefilling.pop(s, None)
+            # each row samples before the next wave replays the graph
+            # over its logits
             out[s] = self._activate(s, st["prompt"], st["tp"], st["gen"], logits[i : i + 1])
         return out
 
@@ -1451,7 +1560,11 @@ class InferenceEngine:
             # original stream
             kd = self._skip_key(kd, torch.tensor(int(gen.seed_skip), dtype=torch.int64, device=dev))
         self._key_data[slot] = kd
-        _mark_prompt(self._seen, self._gen_counts, slot, prompt[:tp])
+        pad = 16  # mark_prompt's variants: the power-of-two padded lengths
+        while pad < tp:
+            pad *= 2
+        up = torch.tensor(list(prompt[:tp]) + [0] * (pad - tp) + [tp], dtype=torch.long, device=dev)
+        self._mark_prompt(self.slot_index(slot), up[:pad], up[pad:])
         if gen.logit_bias or self.has_bias[slot]:
             row = torch.zeros((self.config.vocab_size,), dtype=torch.float32)
             for tid, bv in (gen.logit_bias or {}).items():
@@ -1794,6 +1907,20 @@ class InferenceEngine:
         self._admit_t0.pop(slot, None)
         self._last_logprobs.pop(slot, None)
 
+    def warm_prefix_copies(self) -> None:
+        """Compile every chunk-aligned prefix-copy variant, slot 0 onto
+        itself (which changes nothing), so that no request's TTFT pays for
+        one and no copy counts as a recompile: JAX's loop over p = C, 2C,
+        ... < max_seq, called by the server's warmup before the warm
+        mark."""
+        if not self.prefix_cache:
+            return
+        zero = self.slot_index(0)
+        p = self.prefill_chunk
+        while p < self.max_seq:
+            self.get_copy_fn(p)(zero, zero)
+            p += self.prefill_chunk
+
     def mark_flight_warm(self) -> None:
         """Declare the warmup complete: any compile the flight recorder
         observes from here on is a steady-state recompile
@@ -1886,9 +2013,12 @@ class InferenceEngine:
         m.family("dtpu_serve_batch_occupancy_ratio").set(active / float(self.max_batch))
         m.family("dtpu_serve_kv_cache_utilization_ratio").set(round(self.kv_cache_utilization(), 6))
         m.family("dtpu_serve_prefix_slots").set(self.prefix_stats()["prefix_slots"])
-        # the decode_loop sites (one a power-of-two steps), as JAX counts
-        # its memoized turbo grid
-        m.family("dtpu_serve_compile_cache_entries").set(len(self._turbo_sites), "turbo")
+        # the memoized site grids, as JAX counts its jit grids
+        entries = m.family("dtpu_serve_compile_cache_entries")
+        entries.set(len(self._chunk_fns), "chunk")
+        entries.set(len(self._packed_fns), "packed")
+        entries.set(len(self._turbo_sites), "turbo")
+        entries.set(len(self._copy_fns), "copy")
         if self.device.type == "cuda":
             in_use = m.family("dtpu_serve_device_memory_bytes_in_use")
             peak = m.family("dtpu_serve_device_memory_peak_bytes")

@@ -24,13 +24,15 @@ The call's rules, which the engine keeps:
 - A site's arguments are the tensors that vary from call to call. The
   engine's fixed buffers (its cache, its device mirrors, its key data)
   are read in place by the function's closure. An argument that is a
-  fixed tensor (registered with :meth:`GraphSet.fix`; every site's
-  outputs are) is captured in place, so sites chain through those
-  buffers with no copy between them; a graph is bound to those
-  addresses, so one variant fed from two sites' outputs (``advance_state``
-  after ``argmax`` or after ``sample``) holds a capture for each. Any
-  other argument is copied into the graph's own input buffer at each
-  call.
+  fixed tensor (registered with :meth:`GraphSet.fix`; a site's outputs
+  are, unless it was made with ``fixed_outputs=False``) is captured in
+  place, so sites chain through those buffers with no copy between them;
+  a graph is bound to those addresses, so one variant fed from two sites'
+  outputs (``advance_state`` after ``argmax`` or after ``sample``) holds
+  a capture for each. Any other argument is copied into the graph's own
+  input buffer at each call: the engine's prefill sites, one a key, leave
+  their logits unfixed, so that one capture of ``sample`` serves them
+  all.
 - The outputs are the graph's own tensors: the next replay of the same
   variant overwrites them, so a caller copies out what it keeps.
 - All of a set's graphs share one memory pool
@@ -126,8 +128,8 @@ class GraphSet:
     def is_fixed(self, t: torch.Tensor) -> bool:
         return self._fixed.get(t.data_ptr()) == (tuple(t.shape), t.stride(), t.dtype)
 
-    def site(self, name: str, fn: Callable, key: Any = None) -> "GraphSite":
-        s = GraphSite(self, name, fn, key)
+    def site(self, name: str, fn: Callable, key: Any = None, fixed_outputs: bool = True) -> "GraphSite":
+        s = GraphSite(self, name, fn, key, fixed_outputs)
         self.sites.append(s)
         return s
 
@@ -144,6 +146,18 @@ class GraphSet:
                 for g in list((bound or {}).values()):
                     r["captures"] += 1
                     r["capture_s"] += g.seconds
+        return out
+
+    def captures(self) -> list:
+        """Every captured graph as [site name, key (``repr``), the
+        variant's argument shapes, capture wall seconds]: the key names a
+        variant, or for a site without one (``mark_prompt``) its shapes
+        do. Copied as :meth:`report` copies."""
+        out = []
+        for s in list(self.sites):
+            for variant, bound in list(s.entries.items()):
+                for g in list((bound or {}).values()):
+                    out.append([s.name, repr(s.key), [list(shape) for shape, _ in variant], g.seconds])
         return out
 
     # the capture's mechanics, on the card (the CPU tests replace them)
@@ -176,11 +190,13 @@ class GraphSet:
 class GraphSite:
     """One step function under one bucket key (see the module note)."""
 
-    def __init__(self, graphs: GraphSet, name: str, fn: Callable, key: Any = None):
+    def __init__(self, graphs: GraphSet, name: str, fn: Callable, key: Any = None,
+                 fixed_outputs: bool = True):
         self.graphs = graphs
         self.name = name
         self.fn = fn
         self.key = key
+        self.fixed_outputs = fixed_outputs
         # variant → {binding: _Graph}, or None where the site runs eagerly
         self.entries: dict = {}
 
@@ -234,6 +250,7 @@ class GraphSite:
         finally:
             after = launch_counts()
             add_launches({k: before[k] - after[k] for k in before})
-        gs.fix(*_leaves(outputs))
+        if self.fixed_outputs:
+            gs.fix(*_leaves(outputs))
         return _Graph(graph, inputs, outputs, {k: after[k] - before[k] for k in before},
                       time.perf_counter() - t0)

@@ -9,23 +9,19 @@ package's names, types, help texts, label names and buckets, used by:
   readings as its ``stats``, so the server and the bench
   (``serve/bench.py``) read one set of numbers, and whose compiled step
   sites (``serve/graphs.py``: decode, verify, sample, argmax,
-  advance_state, logprobs, mark_seen, skip_key and turbo, CUDA graphs on
-  the card) feed the compile families through ``obs.flight.watch_jit``
-  as JAX's jit sites do;
+  advance_state, logprobs, mark_seen, skip_key and turbo on the decode
+  side, chunk, packed, copy and mark_prompt on the prefill side, CUDA
+  graphs on the card) feed the compile families through
+  ``obs.flight.watch_jit`` as JAX's jit sites do;
 - ``serve/openai_server.py``, which counts requests, errors and queue
   waits, refreshes the state gauges and renders the page on ``/metrics``.
 
 Families registered with no source in the port yet (they render and stay
-at zero, or absent for a labelled family, until their slice feeds them):
-
-- the compile families' prefill series: the port's prefill runs eagerly,
-  so no ``chunk``, ``packed``, ``copy`` or ``mark_prompt`` site compiles
-  and ``dtpu_serve_compile_cache_entries`` has only its ``turbo`` series
-  (the prefill sites are next in ROADMAP A2.2);
-- ``dtpu_serve_watchdog_aborts_total``, ``dtpu_serve_deadline_expired_total``,
-  ``dtpu_serve_resumed_requests_total`` and ``dtpu_serve_postmortems_total``:
-  the engine watchdog, request deadlines, ``dtpu_resume`` and the flight
-  recorder come with ROADMAP A4.
+at zero until their slice feeds them):
+``dtpu_serve_watchdog_aborts_total``, ``dtpu_serve_deadline_expired_total``,
+``dtpu_serve_resumed_requests_total`` and ``dtpu_serve_postmortems_total``:
+the engine watchdog, request deadlines, ``dtpu_resume`` and the flight
+recorder come with ROADMAP A4.
 """
 
 from dstack_tpu_torch.obs import (
@@ -42,9 +38,6 @@ UNFED_FAMILIES = (
     "dtpu_serve_resumed_requests_total",
     "dtpu_serve_postmortems_total",
 )
-# the JAX jit sites (the compile families' ``fn`` label) that the port
-# still runs eagerly: its prefill
-UNFED_COMPILE_SITES = ("chunk", "packed", "copy", "mark_prompt")
 
 
 def new_serve_registry() -> Registry:

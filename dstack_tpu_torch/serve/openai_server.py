@@ -41,8 +41,6 @@ charge of ``n``), request deadlines, trace spans, the engine watchdog,
 recorders (``mark_flight_warm``), fault points, and the QoS, trace, SLO,
 flight and boot registries that JAX's ``/metrics`` appends to the
 engine's (ROADMAP A4).
-``warm_prefix_copies`` pre-compiles JAX's jitted prefix-copy variants,
-which eager PyTorch does not have, so the warmup has no counterpart.
 """
 
 import argparse
@@ -606,7 +604,13 @@ def build_app(
             "flash_decode_launches": dict(flash_decode.LAUNCHES_BY_VARIANT),
             # the step sites: graphs (eager variants on the CPU) and capture seconds
             "graph_sites": e.graphs.report(),
+            "graph_captures": e.graphs.captures(),
             "flight_warm": e.flight_warm,
+            # the card's allocator: what the engine, its graphs' pool and its cache hold
+            "device_memory": None if e.device.type != "cuda" else {
+                "allocated_bytes": torch.cuda.memory_allocated(e.device),
+                "reserved_bytes": torch.cuda.memory_reserved(e.device),
+            },
         })
 
     async def metrics(request):
@@ -957,13 +961,21 @@ def _warmup_engine(engine: InferenceEngine) -> float:
     with logprobs, a plain greedy step (turbo off for it), a packed wave
     at every power-of-two G up to ``prefill_pack``, and a verify when
     ``spec_draft`` is on. On the card this captures every decode-side
-    step site's graph (serve/graphs.py) for every key real requests reach,
-    and moves the CUDA context, cuBLAS's handles, the allocator's first
-    blocks and each kernel's first launch out of the first request. Then
+    step site's graph (serve/graphs.py) for every key real requests reach
+    and the prefill sites' graphs for JAX's grid below, and moves the CUDA
+    context, cuBLAS's handles, the allocator's first blocks and each
+    kernel's first launch out of the first request. Then
     the engine forgets the warmup (:meth:`InferenceEngine.forget_requests`,
     with ``spec_draft`` and ``turbo_steps`` restored): no request can see
-    it; and it is marked warm (:meth:`InferenceEngine.mark_flight_warm`):
-    a later compile counts as a recompile. → seconds."""
+    it; every prefix-copy length is compiled
+    (:meth:`InferenceEngine.warm_prefix_copies`, as JAX does); and it is
+    marked warm (:meth:`InferenceEngine.mark_flight_warm`): a later
+    compile counts as a recompile. The prefill keys are JAX's grid: the
+    chunk at (C, 0) and (16, 0), the packed waves at (G, C), every copy
+    length and the mark_prompt lengths those reach; a later chunk start,
+    a smaller chunk or wave bucket, or a longer prompt's mark_prompt is
+    captured when a request first reaches it, as JAX compiles it then.
+    → seconds."""
     t0 = time.perf_counter()
     spec, turbo = engine.spec_draft, engine.turbo_steps
     full = [(i % 251) + 1 for i in range(engine.prefill_chunk)]
@@ -1020,6 +1032,7 @@ def _warmup_engine(engine: InferenceEngine) -> float:
     # warmup prompts are not real: none may linger as a reusable prefix,
     # a seen-token count or a sampling stream
     engine.forget_requests()
+    engine.warm_prefix_copies()
     engine.mark_flight_warm()
     seconds = time.perf_counter() - t0
     logger.info(

@@ -14,9 +14,8 @@
   counts and the gauges after ``update_state_gauges()`` are equal, and the
   port's ``stats`` seconds sum to its step histogram's sum. The compile
   families (both flight recorders on, JAX's jit caches emptied first)
-  count the same compiles of the decode-side sites the port compiles;
-  JAX's prefill sites' series (``serve.metrics.UNFED_COMPILE_SITES``) are
-  left out. Left out too are the families the port registers but does
+  count the same compiles, the prefill sites' and the decode sites'.
+  Left out are the families the port registers but does
   not feed yet (``serve.metrics.UNFED_FAMILIES``: the watchdog, deadline,
   resume and post-mortem counts of ROADMAP A4), which must read zero in
   the port, and the device-memory gauges, absent on the CPU in the port
@@ -43,7 +42,7 @@ from dstack_tpu_torch import obs as tobs
 from dstack_tpu_torch.models import llama as tllama
 from dstack_tpu_torch.serve import engine as tengine
 from dstack_tpu_torch.obs import flight as tflight
-from dstack_tpu_torch.serve.metrics import UNFED_COMPILE_SITES, UNFED_FAMILIES
+from dstack_tpu_torch.serve.metrics import UNFED_FAMILIES
 from dstack_tpu_torch.serve.metrics import new_serve_registry as port_serve_registry
 from dstack_tpu_torch.train import finetune as tfinetune
 from dstack_tpu_torch.train import step as tstep
@@ -212,15 +211,13 @@ def _wave(eng, gen_cls, prompts) -> list:
 
 def _snapshot(reg) -> dict:
     """Every fed family's comparable reading: counter and gauge series,
-    histogram counts, and the pack rows' bucket counts (the compile
-    families without JAX's prefill sites)."""
+    histogram counts, and the pack rows' bucket counts."""
     out = {}
     for name in reg.metric_names():
         if name in UNFED_FAMILIES or name in MEMORY_GAUGES:
             continue
         fam = reg.family(name)
-        series = {k: v for k, v in fam.items() if not (
-            name.startswith("dtpu_serve_compile") and k[0] in UNFED_COMPILE_SITES)}
+        series = dict(fam.items())
         if fam.kind == "histogram":
             out[name] = {k: s["count"] for k, s in series.items()}
             if name == "dtpu_serve_prefill_pack_rows":

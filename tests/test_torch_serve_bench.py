@@ -199,7 +199,7 @@ HEALTH_KEYS = {
     "status", "model", "device", "decode_kernel", "engine", "queue_depth", "inflight",
     "active_slots", "max_slots", "kv_cache_utilization", "prefix_hits", "prefix_slots",
     "prefix_occupancy", "prefix_tokens", "stats", "kernel_launches", "flash_decode_launches",
-    "graph_sites", "flight_warm",
+    "graph_sites", "graph_captures", "flight_warm", "device_memory",
 }
 
 
@@ -244,6 +244,8 @@ class TestMetricsEndpoint:
             _, m1 = await _scrape(client)
             h1 = await (await client.get("/health")).json()
             assert set(h1) == HEALTH_KEYS and set(h0) == HEALTH_KEYS
+            # the CPU runs the step sites eagerly: no graph, no card memory
+            assert h1["graph_captures"] == [] and h1["device_memory"] is None
             st = {k: h1["stats"][k] - h0["stats"][k] for k in h1["stats"]}
             d = {k: m1[k] - m0.get(k, 0.0) for k in m1}
             assert d["dtpu_serve_requests_total"] == 3
