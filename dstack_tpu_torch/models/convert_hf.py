@@ -7,14 +7,24 @@ Point :func:`load_checkpoint` at a ``save_pretrained`` directory
 stacked ``[L, ...]`` layout as :func:`~dstack_tpu_torch.models.llama.
 init_params`, so every leaf is one tensor.
 
-Model types: ``llama``, ``gemma``, ``gemma2`` and ``gemma3`` /
-``gemma3_text`` (a multimodal Gemma3 checkpoint loads its text tower).
-Every other type raises ``ValueError`` naming the ROADMAP item that
-brings it (A3: the other families' branches, and export). Each maps onto
-the config's family flags, as the JAX converter maps them
-(convert_hf.py:55-260): Gemma's (1 + w) norms, embedding scale and tanh
-GELU; Gemma2's sandwich norms, softcaps and alternating windows; Gemma3's
-q/k norms, periodic windows and dual rope.
+Model types: ``llama``, ``gemma``, ``gemma2``, ``gemma3`` /
+``gemma3_text`` (a multimodal Gemma3 checkpoint loads its text tower),
+``qwen2``, ``qwen3``, ``mistral``, ``phi3`` (fused q/k/v and gate/up
+projections split on load), ``granite``, ``starcoder2``, ``nemotron``,
+``cohere``, ``olmo2``, ``glm`` and ``glm4``. Each maps onto the config's
+family flags, as the JAX converter maps them (convert_hf.py:55-334):
+Gemma's (1 + w) norms, embedding scale and tanh GELU; Gemma2's sandwich
+norms, softcaps and alternating windows; Gemma3's q/k norms, periodic
+windows and dual rope; Qwen's q/k/v biases and q/k norms; Mistral's
+window; Granite's multipliers; StarCoder2's and Nemotron's LayerNorms
+with biases (stored stacked ``[2, H]``: :func:`_stack_nemotron_norms`)
+and gateless MLPs; Cohere's LayerNorm, parallel block, interleaved rope
+and logit scale; OLMo-2's post-norm-only layers and flat q/k norms;
+GLM's interleaved partial rope, fused gate/up (:func:`_split_glm`) and
+glm4's sandwich norms. The MoE types (``mixtral``, ``qwen3_moe``,
+``gpt_oss``), ``cohere2`` and ``llama4``, and ``deepseek_v2``/``_v3``
+raise ``ValueError`` naming the ROADMAP item that brings them (A3.2, A3.3,
+A3.4); any other type raises as JAX's does.
 
 Safetensors are read by :func:`read_safetensors`, a parser of the file
 format (an 8-byte little-endian header length, a JSON header, then the
@@ -24,7 +34,9 @@ raw little-endian bytes of each tensor), so the port needs no
 
 Layout: an HF ``*_proj.weight`` is ``[out, in]`` (``nn.Linear``), the
 port's projections ``[in, out]``: transposed on load. HF llama-family
-checkpoints already use the rotate-half rope convention.
+checkpoints already use the rotate-half rope convention; Cohere's and
+GLM's rotate interleaved pairs, which the config's ``rope_interleaved``
+says.
 """
 
 import json
@@ -38,31 +50,55 @@ from dstack_tpu_torch.models.llama import LlamaConfig
 
 __all__ = ["config_from_hf", "convert_state_dict", "load_checkpoint", "read_safetensors"]
 
-SUPPORTED = ("llama", "gemma", "gemma2", "gemma3", "gemma3_text")
+SUPPORTED = ("llama", "gemma", "gemma2", "gemma3", "gemma3_text", "qwen2", "qwen3", "mistral",
+             "phi3", "granite", "starcoder2", "nemotron", "cohere", "olmo2", "glm", "glm4")
+# model types the JAX converter loads and the port not yet → the ROADMAP
+# item that brings them
+LATER = {
+    "mixtral": "A3.2 (softmax-routed MoE)",
+    "qwen3_moe": "A3.2 (softmax-routed MoE)",
+    "gpt_oss": "A3.2 (softmax-routed MoE: gpt-oss's converter branch)",
+    "cohere2": "A3.3 (with Llama4: its global layers are NoPE layers)",
+    "llama4": "A3.3 (Llama4)",
+    "llama4_text": "A3.3 (Llama4)",
+    "deepseek_v2": "A3.4 (DeepSeek's converter branches)",
+    "deepseek_v3": "A3.4 (DeepSeek's converter branches)",
+}
 GEMMA = ("gemma", "gemma2", "gemma3", "gemma3_text")
+REQUIRED = ("hidden_size", "num_attention_heads", "num_hidden_layers", "vocab_size", "intermediate_size")
+# HF hidden_act → the config's activation (Gemma's is always the tanh GELU)
+ACTS = {"silu": "silu", "gelu_pytorch_tanh": "gelu_tanh", "relu2": "relu2"}
 
 
-def _unsupported(model_type: str) -> ValueError:
-    return ValueError(
-        f"HF model_type {model_type!r} is not loaded by the port yet: it loads "
-        f"{', '.join(SUPPORTED)}; the other families' branches come with ROADMAP A3"
-    )
+def _check_model_type(model_type: str) -> None:
+    """Raise for a model type the port does not load: one of :data:`LATER`
+    names its ROADMAP item, any other is refused as JAX refuses it."""
+    if model_type in LATER:
+        raise ValueError(f"HF model_type {model_type!r} is not loaded by the port yet: it comes "
+                         f"with ROADMAP {LATER[model_type]}")
+    if model_type not in SUPPORTED:
+        raise ValueError(f"unsupported HF model_type {model_type!r}")
 
 
 def config_from_hf(hf: dict, dtype: Any = torch.bfloat16) -> LlamaConfig:
-    """HF ``config.json`` dict → :class:`LlamaConfig` (the llama, gemma,
-    gemma2 and gemma3 branches of the JAX ``config_from_hf``)."""
+    """HF ``config.json`` dict → :class:`LlamaConfig` (the JAX
+    ``config_from_hf``'s branches for the model types in
+    :data:`SUPPORTED`, their refusals included)."""
     mt = hf.get("model_type", "llama")
     if mt == "gemma3" and "text_config" in hf:
         # multimodal wrapper: the text tower's config is nested (the vision
         # tower is out of scope; convert_state_dict drops its weights)
         hf = {**hf["text_config"], "model_type": "gemma3_text"}
         mt = "gemma3_text"
-    if mt not in SUPPORTED:
-        raise _unsupported(mt)
-    if hf.get("attention_bias"):
+    _check_model_type(mt)
+    if hf.get("attention_bias") and mt not in ("qwen2", "qwen3", "glm", "glm4"):
         # q/k/v/o biases in the checkpoint that these families never read
-        raise ValueError(f"{mt} checkpoint sets attention_bias=true, which the port does not load")
+        # (StarCoder2 spells its biases use_bias, read in its branch)
+        raise ValueError(f"{mt} checkpoint sets attention_bias=true, which the port loads only "
+                         "for qwen2/qwen3/glm/glm4")
+    missing = [k for k in REQUIRED if k not in hf]
+    if missing:
+        raise ValueError(f"{mt} config.json lacks {', '.join(missing)}")
     hidden = hf["hidden_size"]
     n_heads = hf["num_attention_heads"]
     act = hf.get("hidden_act") or "silu"
@@ -70,8 +106,10 @@ def config_from_hf(hf: dict, dtype: Any = torch.bfloat16) -> LlamaConfig:
         # Gemma configs say "gelu" or hidden_activation, but the models
         # always use the tanh approximation
         act = "gelu_tanh"
-    elif act != "silu":
-        raise ValueError(f"unsupported hidden_act {act!r} for {mt}")
+    elif act not in ACTS:
+        raise ValueError(f"unsupported hidden_act {act!r} (supported: {sorted(ACTS)})")
+    else:
+        act = ACTS[act]
     common = dict(
         hidden_act=act,
         vocab_size=hf["vocab_size"],
@@ -90,6 +128,83 @@ def config_from_hf(hf: dict, dtype: Any = torch.bfloat16) -> LlamaConfig:
     )
     if mt == "llama":
         return LlamaConfig(**common)
+    if mt == "qwen2":
+        if hf.get("use_sliding_window"):
+            # HF Qwen2 windows only the layers from max_window_layers on, a
+            # layering the periodic sliding_pattern cannot express but
+            # uniformly; refused rather than run with full attention
+            if hf.get("max_window_layers", 0) not in (0, None):
+                raise ValueError("qwen2 use_sliding_window with max_window_layers > 0 is not "
+                                 "supported (nor by the JAX converter)")
+            common["sliding_window"] = hf.get("sliding_window") or 0
+        return LlamaConfig(**common, qkv_bias=True)  # Qwen2 always has q/k/v biases
+    if mt == "qwen3":
+        if hf.get("use_sliding_window") or "sliding_attention" in (hf.get("layer_types") or []):
+            raise ValueError("qwen3 sliding-attention layer_types are not supported (nor by the "
+                             "JAX converter)")
+        return LlamaConfig(**common, qk_norm=True, qkv_bias=bool(hf.get("attention_bias")))
+    if mt == "mistral":
+        return LlamaConfig(**common, sliding_window=hf.get("sliding_window") or 0)
+    if mt == "phi3":
+        if float(hf.get("partial_rotary_factor") or 1.0) != 1.0:
+            raise ValueError("phi3 partial_rotary_factor != 1 is not supported (nor by the JAX "
+                             "converter)")
+        return LlamaConfig(**common, sliding_window=hf.get("sliding_window") or 0)
+    if mt == "granite":
+        # the llama skeleton and four scalars: attention_multiplier is the
+        # softmax scale; logits_scaling divides, so it maps onto 1 / logit_scale
+        ls = float(hf.get("logits_scaling") or 1.0)
+        return LlamaConfig(
+            **common,
+            attn_scale=float(hf.get("attention_multiplier") or 1.0),
+            embed_multiplier=float(hf.get("embedding_multiplier") or 1.0),
+            residual_multiplier=float(hf.get("residual_multiplier") or 1.0),
+            logit_scale=(1.0 / ls) if ls != 1.0 else 0.0,
+        )
+    if mt == "starcoder2":
+        # LayerNorm with a bias (stored stacked), biases on every
+        # projection, a gateless GELU MLP (c_fc/c_proj), tied embeddings
+        return LlamaConfig(
+            **{**common, "norm_eps": float(hf.get("norm_epsilon", 1e-5)),
+               "tie_embeddings": bool(hf.get("tie_word_embeddings", True)),
+               "sliding_window": hf.get("sliding_window") or 0},
+            norm_type="layernorm_bias", mlp_gateless=True,
+            qkv_bias=bool(hf.get("use_bias", True)), proj_bias=bool(hf.get("use_bias", True)),
+        )
+    if mt == "nemotron":
+        # LayerNorm1P ((1 + w) norm + b, stored stacked), a gateless relu²
+        # MLP, rotate-half partial rope
+        return LlamaConfig(
+            **{**common, "norm_eps": float(hf.get("norm_eps", 1e-5))},
+            norm_type="layernorm1p", mlp_gateless=True,
+            partial_rotary=float(hf.get("partial_rotary_factor") or 0.5),
+        )
+    if mt == "cohere":
+        # weight-only LayerNorm, the parallel block over one input norm,
+        # interleaved rope, the logit scale, optional per-head q/k
+        # LayerNorms; Cohere ties by default and omits the key when tied
+        return LlamaConfig(
+            **{**common, "norm_eps": float(hf.get("layer_norm_eps", 1e-5)),
+               "tie_embeddings": bool(hf.get("tie_word_embeddings", True))},
+            norm_type="layernorm", parallel_block=True, rope_interleaved=True,
+            qk_norm=bool(hf.get("use_qk_norm")),
+            logit_scale=float(hf.get("logit_scale", 0.0625)),  # HF's default
+        )
+    if mt == "olmo2":
+        # no input norms (the sublayer outputs are normed), q/k RMSNorm over
+        # the whole projection width before the head reshape
+        return LlamaConfig(**common, pre_norm=False, post_norms=True, qk_norm_flat=True)
+    if mt in ("glm", "glm4"):
+        # interleaved rope over the first half of a head, q/k/v biases (a
+        # real knob, default on), fused gate/up (split on load); glm4 adds
+        # sandwich norms
+        return LlamaConfig(
+            **common,
+            qkv_bias=bool(hf.get("attention_bias", True)),
+            rope_interleaved=True,
+            partial_rotary=float(hf.get("partial_rotary_factor") or 0.5),
+            post_norms=(mt == "glm4"),
+        )
     attn_scale = (
         float(hf["query_pre_attn_scalar"]) ** -0.5 if hf.get("query_pre_attn_scalar") else None
     )
@@ -143,10 +258,13 @@ def _gemma3_pattern(hf: dict, sliding_window: int) -> tuple[int, int]:
 
 
 def _rope_scaling_from_hf(hf: dict) -> Optional[tuple]:
-    """HF ``rope_scaling`` → the config's tuple: "llama3" (Llama-3.1/3.2)
-    or "linear" (Gemma3's global layers). Any other type is an error:
-    loading without it would generate silently degraded text (yarn comes
-    with the families that use it, ROADMAP A3)."""
+    """HF ``rope_scaling`` → the config's tuple (the JAX
+    ``_rope_scaling_from_hf``, convert_hf.py:511): "llama3"
+    (Llama-3.1/3.2), "linear" (Gemma3's global layers) or "yarn"
+    (NTK-by-parts, its cos/sin attention factor resolved here from
+    ``mscale``/``mscale_all_dim``, a seventh element only when
+    ``truncate`` is false). Any other type is an error: loading without it
+    would generate silently degraded text."""
     rs = hf.get("rope_scaling")
     if not rs:
         return None
@@ -160,17 +278,95 @@ def _rope_scaling_from_hf(hf: dict) -> Optional[tuple]:
         )
     if rope_type == "linear":
         return ("linear", float(rs["factor"]))
+    if rope_type == "yarn":
+        truncate = bool(rs.get("truncate", True))
+        factor = float(rs["factor"])
+
+        def get_mscale(scale, ms=1.0):
+            return 1.0 if scale <= 1 else 0.1 * ms * math.log(scale) + 1.0
+
+        att = rs.get("attention_factor")
+        if att is None:
+            mscale, mscale_all = rs.get("mscale"), rs.get("mscale_all_dim")
+            if mscale and mscale_all:
+                att = get_mscale(factor, mscale) / get_mscale(factor, mscale_all)
+            else:
+                att = get_mscale(factor)
+        orig = rs.get("original_max_position_embeddings") or hf.get("max_position_embeddings", 8192)
+        return ("yarn", factor, float(rs.get("beta_fast") or 32), float(rs.get("beta_slow") or 1),
+                float(orig), float(att)) + ((False,) if not truncate else ())
     raise ValueError(f"unsupported rope_scaling type {rope_type!r}")
+
+
+def _stack_nemotron_norms(sd: dict, c: LlamaConfig) -> dict:
+    """A LayerNorm with a bias (Nemotron's LayerNorm1P, whose weight is
+    already scale - 1, and StarCoder2's) → its ``.weight`` as the stacked
+    [2, H] (scale, bias) the tree holds (convert_hf.py:860)."""
+    names = ["model.norm"]
+    for i in range(c.n_layers):
+        names += [f"model.layers.{i}.input_layernorm", f"model.layers.{i}.post_attention_layernorm"]
+    for n in names:
+        sd[n + ".weight"] = torch.stack([sd.pop(n + ".weight"), sd.pop(n + ".bias")])
+    return sd
+
+
+def _split_glm(sd: dict, c: LlamaConfig, model_type: str) -> dict:
+    """GLM's fused ``gate_up_proj`` ([2F, H] rows: gate, then up) split;
+    glm4's sandwich norms renamed into the Gemma2-style names the generic
+    path reads (post_self_attn → post_attention, post_attention →
+    pre_feedforward, post_mlp → post_feedforward; convert_hf.py:877)."""
+    F_ = c.intermediate_size
+    for i in range(c.n_layers):
+        P = f"model.layers.{i}."
+        gu = sd.pop(P + "mlp.gate_up_proj.weight")
+        sd[P + "mlp.gate_proj.weight"], sd[P + "mlp.up_proj.weight"] = gu[:F_], gu[F_:]
+        if model_type == "glm4":
+            attn_post = sd.pop(P + "post_self_attn_layernorm.weight")
+            pre_mlp = sd.pop(P + "post_attention_layernorm.weight")
+            sd[P + "post_feedforward_layernorm.weight"] = sd.pop(P + "post_mlp_layernorm.weight")
+            sd[P + "post_attention_layernorm.weight"] = attn_post
+            sd[P + "pre_feedforward_layernorm.weight"] = pre_mlp
+    return sd
+
+
+def _split_phi3(sd: dict, c: LlamaConfig) -> dict:
+    """Phi-3's fused ``qkv_proj`` (rows q, k, v) and ``gate_up_proj``
+    (rows gate, up) split into the per-projection names (convert_hf.py:899)."""
+    for i in range(c.n_layers):
+        P = f"model.layers.{i}."
+        q, k, v = torch.split(sd.pop(P + "self_attn.qkv_proj.weight"), [c.q_dim, c.kv_dim, c.kv_dim])
+        sd[P + "self_attn.q_proj.weight"], sd[P + "self_attn.k_proj.weight"] = q, k
+        sd[P + "self_attn.v_proj.weight"] = v
+        gate, up = torch.chunk(sd.pop(P + "mlp.gate_up_proj.weight"), 2)
+        sd[P + "mlp.gate_proj.weight"], sd[P + "mlp.up_proj.weight"] = gate, up
+    return sd
 
 
 def convert_state_dict(sd: dict, config: LlamaConfig, model_type: str = "llama") -> dict:
     """Flat HF state dict (name → tensor) → the port's params: stacked
     ``[L, ...]`` layers in ``config.dtype``, on the CPU (the caller moves
-    them to the card). The llama and Gemma branches of the JAX
-    ``convert_state_dict`` (convert_hf.py:581-760)."""
+    them to the card). The dense branches of the JAX
+    ``convert_state_dict`` (convert_hf.py:581-760): the fused projections
+    split (phi3, glm), the LayerNorms with biases stacked (nemotron,
+    starcoder2, whose ``c_fc``/``c_proj`` take the unified names), then
+    one path for every type."""
     c, dt = config, config.dtype
-    if model_type not in SUPPORTED:
-        raise _unsupported(model_type)
+    _check_model_type(model_type)
+    if model_type == "phi3":
+        sd = _split_phi3(dict(sd), c)
+    if model_type in ("glm", "glm4"):
+        sd = _split_glm(dict(sd), c, model_type)
+    if model_type == "nemotron":
+        sd = _stack_nemotron_norms(dict(sd), c)
+    if model_type == "starcoder2":
+        sd = dict(sd)
+        for i in range(c.n_layers):  # c_fc/c_proj → the unified names
+            P = f"model.layers.{i}.mlp."
+            for suff in ("weight", "bias"):
+                for theirs, ours in (("c_fc", "up_proj"), ("c_proj", "down_proj")):
+                    if f"{P}{theirs}.{suff}" in sd:
+                        sd[f"{P}{ours}.{suff}"] = sd.pop(f"{P}{theirs}.{suff}")
+        sd = _stack_nemotron_norms(sd, c)  # the same stacked-norm layout
     if model_type == "gemma3":
         # a multimodal checkpoint: keep the text tower. Both layouts
         # normalize to model.*: language_model.model.layers... (older)
@@ -193,23 +389,34 @@ def convert_state_dict(sd: dict, config: LlamaConfig, model_type: str = "llama")
         return torch.stack([m.t() if transpose else m for m in mats]).to(dt).contiguous()
 
     P = "model.layers.{i}."
-    # Gemma2/3 norm the attention output with post_attention_layernorm and
-    # name the pre-MLP norm pre_feedforward_layernorm; elsewhere
+    # the sandwich-norm layouts (Gemma2/3; _split_glm renames glm4's into
+    # them) norm the attention output with post_attention_layernorm and name
+    # the pre-MLP norm pre_feedforward_layernorm; elsewhere
     # post_attention_layernorm is the pre-MLP norm
-    sandwich = model_type in ("gemma2", "gemma3", "gemma3_text")
+    sandwich = model_type in ("gemma2", "gemma3", "gemma3_text", "glm4")
     layers = {
         "wq": stack(P + "self_attn.q_proj.weight", transpose=True),
         "wk": stack(P + "self_attn.k_proj.weight", transpose=True),
         "wv": stack(P + "self_attn.v_proj.weight", transpose=True),
         "wo": stack(P + "self_attn.o_proj.weight", transpose=True),
-        "attn_norm": stack(P + "input_layernorm.weight"),
-        "mlp_norm": stack(P + ("pre_feedforward_layernorm.weight" if sandwich
-                               else "post_attention_layernorm.weight")),
-        "w_gate": stack(P + "mlp.gate_proj.weight", transpose=True),
-        "w_up": stack(P + "mlp.up_proj.weight", transpose=True),
-        "w_down": stack(P + "mlp.down_proj.weight", transpose=True),
     }
-    if c.qk_norm:
+    if c.pre_norm:
+        layers["attn_norm"] = stack(P + "input_layernorm.weight")
+        if not c.parallel_block:  # Cohere's one input norm is attn_norm
+            layers["mlp_norm"] = stack(P + ("pre_feedforward_layernorm.weight" if sandwich
+                                            else "post_attention_layernorm.weight"))
+    if not c.mlp_gateless:
+        layers["w_gate"] = stack(P + "mlp.gate_proj.weight", transpose=True)
+    layers["w_up"] = stack(P + "mlp.up_proj.weight", transpose=True)
+    layers["w_down"] = stack(P + "mlp.down_proj.weight", transpose=True)
+    if c.qkv_bias:
+        for n in "qkv":
+            layers[f"b{n}"] = stack(P + f"self_attn.{n}_proj.bias")
+    if c.proj_bias:  # StarCoder2: the o projection's and the MLP's biases
+        layers["bo"] = stack(P + "self_attn.o_proj.bias")
+        layers["b_up"] = stack(P + "mlp.up_proj.bias")
+        layers["b_down"] = stack(P + "mlp.down_proj.bias")
+    if c.qk_norm or c.qk_norm_flat:
         layers["q_norm"] = stack(P + "self_attn.q_norm.weight")
         layers["k_norm"] = stack(P + "self_attn.k_norm.weight")
     if c.post_norms:

@@ -5,9 +5,11 @@
 serves random weights drawn from ``--seed`` on the card (``--device
 cuda``, the default) with the byte tokenizer; ``--weights FILE`` overlays
 a fine-tune's ``model_weights.npz`` (the port's or the JAX package's);
-``--hf-model DIR`` serves a ``save_pretrained`` checkpoint of the llama,
-gemma, gemma2 or gemma3 model types instead (config and weights from the
-directory, the model named after it), still with the byte tokenizer: an
+``--hf-model DIR`` serves a ``save_pretrained`` checkpoint of a model
+type ``models/convert_hf.py`` loads (llama, the Gemma types, qwen2,
+qwen3, mistral, phi3, granite, starcoder2, nemotron, cohere, olmo2, glm,
+glm4) instead (config and weights from the directory, the model named
+after it), still with the byte tokenizer: an
 HF tokenizer needs the ``tokenizers`` package, which the port does not
 depend on yet. ``--chat-template`` overrides the Llama-3-style default.
 
@@ -1058,8 +1060,9 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--hf-model", default=None,
-        help="HF save_pretrained dir (llama/gemma/gemma2/gemma3): loads the "
-             "config and weights, overrides --model and --seed",
+        help="HF save_pretrained dir (a model type models/convert_hf.py loads: llama, "
+             "gemma*, qwen2/3, mistral, phi3, granite, starcoder2, nemotron, cohere, "
+             "olmo2, glm/glm4): loads the config and weights, overrides --model and --seed",
     )
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-batch", type=int, default=8)

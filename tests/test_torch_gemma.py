@@ -174,7 +174,7 @@ class TestDeltas:
 
     def test_act_fn_refuses_an_unknown_activation(self):
         with pytest.raises(ValueError, match="hidden_act"):
-            tllama.act_fn(dataclasses.replace(tllama.GEMMA_2B, hidden_act="relu2"))
+            tllama.act_fn(dataclasses.replace(tllama.GEMMA_2B, hidden_act="gelu_exact"))
 
     def test_qk_norm_apply(self):
         rng = np.random.default_rng(2)

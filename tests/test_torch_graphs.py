@@ -433,6 +433,16 @@ def _launching(x):
 
 
 class TestSiteMechanics:
+    @pytest.fixture(autouse=True)
+    def _restore_launch_counts(self):
+        """``_launching`` fakes launches on the module-wide counters: put
+        them back, so that a later test in this process (the server's
+        ``/health`` reads them) counts only its own."""
+        saved = tflash_decode.LAUNCHES, dict(tflash_decode.LAUNCHES_BY_VARIANT), tflash.LAUNCHES
+        yield
+        tflash_decode.LAUNCHES, tflash.LAUNCHES = saved[0], saved[2]
+        tflash_decode.LAUNCHES_BY_VARIANT.update(saved[1])
+
     def test_replay_credits_the_captured_launches(self):
         gs = _StandInSet("cpu", capture=True)
         site = gs.site("verify", _launching)

@@ -197,6 +197,35 @@ class TestFlashDecodePlain:
         t = tflash_decode.flash_decode(_t(q), tk, tv, _t(pos), window=window, **kw, **tx)
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL, rtol=TOL)
 
+    @pytest.mark.parametrize("quant", [False, True])
+    @pytest.mark.parametrize("rows_per_slot", [1, 5])
+    @pytest.mark.parametrize("group", [1, 3, 7, 9, 16])
+    def test_head_dim_128_groups_match_pallas_interpret(self, group, rows_per_slot, quant):
+        """The dense families' head width at their GQA groups (OLMo-2 and
+        Command-R 1, Minitron 3, Qwen2.5 7, StarCoder2 9, GLM-4 16), both
+        caches, decode and verify (R up to 80 rows a KV head)."""
+        from dstack_tpu.serve import engine as jengine
+
+        rng = np.random.default_rng(group * 10 + rows_per_slot)
+        r = group * rows_per_slot
+        q = _rand(rng, 2, 1, r, 128)
+        k, v = _rand(rng, 2, 1, 256, 128), _rand(rng, 2, 1, 256, 128)
+        pos = np.array([70, 251 - (rows_per_slot - 1)], np.int32)
+        kw = dict(scale=128**-0.5, rows_per_slot=rows_per_slot)
+        jk, jv, tk, tv, jx, tx = k, v, _t(k), _t(v), {}, {}
+        if quant:
+            jk, ks = jengine.kv_quantize(jnp.asarray(k))
+            jv, vs = jengine.kv_quantize(jnp.asarray(v))
+            tk, tv = _t(jk), _t(jv)
+            jx = dict(k_scale=ks, v_scale=vs)
+            tx = dict(k_scale=_t(ks), v_scale=_t(vs))
+        j = jax_flash_decode(
+            jnp.asarray(q), jnp.asarray(jk), jnp.asarray(jv), jnp.asarray(pos),
+            window=jnp.asarray(0, jnp.int32), block_k=128, interpret=True, **kw, **jx,
+        )
+        t = tflash_decode.flash_decode(_t(q), tk, tv, _t(pos), **kw, **tx)
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL, rtol=TOL)
+
     # every form of the TPU kernel is served now (sinks included, in
     # test_torch_gpt_oss.py); a form the kernel cannot take still raises:
     # sinks that are not one logit per query row [Hkv, R]
@@ -318,6 +347,36 @@ class TestHeadDim256OnTheCard:
         pos = [0, 40, 200, 300, 700, 1024, 1500, 2043]
         _assert_decode_close(*_decode_case(cuda, 8, 40, 256, pos, seed=10, quant=quant,
                                            rows_per_slot=5, sinks=True, window=1024))
+
+
+@pytest.mark.cuda
+class TestHeadDim128OnTheCard:
+    """K1 and K4 at the dense families' head width of 128 against their
+    plain versions (bf16, 2e-2) at the GQA groups those families bring:
+    K4 at groups 1, 3, 7, 9 and 16 (OLMo-2 and Command-R, Minitron,
+    Qwen2.5, StarCoder2, GLM-4), decode and verify (S = 5: up to 80 rows
+    a KV head, partial row groups at 35 and 45), both caches, positions
+    crossing tiles and reaching the row's end; K1 at a serving chunk of
+    256 at q_offset 512 at groups 1, 3, 7, 9 and 16."""
+
+    @pytest.mark.parametrize("quant", [False, True])
+    @pytest.mark.parametrize("rows_per_slot", [1, 5])
+    @pytest.mark.parametrize("group", [1, 3, 7, 9, 16])
+    def test_flash_decode_groups(self, cuda, group, rows_per_slot, quant):
+        last = 2048 - rows_per_slot
+        pos = [0, 1, 63, 64, 700, 1500, last - 1, last]
+        _assert_decode_close(*_decode_case(cuda, 8, group * rows_per_slot, 128, pos, seed=group,
+                                           quant=quant, rows_per_slot=rows_per_slot))
+
+    @pytest.mark.parametrize("h,hkv", [(32, 32), (24, 8), (28, 4), (36, 4), (32, 2)],
+                             ids=["group1", "group3", "group7", "group9", "group16"])
+    def test_flash_forward_groups(self, cuda, h, hkv):
+        g = torch.Generator(device=cuda).manual_seed(h + hkv)
+        q = torch.randn(1, h, 256, 128, generator=g, device=cuda).bfloat16()
+        k, v = (torch.randn(1, hkv, 2048, 128, generator=g, device=cuda).bfloat16() for _ in range(2))
+        kw = dict(scale=128**-0.5, q_offset=512)
+        _assert_fwd_close(tflash.flash_attention_with_lse(q, k, v, **kw),
+                          tflash.flash_attention_plain(q, k, v, **kw))
 
 
 def _fwd_case(dev, b, h, hkv, tq, tk, d, seed=0, **kw):
