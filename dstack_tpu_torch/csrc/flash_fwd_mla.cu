@@ -17,15 +17,20 @@
 // What bounds it on an H100: at a serving chunk (q [1,16,256,576] at
 // q_offset 512 over a 2048-slot row) 2 x 576 FLOP a live (query, key) pair
 // for S and 2 x 512 for P V against 4.7 MB of q, 4.2 MB of o and 0.9 MB of
-// the 768 keys' row: operations, 0.0058 ms at 989 TFLOP/s. The design (FlashMLA's split on
+// the 768 keys' row: operations, 0.0058 ms at 989 TFLOP/s; at DeepSeek-V3's
+// (128 heads) 45.7 GFLOP, 0.0462 ms. The design (FlashMLA's split on
 // the building blocks of csrc/hopper.cuh):
 // - Heads packed into a tile's rows. The 16 heads share one latent row, so
 //   a block owns 64 rows = 4 query positions x 16 heads (row r is head
 //   r / 4, position c0 + r % 4; QP = 64 / H positions in general), loaded
 //   once through a 3-D tensor map over [B*H, C, 576] whose box is {64
-//   columns, QP positions, H heads}. Every K tile then serves all 16 heads,
+//   columns, QP positions, HB heads}. Every K tile then serves all 16 heads,
 //   every row of a block has nearly the same causal frontier (only the last
-//   tile is masked), and a 16-40-token chunk fills whole blocks.
+//   tile is masked), and a 16-40-token chunk fills whole blocks. From 64
+//   heads on (DeepSeek-V3's 128) a block owns one position of HB = 64
+//   heads, QP = 1, and the grid's z axis picks the head group besides the
+//   batch row: every K tile serves 64 heads, and a position takes H / 64
+//   blocks.
 // - One producer thread streams 64-key K tiles (9 swizzled 64 x 64 boxes,
 //   72 KB) through a 2-stage mbarrier ring: Q 72 KB + 144 KB + P 8 KB + row
 //   statistics, 225 KB of the 227 KB a block may have (so no third stage).
@@ -92,7 +97,8 @@ struct Smem {
 
 struct Params {
   int B, H, C, T;  // batch, query heads, chunk rows, row length
-  int qp;          // query positions a block: BM / H
+  int hb;          // heads a block: min(H, BM)
+  int qp;          // query positions a block: BM / hb
   float scale;
   int q_offset;    // the chunk's first position in the row
   int nsplit;
@@ -198,7 +204,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[128], uint32_t sp, uint32_
 
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_mla_kernel(
-    const __grid_constant__ CUtensorMap tm_q,  // [B*H, C, D], box {64, QP, H}
+    const __grid_constant__ CUtensorMap tm_q,  // [B*H, C, D], box {64, QP, HB}
     const __grid_constant__ CUtensorMap tm_k,  // [B, T, D], box {64, BK, 1}
     const Params p) {
   using S = Smem<D>;
@@ -208,7 +214,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_mla_kernel(
   const uint32_t full0 = base + S::BAR, empty0 = full0 + 8 * STAGES, qbar = empty0 + 8 * STAGES;
 
   const int c0 = (gridDim.x - 1 - blockIdx.x) * p.qp;  // the longest walks first
-  const int split = blockIdx.y, b = blockIdx.z;
+  const int groups = p.H / p.hb;                        // head groups: 1, or H / 64
+  const int split = blockIdx.y, b = blockIdx.z / groups, h0 = (blockIdx.z % groups) * p.hb;
 
   // the key tiles the block's last position sees; this split's even share
   const int last = min(c0 + p.qp, p.C) - 1;
@@ -236,7 +243,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_mla_kernel(
     if (threadIdx.x == 0 && n > 0) {
       dtpu::mbar_arrive_expect_tx(qbar, S::TILE);
       for (int cb = 0; cb < CB; ++cb) {
-        dtpu::tma_load_3d(base + S::Q + cb * BM * 128, &tm_q, cb * 64, c0, b * p.H, qbar);
+        dtpu::tma_load_3d(base + S::Q + cb * BM * 128, &tm_q, cb * 64, c0, b * p.H + h0, qbar);
       }
       for (int i = 0; i < n; ++i) {
         const int s = i % STAGES;
@@ -364,15 +371,15 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_mla_kernel(
       l_row[1] = lds_f32(sl + 32);
     }
 
-    // row r of the tile is head r / QP, position c0 + r % QP; positions
-    // past C are padding
+    // row r of the tile is head h0 + r / QP, position c0 + r % QP;
+    // positions past C are padding
     const size_t n_rows = (size_t)p.B * p.H * p.C;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       const int cq = c0 + row % p.qp;
       if (cq >= p.C) continue;
-      const size_t orow = ((size_t)b * p.H + row / p.qp) * p.C + cq;
+      const size_t orow = ((size_t)b * p.H + h0 + row / p.qp) * p.C + cq;
       const float l = l_row[r];
       if (p.nsplit == 1) {
         const float l_safe = l == 0.f ? 1.f : l;
@@ -426,15 +433,15 @@ __global__ void __launch_bounds__(RANK / 4) flash_mla_combine_kernel(const Param
 }
 
 // q [B*H, C, D] as a 3-D tensor map whose box is 64 columns x `qp`
-// positions x H heads: 64 rows of 128 bytes, head-major, 128-byte swizzle.
-// Positions past C read as 0.
-bool q_tensor_map(CUtensorMap* map, const void* q, int B, int H, int C, int D, int qp) {
+// positions x `hb` heads: 64 rows of 128 bytes, head-major, 128-byte
+// swizzle. Positions past C read as 0.
+bool q_tensor_map(CUtensorMap* map, const void* q, int B, int H, int C, int D, int hb, int qp) {
   dtpu::EncodeTiledFn fn = dtpu::encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(C),
                               static_cast<cuuint64_t>(B) * H};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(C) * D * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(qp), static_cast<cuuint32_t>(H)};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(qp), static_cast<cuuint32_t>(hb)};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(q), dims, strides, box,
             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -444,7 +451,7 @@ bool q_tensor_map(CUtensorMap* map, const void* q, int B, int H, int C, int D, i
 template <int D>
 int launch(const void* q, const void* row, const Params& p, cudaStream_t stream) {
   CUtensorMap tq, tk;
-  if (!q_tensor_map(&tq, q, p.B, p.H, p.C, D, p.qp) || !dtpu::rows_tensor_map(&tk, row, p.B, p.T, D, BK)) {
+  if (!q_tensor_map(&tq, q, p.B, p.H, p.C, D, p.hb, p.qp) || !dtpu::rows_tensor_map(&tk, row, p.B, p.T, D, BK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   constexpr int smem = Smem<D>::BYTES + 1024;  // + room to align the base to 1024
@@ -455,7 +462,7 @@ int launch(const void* q, const void* row, const Params& p, cudaStream_t stream)
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid((p.C + p.qp - 1) / p.qp, p.nsplit, p.B);
+  const dim3 grid((p.C + p.qp - 1) / p.qp, p.nsplit, p.B * (p.H / p.hb));
   flash_fwd_mla_kernel<D><<<grid, NTHREADS, smem, stream>>>(tq, tk, p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.nsplit == 1) return static_cast<int>(err);
@@ -470,7 +477,8 @@ int launch(const void* q, const void* row, const Params& p, cudaStream_t stream)
 // q_offset + c >= key. With nsplit > 1 the f32 workspaces acc_ws [nsplit,
 // B*H*C, rank], m_ws and l_ws [nsplit, B*H*C], which the kernels fill and
 // read. Returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue
-// for D other than 576, rank other than 512, H not dividing 64, an empty
+// for D other than 576, rank other than 512, H neither dividing 64 nor a
+// multiple of it, an empty
 // shape, a negative q_offset, a missing workspace, or a tensor map that
 // cuTensorMapEncodeTiled refuses. (The name differs from the older
 // dtpu_flash_fwd_mla, which took a separate value tensor, so that a caller
@@ -478,15 +486,18 @@ int launch(const void* q, const void* row, const Params& p, cudaStream_t stream)
 extern "C" int dtpu_flash_mla(const void* q, const void* row, void* o, void* lse, void* acc_ws,
                               void* m_ws, void* l_ws, int B, int H, int C, int T, int D, int rank,
                               float scale, int q_offset, int nsplit, void* stream) {
-  if (D != 576 || rank != RANK || H <= 0 || BM % H || B <= 0 || C <= 0 || T <= 0 || q_offset < 0 ||
+  if (D != 576 || rank != RANK || H <= 0 || (H < BM ? BM % H : H % BM) || B <= 0 || C <= 0 || T <= 0 ||
+      q_offset < 0 ||
       nsplit < 1 || (nsplit > 1 && (acc_ws == nullptr || m_ws == nullptr || l_ws == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int hb = H < BM ? H : BM;
   const Params p{B,
                  H,
                  C,
                  T,
-                 BM / H,
+                 hb,
+                 BM / hb,
                  scale,
                  q_offset,
                  nsplit,

@@ -47,8 +47,10 @@ has its own entry, :func:`flash_mla_with_lse`, and its own source,
 the same row with its rope columns zeroed, whose output columns JAX
 slices away, so the kernel reads V as the first ``rank`` columns of the K
 tile it holds and returns o at width ``rank`` (FlashMLA's design). Its
-block packs the 16 query heads that share the row into a tile's rows,
-and :func:`mla_plan` splits the keys where the grid is short of the SMs.
+block packs the query heads that share the row into a tile's rows
+(DeepSeek-V2's 16 heads x 4 positions; from 64 heads on, as V3's 128, one
+position of 64 heads, a grid axis picking the head group), and
+:func:`mla_plan` splits the keys where the grid is short of the SMs.
 :func:`flash_attention_with_lse` refuses D = 576 and names the entry; K2
 and K3 refuse it too: MLA trains through the non-absorbed form at
 D = 192.
@@ -71,7 +73,7 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 192, 256)
 MLA_HEAD_DIM = 576  # K1's absorbed-MLA form (csrc/flash_fwd_mla.cu): DeepSeek's 512 + 64
 MLA_RANK = 512  # its value columns: the latent row's first 512
-MLA_ROWS = 64  # rows a block of it: 64 / H query positions x H heads
+MLA_ROWS = 64  # rows a block of it: 64 / H query positions x H heads, or 64 of H >= 64 heads
 MLA_TILE = 64  # keys a tile of its walk
 MLA_MAX_SPLIT = 8  # the most key splits it takes: 16 read 6 % slower than 8 at C 32, q_offset 1792 (PERF.md)
 
@@ -114,6 +116,7 @@ def flash_attention_plain(
     window: int = 0,
     softcap: float = 0.0,
     sinks: Optional[torch.Tensor] = None,  # [H] per-head sink logits
+    chunk: int = 0,  # Llama4: keys only from the query's own chunk-token block
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Masked-einsum attention → (o [B, H, Tq, D], lse [B, H, Tq] f32):
     the JAX ``_xla_attention`` (dstack_tpu/ops/attention.py:44) with the
@@ -123,7 +126,9 @@ def flash_attention_plain(
     averages v there; no serving or training row has no live key).
     With ``sinks`` the softmax is :func:`sink_softmax` (the sink joins
     the denominator only; a row with no live key gives 0 there in JAX
-    too); ``lse`` stays the sink-less scores' logsumexp."""
+    too); ``lse`` stays the sink-less scores' logsumexp. ``chunk`` keeps
+    key j for query i only where both lie in the same ``chunk``-token
+    block (Llama4's blockwise-local layers, attention.py:81-85)."""
     b, h, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     scale = float(scale) if scale is not None else d**-0.5
@@ -135,13 +140,15 @@ def flash_attention_plain(
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if softcap:
         s = softcap * torch.tanh(s / softcap)  # cap raw scores, then mask
-    if causal or window:
+    if causal or window or chunk:
         off = torch.as_tensor(q_offset, device=q.device).reshape(-1, 1, 1)
         qi = off + torch.arange(tq, device=q.device)[None, :, None]  # [B|1, Tq, 1]
         kj = kv_offset + torch.arange(tk, device=q.device)[None, None, :]
         keep = qi >= kj if causal else torch.ones_like(qi >= kj)
         if window:
             keep = keep & (qi - kj < window)
+        if chunk:
+            keep = keep & (qi // chunk == kj // chunk)
         s = torch.where(keep[:, None], s, torch.full_like(s, NEG_INF))  # over heads
     live = s.amax(dim=-1) > NEG_INF / 2  # [B, H, Tq]
     if sinks is not None:
@@ -282,15 +289,25 @@ def flash_mla_plain(
     return o[..., :rank], lse
 
 
+def mla_blocks(b: int, h: int, c: int) -> int:
+    """Blocks of the D = 576 kernel's grid before any split: a block's
+    MLA_ROWS rows are MLA_ROWS / H positions of all H heads (H <= 64), or
+    one position of MLA_ROWS heads (H >= 64: V3's 128 heads take two
+    blocks a position), so ceil(C / (MLA_ROWS / H)) x B blocks, or B x C x
+    H / MLA_ROWS."""
+    if h >= MLA_ROWS:
+        return b * c * (h // MLA_ROWS)
+    return b * -(-c // (MLA_ROWS // h))
+
+
 def mla_plan(b: int, h: int, c: int, t: int, q_offset: int, sms: int = 132) -> int:
-    """NSPLIT of the D = 576 kernel from the host's shapes: its grid is
-    ceil(C / (MLA_ROWS / H)) x B blocks; where that is short of ``sms``
-    the keys are split so the grid reaches about one block an SM, but
+    """NSPLIT of the D = 576 kernel from the host's shapes: where its grid
+    (:func:`mla_blocks`) is short of ``sms`` the keys are split so the grid reaches about one block an SM, but
     into no more than MLA_MAX_SPLIT. A split writes f32 partials of all
     C x H rows for the combine to merge, so it must walk at least one
     key tile of the longest walk (``q_offset + c`` keys) for each
     MLA_TILE positions of the chunk."""
-    blocks = b * -(-c // (MLA_ROWS // h))
+    blocks = mla_blocks(b, h, c)
     reach = min(-(-t // MLA_TILE), (q_offset + c - 1) // MLA_TILE + 1)
     return max(1, min(reach // -(-c // MLA_TILE), sms // blocks, MLA_MAX_SPLIT))
 
@@ -326,8 +343,9 @@ def _flash_mla_launch(q_abs, row, *, rank, scale, q_offset, nsplit=None):
     t = row.shape[2]
     if d != MLA_HEAD_DIM or row.shape[3] != d or rank != MLA_RANK:
         raise ValueError(f"flash_mla: the kernel takes D = {MLA_HEAD_DIM}, rank {MLA_RANK}; got D {d}, rank {rank}")
-    if MLA_ROWS % h or q_offset < 0:
-        raise ValueError(f"flash_mla: H = {h} must divide {MLA_ROWS}, q_offset {q_offset} >= 0")
+    if (h % MLA_ROWS if h >= MLA_ROWS else MLA_ROWS % h) or q_offset < 0:
+        raise ValueError(f"flash_mla: H = {h} must divide {MLA_ROWS} or be a multiple of it, "
+                         f"q_offset {q_offset} >= 0")
     for name, x in (("q_abs", q_abs), ("row", row)):
         if x.device != q_abs.device:
             raise ValueError(f"flash_mla: {name} on {x.device}, q_abs on {q_abs.device}")

@@ -97,11 +97,14 @@ def flash_decode_plain(
     v_scale: Optional[torch.Tensor] = None,
     rows_per_slot: int = 1,
     sinks: Optional[torch.Tensor] = None,  # [Hkv, R] f32: row r's sink logit
+    chunk: int = 0,  # Llama4's rope layers: keys from the row's own chunk block only
 ) -> torch.Tensor:
     """The masked-einsum attention of decode_step and verify_step (the
     einsum branches at dstack_tpu/serve/engine.py:1196-1224 and
     :1432-1461): the int8 cache dequantized as ``kv_dequant``, f32 scores
-    over the whole row, ``kj <= pos + r % S`` (and the window) masked,
+    over the whole row, ``kj <= pos + r % S`` (and the window, and with
+    ``chunk`` every key before the query's chunk block: engine.py:1207-1210,
+    1443-1445) masked,
     softmax (``sink_softmax`` with sinks), probabilities cast to v's
     dtype before the P·V product → [B, Hkv, R, D]."""
     if k_scale is not None:
@@ -116,6 +119,8 @@ def flash_decode_plain(
     mask = kj <= qpos
     if window:
         mask = mask & (qpos - kj < window)
+    if chunk:
+        mask = mask & (kj >= (qpos // chunk) * chunk)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     if sinks is not None:
         p = sink_softmax(s, sinks.float()[None, :, :, None])
@@ -257,12 +262,14 @@ def flash_decode(
 def flash_decode_supported(config, max_seq: int) -> bool:
     """Whether the engine may route decode attention through the kernel
     for this model: not MLA (its decode attends over the latent row, with
-    no K4 form in either package), a compiled head width and whole GQA
-    groups (the port's configs have no chunked attention). Any number of
-    query rows a KV head and any ``max_seq`` work (the kernel masks a
-    ragged last tile)."""
+    no K4 form in either package), no chunked attention (Llama4: neither
+    package's kernel takes a chunk mask; JAX's check at
+    dstack_tpu/ops/flash_decode.py:283), a compiled head width and whole
+    GQA groups. Any number of query rows a KV head and any ``max_seq``
+    work (the kernel masks a ragged last tile)."""
     return (
         not config.mla
+        and not config.attention_chunk_size
         and config.head_dim in HEAD_DIMS
         and config.n_heads % config.n_kv_heads == 0
         and max_seq > 0

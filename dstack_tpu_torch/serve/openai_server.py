@@ -7,8 +7,9 @@ cuda``, the default) with the byte tokenizer; ``--weights FILE`` overlays
 a fine-tune's ``model_weights.npz`` (the port's or the JAX package's);
 ``--hf-model DIR`` serves a ``save_pretrained`` checkpoint of a model
 type ``models/convert_hf.py`` loads (llama, the Gemma types, qwen2,
-qwen3, mistral, phi3, granite, starcoder2, nemotron, cohere, olmo2, glm,
-glm4) instead (config and weights from the directory, the model named
+qwen3, qwen3_moe, mixtral, gpt_oss, mistral, phi3, granite, starcoder2,
+nemotron, cohere, cohere2, olmo2, glm, glm4, llama4, llama4_text,
+deepseek_v2, deepseek_v3) instead (config and weights from the directory, the model named
 after it), still with the byte tokenizer: an
 HF tokenizer needs the ``tokenizers`` package, which the port does not
 depend on yet. ``--chat-template`` overrides the Llama-3-style default.
@@ -1061,8 +1062,9 @@ def main(argv=None) -> int:
     p.add_argument(
         "--hf-model", default=None,
         help="HF save_pretrained dir (a model type models/convert_hf.py loads: llama, "
-             "gemma*, qwen2/3, mistral, phi3, granite, starcoder2, nemotron, cohere, "
-             "olmo2, glm/glm4): loads the config and weights, overrides --model and --seed",
+             "gemma*, qwen2/3, qwen3_moe, mixtral, gpt_oss, mistral, phi3, granite, "
+             "starcoder2, nemotron, cohere, cohere2, olmo2, glm/glm4, llama4/llama4_text, "
+             "deepseek_v2/v3): loads the config and weights, overrides --model and --seed",
     )
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-batch", type=int, default=8)
@@ -1105,9 +1107,11 @@ def main(argv=None) -> int:
              "cache bytes a decode step reads",
     )
     p.add_argument(
-        "--decode-kernel", default="flash", choices=["flash", "einsum"],
+        "--decode-kernel", default=None, choices=["flash", "einsum"],
         help="decode attention: the ragged flash-decode kernel, or the "
-             "plain masked attention over the whole row (reference)",
+             "plain masked attention over the whole row (reference); by "
+             "default the kernel, but the einsum for a chunked-attention "
+             "model (Llama4), whose chunk mask the kernel does not take",
     )
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")

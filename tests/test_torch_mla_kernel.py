@@ -3,7 +3,9 @@
 The Hopper kernel (``csrc/flash_fwd_mla.cu``) reads the value as the first
 ``rank`` columns of the latent row it reads as the key, packs the query
 heads that share the row into a block's 64 rows (row r is head r / QP,
-position c0 + r % QP, QP = 64 / H), walks 64-key tiles up to its last
+position c0 + r % QP, QP = 64 / H; from H = 64 on, as DeepSeek-V3's 128,
+one position of 64 heads a block, a grid axis picking the head group:
+row r is head g * 64 + r), walks 64-key tiles up to its last
 position's causal frontier and, where ``mla_plan`` splits the keys, cuts
 each block's walk into NSPLIT even shares whose f32 partials a combine
 kernel merges in split order. This file holds:
@@ -40,6 +42,7 @@ TOL = 2e-5
 RANK = tflash.MLA_RANK
 D = tflash.MLA_HEAD_DIM
 SCALE = 192**-0.5  # deepseek-v2-lite's attention_scale (qk_nope + qk_rope = 192)
+V3_SCALE = 192**-0.5 * (0.1 * math.log(40.0) + 1.0) ** 2  # deepseek-v3's, with yarn's mscale²
 NEG_INF = tflash.NEG_INF
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
@@ -147,35 +150,35 @@ def mla_walk(q, row, *, q_offset, nsplit):
     """The kernel's algorithm in f32 → (o [B, H, C, RANK], lse [B, H, C])."""
     b, h, c, _ = q.shape
     t = row.shape[2]
-    qp = tflash.MLA_ROWS // h
+    hb = min(h, tflash.MLA_ROWS)  # heads a block
+    qp = tflash.MLA_ROWS // hb
     r = torch.arange(tflash.MLA_ROWS)
-    heads, local = r // qp, r % qp
     o = torch.zeros(b, h, c, RANK)
     lse = torch.zeros(b, h, c)
-    for bi in range(b):
-        for c0 in range(0, c, qp):
-            cq = c0 + local
-            valid = cq < c  # positions past C are padding rows, read as zeros
-            qt = torch.zeros(tflash.MLA_ROWS, D)
-            qt[valid] = q[bi, heads[valid], cq[valid]]
-            qpos = q_offset + cq
-            last = min(c0 + qp, c) - 1
-            n_all = min(-(-t // tflash.MLA_TILE), (q_offset + last) // tflash.MLA_TILE + 1)
-            parts = [_walk_block(qt, row[bi, 0], qpos, s * n_all // nsplit, (s + 1) * n_all // nsplit, t)
-                     for s in range(nsplit)]
-            if nsplit == 1:  # finished in place
-                m, l, acc = parts[0]
-            else:  # the combine: the splits merged in order
-                m = torch.stack([p[0] for p in parts]).max(dim=0).values
-                l, acc = torch.zeros_like(m), torch.zeros_like(parts[0][2])
-                for ms, ls, accs in parts:
-                    alpha = torch.where(ms <= NEG_INF / 2, torch.zeros_like(ms), torch.exp2(ms - m))
-                    l = l + ls * alpha
-                    acc = acc + accs * alpha[:, None]
-            l_safe = torch.where(l == 0, torch.ones_like(l), l)
-            o[bi, heads[valid], cq[valid]] = (acc / l_safe[:, None])[valid]
-            row_lse = torch.where(l == 0, torch.full_like(l, NEG_INF), (m + torch.log2(l_safe)) * LN2)
-            lse[bi, heads[valid], cq[valid]] = row_lse[valid]
+    for bi, g, c0 in ((bi, g, c0) for bi in range(b) for g in range(h // hb) for c0 in range(0, c, qp)):
+        heads, local = g * hb + r // qp, r % qp
+        cq = c0 + local
+        valid = cq < c  # positions past C are padding rows, read as zeros
+        qt = torch.zeros(tflash.MLA_ROWS, D)
+        qt[valid] = q[bi, heads[valid], cq[valid]]
+        qpos = q_offset + cq
+        last = min(c0 + qp, c) - 1
+        n_all = min(-(-t // tflash.MLA_TILE), (q_offset + last) // tflash.MLA_TILE + 1)
+        parts = [_walk_block(qt, row[bi, 0], qpos, s * n_all // nsplit, (s + 1) * n_all // nsplit, t)
+                 for s in range(nsplit)]
+        if nsplit == 1:  # finished in place
+            m, l, acc = parts[0]
+        else:  # the combine: the splits merged in order
+            m = torch.stack([p[0] for p in parts]).max(dim=0).values
+            l, acc = torch.zeros_like(m), torch.zeros_like(parts[0][2])
+            for ms, ls, accs in parts:
+                alpha = torch.where(ms <= NEG_INF / 2, torch.zeros_like(ms), torch.exp2(ms - m))
+                l = l + ls * alpha
+                acc = acc + accs * alpha[:, None]
+        l_safe = torch.where(l == 0, torch.ones_like(l), l)
+        o[bi, heads[valid], cq[valid]] = (acc / l_safe[:, None])[valid]
+        row_lse = torch.where(l == 0, torch.full_like(l, NEG_INF), (m + torch.log2(l_safe)) * LN2)
+        lse[bi, heads[valid], cq[valid]] = row_lse[valid]
     return o, lse
 
 
@@ -192,9 +195,13 @@ WALKS = [
     (1, 16, 3, 64, 0, 1),  # C < QP: one block with a padding position
     (2, 8, 20, 256, 100, 2),  # H = 8: QP = 8 positions a block; two batch rows
     (1, 32, 9, 192, 150, 3),  # H = 32: QP = 2
+    (1, 128, 16, 256, 100, None),  # H = 128 (DeepSeek-V3): one position of 64 heads a block, two a position
+    (2, 128, 5, 200, 150, 2),  # ... two batch rows, a ragged row, split
+    (1, 192, 3, 128, 61, 1),  # H = 192: three head groups
 ]
 WALK_IDS = ["c256_off512", "c256_off0", "c32_off0", "c40_off260", "c40_off260_split3", "c32_off1792",
-            "ragged_t", "tile_edge_empty_split", "c_below_qp", "h8_b2", "h32"]
+            "ragged_t", "tile_edge_empty_split", "c_below_qp", "h8_b2", "h32", "h128", "h128_b2_split",
+            "h192"]
 
 
 @pytest.mark.parametrize("b,h,c,t,q_offset,nsplit", WALKS, ids=WALK_IDS)
@@ -221,6 +228,10 @@ def test_walk_matches_plain(b, h, c, t, q_offset, nsplit):
         ((1, 16, 128, 2048, 100), 2),  # C = 128: 4 tiles, two a split
         ((4, 16, 256, 2048, 512), 1),  # 256 blocks fill the card unsplit
         ((2, 16, 256, 2048, 512), 1),  # 128 blocks: about one an SM already
+        ((1, 128, 256, 2048, 512), 1),  # DeepSeek-V3's chunk: 512 blocks of one position x 64 heads
+        ((1, 128, 64, 2048, 0), 1),  # 128 blocks over one tile
+        ((1, 128, 16, 2048, 0), 1),  # one tile: nothing to split
+        ((1, 128, 16, 2048, 1792), 4),  # 32 blocks over 29 tiles: 4 splits fill 128 SMs
     ],
 )
 def test_mla_plan(shape, want):
@@ -314,8 +325,9 @@ class TestFlashMLAOnTheCard:
         _mla_close(*tflash.flash_mla_with_lse(q, row, **kw), *tflash.flash_mla_plain(q, row, **kw))
 
     @pytest.mark.parametrize("nsplit", [None, 1])
-    def test_reruns_are_bit_identical(self, cuda, nsplit):
-        q, row = _k1_d576(cuda, 256, 512, seed=2)
+    @pytest.mark.parametrize("h", [16, 128])
+    def test_reruns_are_bit_identical(self, cuda, nsplit, h):
+        q, row = _k1_d576(cuda, 256, 512, seed=2, h=h)
         a = tflash._flash_mla_launch(q, row, rank=512, scale=192**-0.5, q_offset=512, nsplit=nsplit)
         b = tflash._flash_mla_launch(q, row, rank=512, scale=192**-0.5, q_offset=512, nsplit=nsplit)
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
@@ -326,6 +338,27 @@ class TestFlashMLAOnTheCard:
         q, row = (torch.from_numpy(x).to(cuda).bfloat16() for x in _inputs(c + q_offset + h, b, h, c, t))
         kw = dict(rank=RANK, scale=SCALE, q_offset=q_offset)
         _mla_close(*tflash._flash_mla_launch(q, row, nsplit=nsplit, **kw), *tflash.flash_mla_plain(q, row, **kw))
+
+    @pytest.mark.parametrize("nsplit", [None, 1])
+    @pytest.mark.parametrize("chunk,q_offset", [(256, 0), (256, 512), (64, 0), (16, 0), (16, 1792)])
+    def test_v3_heads(self, cuda, chunk, q_offset, nsplit):
+        """DeepSeek-V3's 128 heads at its chunks: a block owns one position
+        of 64 heads, two blocks a position, with the plan's NSPLIT and
+        with none."""
+        q, row = _k1_d576(cuda, chunk, q_offset, seed=chunk + q_offset, h=128)
+        kw = dict(rank=512, scale=V3_SCALE, q_offset=q_offset)
+        before = tflash.LAUNCHES_MLA
+        o, lse = tflash._flash_mla_launch(q, row, nsplit=nsplit, **kw)
+        assert tflash.LAUNCHES_MLA == before + 1 and o.shape == (1, 128, chunk, 512)
+        _mla_close(o, lse, *tflash.flash_mla_plain(q, row, **kw))
+
+    @pytest.mark.parametrize("h,b,c", [(128, 2, 37), (128, 1, 1), (192, 1, 9)])
+    def test_head_groups_at_odd_chunks(self, cuda, h, b, c):
+        """Two batch rows and an odd C at 128 heads, a lone position, and
+        three head groups (192 heads)."""
+        q, row = _k1_d576(cuda, c, 100, t=256, seed=h + c, h=h, b=b)
+        kw = dict(rank=512, scale=V3_SCALE, q_offset=100)
+        _mla_close(*tflash.flash_mla_with_lse(q, row, **kw), *tflash.flash_mla_plain(q, row, **kw))
 
     def test_backward_kernels_refuse_d576(self, cuda):
         q, row = _k1_d576(cuda, 128, 0, t=128, seed=3)

@@ -138,13 +138,6 @@ def test_pad_tokens_take_capacity_from_real_ones():
     assert not torch.allclose(padded, alone, atol=1e-3)
 
 
-@pytest.mark.parametrize("kw", [{"sigmoid": True}])  # Llama4's router; DeepSeek's deltas are ported
-def test_unported_router_branches_raise(kw):
-    x = torch.zeros(1, 4, H)
-    with pytest.raises(NotImplementedError):
-        tmoe.router(x, torch.zeros(H, E), E, 2, 4, **kw)
-
-
 @pytest.mark.parametrize("topk_softmax", [False, True])
 def test_router_with_given_choices(topk_softmax):
     # given its own top-k choices the router reproduces its routing; given

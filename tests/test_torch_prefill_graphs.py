@@ -3,7 +3,9 @@
 
 - The prefill functions with their varying scalars as ``[1]`` device
   tensors (JAX traces them): ``prefill_chunk_step`` on the f32, int8 and
-  MLA caches at slots other than 0 (one out of range: both clamp it) and
+  MLA caches and a tiny Llama4 (a NoPE layer whose query temperature
+  reads the chunk's positions, 16-token attention chunks) at slots other
+  than 0 (one out of range: both clamp it) and
   at several ``last_ix`` (-1 counts from the end; one past the end gives
   NaN logits in both), ``prefill_packed_step``
   with a pad row, ``copy_cache_prefix`` and ``_mark_prompt`` against the
@@ -17,7 +19,7 @@
 - The compile accounting: the JAX engine and the port's, each warmed by
   its own server's ``_warmup_engine``, serve prompts of 40, 300 and 700
   tokens, a prefix hit and bursts of 3 and of 4 at unequal lengths, on
-  the f32 (the bf16 cache's form), int8 and MLA caches, with the same
+  the f32 (the bf16 cache's form), int8 and MLA caches and Llama4, with the same
   tokens. On the prefill sites their manifests, their compile events by
   site and key and their compile, recompile, warmup-gap and cache-entry
   series are equal, the gaps of the keys JAX's grid leaves cold included.
@@ -52,10 +54,19 @@ ATOL = 1e-4  # f32 logits end to end
 KV_TOL = 1e-5  # the chunk's own K/V: one projection and a rope in f32
 PREFILL_SITES = ("chunk", "packed", "copy", "mark_prompt")
 MLA = dataclasses.replace(jllama.MLA_TINY, n_layers=2), dataclasses.replace(tllama.MLA_TINY, n_layers=2)
+# Llama4's deltas at LLAMA_TINY_64's widths: layer 1 NoPE with its query
+# temperature (moving every 8 positions), 16-token attention chunks, the
+# L2 q/k norm, the sigmoid-input router
+_LLAMA4 = dict(vocab_size=512, hidden_size=128, n_layers=2, n_heads=2, n_kv_heads=1, head_dim=64,
+               intermediate_size=256, max_seq_len=256, remat=False, n_experts=4, nope_pattern=2,
+               attention_chunk_size=16, attn_temp_floor=8.0)
+LLAMA4 = (dataclasses.replace(jllama.LLAMA4_SCOUT, dtype=jnp.float32, **_LLAMA4),
+          dataclasses.replace(tllama.LLAMA4_SCOUT, dtype=torch.float32, **_LLAMA4))
 CONFIGS = {  # cache kind → (JAX config, port config, kv_quant)
     "f32": (jllama.LLAMA_TINY_64, tllama.LLAMA_TINY_64, None),
     "int8": (jllama.LLAMA_TINY_64, tllama.LLAMA_TINY_64, "int8"),
     "mla": (*MLA, None),
+    "llama4": (*LLAMA4, None),
 }
 B, T, C = 4, 64, 16  # the function tests' cache and chunk
 
