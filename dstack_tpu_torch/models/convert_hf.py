@@ -42,6 +42,13 @@ raw little-endian bytes of each tensor), so the port needs no
 ``safetensors`` package; ``.bin`` shards go through
 ``torch.load(weights_only=True)``, as JAX reads them.
 
+The export is the inverse (convert_hf.py:954-1410): :func:`config_to_hf`
+and :func:`export_state_dict` give JAX's ``config.json`` and tensor names
+for every family HF can express (gpt-oss and an int8 tree are refused, as
+JAX refuses them), and :func:`save_checkpoint` writes a ``save_pretrained``
+directory with a bf16 ``model.safetensors`` by :func:`write_safetensors`,
+the reader's counterpart; ``finetune --export-hf`` calls it.
+
 Layout: an HF ``*_proj.weight`` is ``[out, in]`` (``nn.Linear``), the
 port's projections ``[in, out]``: transposed on load. HF llama-family
 checkpoints already use the rotate-half rope convention; Cohere's and
@@ -58,7 +65,8 @@ import torch
 
 from dstack_tpu_torch.models.llama import LlamaConfig
 
-__all__ = ["config_from_hf", "convert_state_dict", "load_checkpoint", "read_safetensors"]
+__all__ = ["config_from_hf", "config_to_hf", "convert_state_dict", "export_state_dict", "load_checkpoint",
+           "read_safetensors", "save_checkpoint", "write_safetensors"]
 
 SUPPORTED = ("llama", "gemma", "gemma2", "gemma3", "gemma3_text", "qwen2", "qwen3", "qwen3_moe",
              "mixtral", "gpt_oss", "mistral", "phi3", "granite", "starcoder2", "nemotron", "cohere",
@@ -784,3 +792,407 @@ def load_checkpoint(path, dtype: Any = torch.bfloat16, device="cpu") -> tuple[Ll
         params = {k: ({n: w.to(device) for n, w in v.items()} if isinstance(v, dict) else v.to(device))
                   for k, v in params.items()}
     return config, params
+
+
+# ---------------------------------------------------------------------------
+# export: the port's parameter dict → an HF save_pretrained directory
+# (dstack_tpu/models/convert_hf.py:954-1410)
+# ---------------------------------------------------------------------------
+
+
+def config_to_hf(config: LlamaConfig) -> dict:
+    """:class:`LlamaConfig` → HF ``config.json`` dict, the inverse of
+    :func:`config_from_hf` for the families HF can express (JAX's
+    ``config_to_hf``, convert_hf.py:954-1209, with its gpt-oss and
+    cohere2 refusals)."""
+    from dstack_tpu_torch.models.llama import layer_nope, layer_windows
+
+    c = config
+    if c.attn_sinks or c.moe_bias or c.router_topk_softmax:
+        # the generic MoE branch would tag this "mixtral" and drop the
+        # sinks, the expert biases and the router's semantics
+        raise ValueError(
+            "gpt-oss configs (attention sinks / biased experts / "
+            "topk-softmax router) cannot be exported as an HF "
+            "checkpoint yet"
+        )
+    hf = {
+        "hidden_act": "gelu_pytorch_tanh" if c.hidden_act == "gelu_tanh" else "silu",
+        "vocab_size": c.vocab_size,
+        "hidden_size": c.hidden_size,
+        "num_hidden_layers": c.n_layers,
+        "num_attention_heads": c.n_heads,
+        "num_key_value_heads": c.n_kv_heads,
+        "head_dim": c.head_dim,
+        "intermediate_size": c.intermediate_size,
+        "rope_theta": c.rope_theta,
+        "rms_norm_eps": c.norm_eps,
+        "max_position_embeddings": c.max_seq_len,
+        "tie_word_embeddings": c.tie_embeddings,
+        "torch_dtype": "bfloat16",
+    }
+    if c.rope_scaling is not None and c.rope_scaling[0] == "linear":
+        hf["rope_scaling"] = {"rope_type": "linear", "factor": float(c.rope_scaling[1])}
+    elif c.rope_scaling is not None and c.rope_scaling[0] == "yarn":
+        _, factor, beta_fast, beta_slow, orig, att = c.rope_scaling[:6]
+        hf["rope_scaling"] = {
+            "rope_type": "yarn",
+            "factor": factor,
+            "beta_fast": beta_fast,
+            "beta_slow": beta_slow,
+            "original_max_position_embeddings": int(orig),
+            "attention_factor": att,  # resolved; HF reads it directly
+        }
+        if len(c.rope_scaling) > 6:  # gpt-oss: truncate=false round trip
+            hf["rope_scaling"]["truncate"] = bool(c.rope_scaling[6])
+    elif c.rope_scaling is not None:
+        rs = c.rope_scaling
+        factor, low_f, high_f, orig = rs[1:] if rs[0] == "llama3" else rs
+        hf["rope_scaling"] = {
+            "rope_type": "llama3",
+            "factor": factor,
+            "low_freq_factor": low_f,
+            "high_freq_factor": high_f,
+            "original_max_position_embeddings": int(orig),
+        }
+    if c.mla:
+        v3 = c.router_score == "sigmoid"
+        hf.update(
+            model_type="deepseek_v3" if v3 else "deepseek_v2",
+            head_dim=c.qk_rope_head_dim,  # HF's rope width for DeepSeek
+            q_lora_rank=c.q_lora_rank or None,
+            kv_lora_rank=c.kv_lora_rank,
+            qk_nope_head_dim=c.qk_nope_head_dim,
+            qk_rope_head_dim=c.qk_rope_head_dim,
+            v_head_dim=c.v_head_dim,
+        )
+        if (v3 or _v2_mscale_fix()) and c.attn_scale is not None and "rope_scaling" in hf:
+            # the mscale² softmax-scale correction back into mscale_all_dim,
+            # so HF applies it again and the loader derives attn_scale again
+            factor = hf["rope_scaling"]["factor"]
+            ms = math.sqrt(c.attn_scale * c.qk_head_dim**0.5)
+            hf["rope_scaling"]["mscale_all_dim"] = (ms - 1.0) / (0.1 * math.log(factor))
+        if c.n_experts:
+            shared = c.moe_shared_intermediate // c.intermediate_size if c.moe_shared_expert else None
+            hf.update(
+                n_routed_experts=c.n_experts,
+                num_experts_per_tok=c.experts_per_token,
+                moe_intermediate_size=c.intermediate_size,
+                intermediate_size=c.dense_intermediate or c.intermediate_size,
+                first_k_dense_replace=c.first_k_dense,
+                moe_layer_freq=1,
+                n_shared_experts=shared,
+                norm_topk_prob=c.router_renorm,
+                routed_scaling_factor=c.routed_scale,
+            )
+            if v3:
+                hf.update(
+                    n_group=c.router_groups[0] if c.router_groups else 1,
+                    topk_group=c.router_groups[1] if c.router_groups else 1,
+                )
+            else:
+                hf.update(
+                    topk_method="group_limited_greedy" if c.router_groups else "greedy",
+                    n_group=c.router_groups[0] if c.router_groups else None,
+                    topk_group=c.router_groups[1] if c.router_groups else None,
+                )
+        else:  # all-dense MLA: no layer reaches the MoE branch
+            hf.update(first_k_dense_replace=c.n_layers, n_routed_experts=None)
+        return hf
+    if not c.pre_norm:
+        hf.update(model_type="olmo2")
+        return hf
+    if c.embed_multiplier or c.residual_multiplier:
+        hf.update(
+            model_type="granite",
+            embedding_multiplier=c.embed_multiplier or 1.0,
+            residual_multiplier=c.residual_multiplier or 1.0,
+            # None means 1/sqrt(head_dim): the real value keeps the softmax
+            # scale through a save and a load
+            attention_multiplier=c.attn_scale if c.attn_scale is not None else c.qk_head_dim**-0.5,
+            logits_scaling=(1.0 / c.logit_scale) if c.logit_scale else 1.0,
+        )
+        return hf
+    if c.parallel_block:
+        if c.sliding_window:
+            if c.qk_norm or c.nope_pattern != c.sliding_pattern:
+                raise ValueError(
+                    "cohere2 export requires nope_pattern == "
+                    "sliding_pattern and no qk_norm (the HF config "
+                    "cannot express other layouts)"
+                )
+            hf.update(
+                model_type="cohere2",
+                layer_norm_eps=c.norm_eps,
+                logit_scale=c.logit_scale,
+                sliding_window=c.sliding_window,
+                sliding_window_pattern=c.sliding_pattern,
+                layer_types=["sliding_attention" if w else "full_attention" for w in layer_windows(c)],
+            )
+        else:
+            hf.update(model_type="cohere", layer_norm_eps=c.norm_eps, logit_scale=c.logit_scale,
+                      use_qk_norm=c.qk_norm)
+        return hf
+    if c.norm_type == "layernorm_bias":
+        hf.update(model_type="starcoder2", norm_epsilon=c.norm_eps, use_bias=c.proj_bias,
+                  sliding_window=c.sliding_window or None)
+        return hf
+    if c.norm_type == "layernorm1p":
+        hf.update(model_type="nemotron", norm_eps=c.norm_eps, partial_rotary_factor=c.partial_rotary)
+        hf["hidden_act"] = "relu2"
+        return hf
+    if c.partial_rotary != 1.0:
+        hf.update(model_type="glm4" if c.post_norms else "glm", attention_bias=c.qkv_bias,
+                  partial_rotary_factor=c.partial_rotary)
+        return hf
+    if c.rope_interleaved:
+        hf.update(
+            model_type="llama4_text",
+            no_rope_layers=[0 if n else 1 for n in layer_nope(c)],
+            attention_chunk_size=c.attention_chunk_size or None,
+            use_qk_norm=c.qk_l2_norm,
+            attn_temperature_tuning=bool(c.attn_temp_scale),
+            attn_scale=c.attn_temp_scale or 0.1,
+            floor_scale=c.attn_temp_floor,
+            num_local_experts=c.n_experts,
+            num_experts_per_tok=c.experts_per_token,
+            interleave_moe_layer_step=1,
+            intermediate_size_mlp=c.intermediate_size,
+        )
+    elif c.n_experts and c.qk_norm:
+        hf.update(
+            model_type="qwen3_moe",
+            num_experts=c.n_experts,
+            num_experts_per_tok=c.experts_per_token,
+            moe_intermediate_size=c.intermediate_size,
+            norm_topk_prob=c.router_renorm,
+            attention_bias=c.qkv_bias,
+        )
+    elif c.n_experts:
+        hf.update(model_type="mixtral", num_local_experts=c.n_experts, num_experts_per_tok=c.experts_per_token)
+    elif c.rope_local_theta:
+        hf.update(
+            model_type="gemma3_text",
+            sliding_window=c.sliding_window or None,
+            sliding_window_pattern=c.sliding_pattern or None,
+            layer_types=["sliding_attention" if w else "full_attention" for w in layer_windows(c)],
+            rope_local_base_freq=c.rope_local_theta,
+            query_pre_attn_scalar=round(c.attn_scale**-2) if c.attn_scale else c.head_dim,
+        )
+    elif c.post_norms:
+        hf.update(
+            model_type="gemma2",
+            sliding_window=c.sliding_window or None,
+            attn_logit_softcapping=c.attn_softcap or None,
+            final_logit_softcapping=c.logit_softcap or None,
+            query_pre_attn_scalar=round(c.attn_scale**-2) if c.attn_scale else c.head_dim,
+        )
+    elif c.norm_offset:
+        hf.update(model_type="gemma")
+    elif c.qk_norm:
+        hf.update(model_type="qwen3", attention_bias=c.qkv_bias)
+    elif c.qkv_bias:
+        hf.update(model_type="qwen2")
+        if c.sliding_window:
+            hf.update(use_sliding_window=True, sliding_window=c.sliding_window, max_window_layers=0)
+    elif c.sliding_window:
+        hf.update(model_type="mistral", sliding_window=c.sliding_window)
+    else:
+        hf.update(model_type="llama")
+    return hf
+
+
+def export_state_dict(params: dict, config: LlamaConfig) -> dict:
+    """The port's parameter dict → a flat HF state dict of CPU tensors in
+    the leaves' own dtypes, the inverse of :func:`convert_state_dict` (JAX's
+    ``export_state_dict``, convert_hf.py:1210-1323), so fine-tuned weights
+    serve wherever HF checkpoints do. An int8 tree is refused."""
+    from dstack_tpu_torch.models.quant import is_quantized
+
+    if is_quantized(params):
+        raise ValueError("export requires full-precision params, not int8")
+    c = config
+    mt = config_to_hf(c)["model_type"]
+    if mt in ("deepseek_v2", "deepseek_v3"):
+        return _export_deepseek(params, c)
+    gemma2 = mt in ("gemma2", "gemma3_text", "glm4")
+
+    def host(x):
+        return x.detach().cpu()
+
+    sd: dict = {"model.embed_tokens.weight": host(params["embed"])}
+    L = params["layers"]
+    for i in range(c.n_layers):
+        P = f"model.layers.{i}."
+        sd[P + "self_attn.q_proj.weight"] = host(L["wq"][i]).t()
+        sd[P + "self_attn.k_proj.weight"] = host(L["wk"][i]).t()
+        sd[P + "self_attn.v_proj.weight"] = host(L["wv"][i]).t()
+        sd[P + "self_attn.o_proj.weight"] = host(L["wo"][i]).t()
+        if c.pre_norm:
+            sd[P + "input_layernorm.weight"] = host(L["attn_norm"][i])
+            if not c.parallel_block:  # Cohere's one norm is attn_norm
+                mlp_norm_name = "pre_feedforward_layernorm.weight" if gemma2 else "post_attention_layernorm.weight"
+                sd[P + mlp_norm_name] = host(L["mlp_norm"][i])
+        if c.qkv_bias:
+            sd[P + "self_attn.q_proj.bias"] = host(L["bq"][i])
+            sd[P + "self_attn.k_proj.bias"] = host(L["bk"][i])
+            sd[P + "self_attn.v_proj.bias"] = host(L["bv"][i])
+        if c.proj_bias:
+            sd[P + "self_attn.o_proj.bias"] = host(L["bo"][i])
+            sd[P + "mlp.up_proj.bias"] = host(L["b_up"][i])
+            sd[P + "mlp.down_proj.bias"] = host(L["b_down"][i])
+        if c.qk_norm or c.qk_norm_flat:
+            sd[P + "self_attn.q_norm.weight"] = host(L["q_norm"][i])
+            sd[P + "self_attn.k_norm.weight"] = host(L["k_norm"][i])
+        if c.post_norms:
+            sd[P + "post_attention_layernorm.weight"] = host(L["attn_post_norm"][i])
+            sd[P + "post_feedforward_layernorm.weight"] = host(L["mlp_post_norm"][i])
+        if c.n_experts and mt == "llama4_text":
+            # the fused, pre-stacked layout (convert_state_dict)
+            F_ = P + "feed_forward."
+            sd[F_ + "router.weight"] = host(L["w_router"][i]).t()
+            sd[F_ + "experts.gate_up_proj"] = torch.cat([host(L["w_gate"][i]), host(L["w_up"][i])], dim=-1)
+            sd[F_ + "experts.down_proj"] = host(L["w_down"][i])
+            SE = F_ + "shared_expert."
+            sd[SE + "gate_proj.weight"] = host(L["w_shared_gate"][i]).t()
+            sd[SE + "up_proj.weight"] = host(L["w_shared_up"][i]).t()
+            sd[SE + "down_proj.weight"] = host(L["w_shared_down"][i]).t()
+        elif c.n_experts:
+            router, eprefix, (g, u, d) = _MOE_NAMES.get(mt, _MOE_NAMES["mixtral"])
+            sd[P + router] = host(L["w_router"][i]).t()
+            for e in range(c.n_experts):
+                E = P + f"{eprefix}.{e}."
+                sd[E + f"{g}.weight"] = host(L["w_gate"][i][e]).t()
+                sd[E + f"{u}.weight"] = host(L["w_up"][i][e]).t()
+                sd[E + f"{d}.weight"] = host(L["w_down"][i][e]).t()
+        else:
+            if not c.mlp_gateless:
+                sd[P + "mlp.gate_proj.weight"] = host(L["w_gate"][i]).t()
+            sd[P + "mlp.up_proj.weight"] = host(L["w_up"][i]).t()
+            sd[P + "mlp.down_proj.weight"] = host(L["w_down"][i]).t()
+    sd["model.norm.weight"] = host(params["final_norm"])
+    if c.norm_type in ("layernorm1p", "layernorm_bias"):
+        # the stacked (scale, bias) rows back into HF's two names
+        stacked = [n for n in sd if n.endswith("layernorm.weight")]
+        for n in stacked + ["model.norm.weight"]:
+            wb = sd.pop(n)
+            sd[n] = wb[0]
+            sd[n[: -len(".weight")] + ".bias"] = wb[1]
+    if c.norm_type == "layernorm_bias":
+        # back to StarCoder2's c_fc/c_proj MLP names
+        for i in range(c.n_layers):
+            P = f"model.layers.{i}.mlp."
+            for suff in ("weight", "bias"):
+                if P + f"up_proj.{suff}" in sd:
+                    sd[P + f"c_fc.{suff}"] = sd.pop(P + f"up_proj.{suff}")
+                if P + f"down_proj.{suff}" in sd:
+                    sd[P + f"c_proj.{suff}"] = sd.pop(P + f"down_proj.{suff}")
+    if not c.tie_embeddings:
+        sd["lm_head.weight"] = host(params["lm_head"]).t()
+    if mt in ("glm", "glm4"):
+        # the inverse of _split_glm: gate and up fused again, glm4's norm names
+        for i in range(c.n_layers):
+            P = f"model.layers.{i}."
+            sd[P + "mlp.gate_up_proj.weight"] = torch.cat(
+                [sd.pop(P + "mlp.gate_proj.weight"), sd.pop(P + "mlp.up_proj.weight")], dim=0
+            )
+            if mt == "glm4":
+                attn_post = sd.pop(P + "post_attention_layernorm.weight")
+                pre_mlp = sd.pop(P + "pre_feedforward_layernorm.weight")
+                mlp_post = sd.pop(P + "post_feedforward_layernorm.weight")
+                sd[P + "post_self_attn_layernorm.weight"] = attn_post
+                sd[P + "post_attention_layernorm.weight"] = pre_mlp
+                sd[P + "post_mlp_layernorm.weight"] = mlp_post
+    return sd
+
+
+def _export_deepseek(params: dict, c: LlamaConfig) -> dict:
+    """The inverse of :func:`_convert_deepseek` (JAX's ``_export_deepseek``,
+    convert_hf.py:1324-1383): flat HF names, CPU tensors."""
+
+    def host(x):
+        return x.detach().cpu()
+
+    sd: dict = {"model.embed_tokens.weight": host(params["embed"])}
+
+    def put_layer(row: dict, i: int, moe: bool) -> None:
+        P = f"model.layers.{i}."
+        A = P + "self_attn."
+        sd[P + "input_layernorm.weight"] = host(row["attn_norm"])
+        sd[P + "post_attention_layernorm.weight"] = host(row["mlp_norm"])
+        sd[A + "kv_a_proj_with_mqa.weight"] = host(row["wkv_a"]).t()
+        sd[A + "kv_a_layernorm.weight"] = host(row["kv_a_norm"])
+        sd[A + "kv_b_proj.weight"] = host(row["wkv_b"]).t()
+        sd[A + "o_proj.weight"] = host(row["wo"]).t()
+        if c.q_lora_rank:
+            sd[A + "q_a_proj.weight"] = host(row["wq_a"]).t()
+            sd[A + "q_a_layernorm.weight"] = host(row["q_a_norm"])
+            sd[A + "q_b_proj.weight"] = host(row["wq_b"]).t()
+        else:
+            sd[A + "q_proj.weight"] = host(row["wq"]).t()
+        if moe:
+            sd[P + "mlp.gate.weight"] = host(row["w_router"]).t()
+            if c.router_bias:
+                sd[P + "mlp.gate.e_score_correction_bias"] = host(row["router_bias"])
+            for e in range(c.n_experts):
+                E = P + f"mlp.experts.{e}."
+                sd[E + "gate_proj.weight"] = host(row["w_gate"][e]).t()
+                sd[E + "up_proj.weight"] = host(row["w_up"][e]).t()
+                sd[E + "down_proj.weight"] = host(row["w_down"][e]).t()
+            if c.moe_shared_expert:
+                S = P + "mlp.shared_experts."
+                sd[S + "gate_proj.weight"] = host(row["w_shared_gate"]).t()
+                sd[S + "up_proj.weight"] = host(row["w_shared_up"]).t()
+                sd[S + "down_proj.weight"] = host(row["w_shared_down"]).t()
+        else:
+            sd[P + "mlp.gate_proj.weight"] = host(row["w_gate"]).t()
+            sd[P + "mlp.up_proj.weight"] = host(row["w_up"]).t()
+            sd[P + "mlp.down_proj.weight"] = host(row["w_down"]).t()
+
+    K = c.first_k_dense
+    for j in range(K):
+        put_layer({n: w[j] for n, w in params["dense_layers"].items()}, j, False)
+    for j in range(c.n_layers - K):
+        put_layer({n: w[j] for n, w in params["layers"].items()}, K + j, bool(c.n_experts))
+    sd["model.norm.weight"] = host(params["final_norm"])
+    if not c.tie_embeddings:
+        sd["lm_head.weight"] = host(params["lm_head"]).t()
+    return sd
+
+
+def write_safetensors(tensors: dict, path, metadata: Optional[dict] = None) -> None:
+    """Write ``{name: tensor}`` as one ``.safetensors`` file, the format
+    :func:`read_safetensors` reads: the header's JSON padded with spaces to
+    a multiple of 8 bytes, then each tensor's C-ordered little-endian bytes
+    back to back, in name order. The port needs no ``safetensors``
+    package."""
+    inv = {dtype: tag for tag, dtype in _ST_DTYPES.items()}
+    names = sorted(tensors)
+    header: dict = {"__metadata__": metadata} if metadata else {}
+    offset = 0
+    for name in names:
+        t = tensors[name]
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": inv[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for name in names:
+            t = tensors[name].detach().cpu().contiguous()
+            if t.numel():
+                f.write(t.reshape(-1).view(torch.uint8).numpy().data)
+
+
+def save_checkpoint(config: LlamaConfig, params: dict, path) -> None:
+    """Write an HF ``save_pretrained``-compatible directory: ``config.json``
+    and a bf16 ``model.safetensors`` (JAX's ``save_checkpoint``,
+    convert_hf.py:1384-1410; every tensor in bf16, as there)."""
+    p = Path(path)
+    p.mkdir(parents=True, exist_ok=True)
+    (p / "config.json").write_text(json.dumps(config_to_hf(config), indent=2))
+    sd = export_state_dict(params, config)
+    write_safetensors({k: v.to(torch.bfloat16) for k, v in sd.items()}, p / "model.safetensors",
+                      metadata={"format": "pt"})

@@ -65,6 +65,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from dstack_tpu_torch.ops import w8_matmul
 from dstack_tpu_torch.ops.attention import attention
 
 @dataclass(frozen=True)
@@ -998,9 +999,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, interleave
 def _proj(layer: dict, name: str, inp: torch.Tensor) -> torch.Tensor:
     """Base projection plus the LoRA bypass ``x·W + s·(x·A)·B`` when the
     layer carries ``{name}_lora_a``/``_lora_b`` (dstack_tpu/models/
-    llama.py:1105-1126; the int8 weights are not ported yet). Plain large
-    products, so they stay ``torch.matmul`` as JAX leaves them to XLA."""
-    y = torch.matmul(inp, layer[name])
+    llama.py:1105-1126). A full-precision base is a plain large product,
+    so it stays ``torch.matmul`` as JAX leaves it to XLA; an int8 base
+    (``{name}_q`` and its per-output-channel scale ``{name}_s`` in place of
+    ``name``, models/quant.py) goes through W8 (``ops/w8_matmul.py``),
+    which reads the int8 bytes once. The bypass adds to either."""
+    w = layer.get(name)
+    y = torch.matmul(inp, w) if w is not None else w8_matmul.w8_proj(inp, layer[f"{name}_q"], layer[f"{name}_s"])
     a, b = layer.get(f"{name}_lora_a"), layer.get(f"{name}_lora_b")
     if a is not None and b is not None:
         y = y + torch.matmul(torch.matmul(inp, a), b) * layer["lora_scale"]
@@ -1041,7 +1046,10 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def lm_head_weight(params: dict, config: LlamaConfig) -> torch.Tensor:
     """The [E, V] output head: the tied embedding's transpose or
-    ``lm_head``, in the model dtype."""
+    ``lm_head``, in the model dtype. Training reads it; an int8 head
+    (``lm_head_q``) serves only and is refused."""
+    if "lm_head_q" in params:
+        raise ValueError("an int8 weight tree (models/quant.py) serves only: the JAX package trains no int8 tree")
     head = params["embed"].t() if config.tie_embeddings else params["lm_head"]
     return head.to(config.dtype)
 
@@ -1229,8 +1237,14 @@ def _head_logits(params: dict, x: torch.Tensor, c: LlamaConfig) -> torch.Tensor:
     """Post-final-norm hidden [..., E] → f32 logits [..., V] over the tied
     embedding or ``lm_head`` (``head_logits_einsum`` with
     ``preferred_element_type=f32``), times Cohere's and Granite's logit
-    scale, then Gemma2's tanh cap (``_lm_head``, llama.py:1376-1396)."""
-    logits = matmul_f32(x, lm_head_weight(params, c))
+    scale, then Gemma2's tanh cap (``_lm_head``, llama.py:1376-1396). An
+    int8 head (``lm_head_q``, ``lm_head_s``) takes W8's head form: the f32
+    product times the f32 scales, before the logit scale and the cap
+    (``head_logits_einsum``, llama.py:1400-1420)."""
+    if "lm_head_q" in params:
+        logits = w8_matmul.w8_head(x, params["lm_head_q"], params["lm_head_s"])
+    else:
+        logits = matmul_f32(x, lm_head_weight(params, c))
     if c.logit_scale:
         logits = logits * c.logit_scale
     if c.logit_softcap:

@@ -18,7 +18,9 @@ the expert FFNs are batched matmuls over the stacked expert axis, and
 the combine is a gather: the same arithmetic without the one-hot
 products. The FFNs still run on every expert's ``C`` slots, used or
 not, so a step reads every expert's weights, as JAX's dense form does.
-The JAX module has no Pallas kernel, so this is plain PyTorch.
+The JAX module has no Pallas kernel, so this is plain PyTorch, but for
+an int8 tree's expert stacks (models/quant.py), whose products go
+through W8's expert form (ops/w8_matmul.py).
 
 Ported branches: the softmax top-k router (optionally renormalized),
 the gpt-oss router (a linear layer with an f32 logit bias, selecting by
@@ -51,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from dstack_tpu_torch.models.llama import _proj, matmul_f32
+from dstack_tpu_torch.ops import w8_matmul
 
 
 def expert_capacity(
@@ -185,6 +188,17 @@ def _oai_glu(g: torch.Tensor, u: torch.Tensor, limit: float) -> torch.Tensor:
     return (u + 1.0) * (g * torch.sigmoid(1.702 * g))
 
 
+def _experts(x: torch.Tensor, layer: dict, name: str) -> torch.Tensor:
+    """The batched expert product x [E, M, K] · ``layer[name]`` [E, K, N],
+    or with the int8 stack (``{name}_q`` and its scales ``{name}_s`` [E,
+    N], models/quant.py) W8's expert form: each output channel scaled
+    before any expert bias, as JAX's ``qw`` products (moe.py:183-232)."""
+    w = layer.get(name)
+    if w is not None:
+        return torch.matmul(x, w)
+    return w8_matmul.w8_experts(x, layer[f"{name}_q"], layer[f"{name}_s"])
+
+
 def moe_mlp(
     x: torch.Tensor,  # [B, T, H]: the normed hidden states
     layer: dict,  # w_router [H,E], w_gate/w_up [E,H,F], w_down [E,F,H] (+ biases)
@@ -236,13 +250,13 @@ def moe_mlp(
     xe = x.new_zeros(dump + 1, h)
     xe.index_copy_(0, row.reshape(-1), rows.reshape(-1, h))
     xe = xe[:dump].view(e, b * cap, h)
-    g = torch.matmul(xe, layer["w_gate"])  # [E, B*C, F]
-    u = torch.matmul(xe, layer["w_up"])
+    g = _experts(xe, layer, "w_gate")  # [E, B*C, F]
+    u = _experts(xe, layer, "w_up")
     if "b_gate" in layer:  # gpt-oss expert biases [E, F]
         g = g + layer["b_gate"][:, None, :].to(g.dtype)
         u = u + layer["b_up_e"][:, None, :].to(u.dtype)
     inner = _oai_glu(g, u, act_limit) if act == "oai_glu" else F.silu(g) * u
-    y = torch.matmul(inner, layer["w_down"])  # [E, B*C, H]
+    y = _experts(inner, layer, "w_down")  # [E, B*C, H]
     if "b_down_e" in layer:
         y = y + layer["b_down_e"][:, None, :].to(y.dtype)
     y = torch.cat([y.reshape(dump, h), y.new_zeros(1, h)])
@@ -250,7 +264,7 @@ def moe_mlp(
     # a dropped choice picked the zero row; with sigmoid_input the combine is unweighted
     weighted = picked.float() if sigmoid_input else picked.float() * combine.float()[..., None]
     out = weighted.sum(dim=2).to(x.dtype)
-    if "w_shared_gate" in layer:
+    if "w_shared_gate" in layer or "w_shared_gate_q" in layer:
         inner = F.silu(_proj(layer, "w_shared_gate", x)) * _proj(layer, "w_shared_up", x)
         out = out + _proj(layer, "w_shared_down", inner)
     return (out, aux[0]) if return_aux else out

@@ -19,12 +19,12 @@ Deltas from it:
 - ``decode_kernel`` is the engine's: ``"flash"`` (K4) when the argument
   is None and K4 takes the model, as the port's engine defaults to it
   (JAX's default is its einsum), else ``"einsum"``;
-- ``extra`` adds ``kernel_launches``: the launches of K1, K1's MLA form
-  and K4 (by form) during the timed sections, as ``/health`` reports
-  them (0 on the CPU, where the plain versions run), and ``timed_steps``:
-  the engine's dispatch counts over the same sections, so that K4's
-  launches can be held to n_layers x (plain + verify + turbo device
-  steps); ``host``: what the host did over the same sections (wall
+- ``extra`` adds ``kernel_launches``: the launches of K1, K1's MLA form,
+  K4 (by form) and W8 (by form) during the timed sections, as
+  ``/health`` reports them (0 on the CPU, where the plain versions run),
+  and ``timed_steps``: the engine's dispatch counts over the same
+  sections, so that K4's launches can be held to n_layers x (plain +
+  verify + turbo device steps); ``host``: what the host did over the same sections (wall
   seconds, the CPU seconds of this process and of the engine's thread,
   garbage collections and their seconds); ``graphs``: whether the
   engine's decode-side steps ran as CUDA graphs (``serve/graphs.py``;
@@ -33,9 +33,14 @@ Deltas from it:
   (``graph_sites``), and the variants first compiled inside the timed
   sections (``timed_compiles``: 0 when the warmup covered them); and the
   card's name and power limit (``utils/backend.py``);
+- ``--quantize int8`` serves a random int8 tree (``models/quant.py``):
+  ``random_quantized_params`` on the host with ``--device cpu``, else
+  ``random_quantized_params_on_device`` drawn on the card, so a model too
+  large for the card in bf16 (llama-3-70b) runs at full depth; its
+  products go through W8 (``ops/w8_matmul.py``), whose launches by form
+  ``kernel_launches`` adds;
 - ``--sessions`` and its flags (``run_session_bench``) need ``routing/``
-  and come with ROADMAP A4; ``--quantize int8`` (int8 weights) comes with
-  A3.5. Both are refused.
+  and come with ROADMAP A4, and are refused.
 
 The host clock around ``step()`` and the clock up to a slot's activation
 include the device's work only because each ends in a device-to-host
@@ -53,7 +58,7 @@ import numpy as np
 import torch
 
 from dstack_tpu_torch.loadgen.textgen import repetitive_prompts, token_prompts
-from dstack_tpu_torch.models import llama
+from dstack_tpu_torch.models import llama, quant
 from dstack_tpu_torch.ops import cuda_build, flash_decode
 from dstack_tpu_torch.serve.engine import (
     GenParams,
@@ -134,6 +139,8 @@ class _Timed:
             "flash_decode_by_variant": {
                 k[len("flash_decode_"):]: v for k, v in lc.items() if k.startswith("flash_decode_")
             },
+            "w8_matmul": lc["w8_matmul"],
+            "w8_matmul_by_form": {k[len("w8_matmul_"):]: v for k, v in lc.items() if k.startswith("w8_matmul_")},
         }
 
 
@@ -213,8 +220,6 @@ def run_bench(
     graphs: bool = True,  # False: the eager engine on the card (the reference)
 ) -> dict:
     """Measure the engine directly → result dict (the importable core)."""
-    if quantize is not None:
-        raise ValueError(f"quantize={quantize!r}: int8 weights come with ROADMAP A3.5")
     dev = resolve_device(device)
     config = llama.CONFIGS[model]
     if arrival_burst and arrival_burst > batch:
@@ -224,7 +229,12 @@ def run_bench(
         )
     if dev.type == "cuda":
         cuda_build.build_all()  # a no-op where the libraries exist
-    params = llama.init_params(config, torch.Generator(device=dev).manual_seed(0), device=dev)
+    if quantize == "int8" and dev.type == "cpu":
+        params = quant.random_quantized_params(config)
+    elif quantize == "int8":
+        params = quant.random_quantized_params_on_device(config, device=dev)
+    else:
+        params = llama.init_params(config, torch.Generator(device=dev).manual_seed(0), device=dev)
     if decode_kernel is None and not (config.mla or flash_decode.flash_decode_supported(config, max_seq)):
         decode_kernel = "einsum"  # K4 has no form for this head width
     eng = InferenceEngine(
@@ -422,7 +432,8 @@ def main(argv=None) -> int:
              "the no-speculation floor",
     )
     p.add_argument("--quantize", default=None, choices=["int8"],
-                   help="int8 weights: not ported yet (ROADMAP A3.5)")
+                   help="weight-only int8: a random int8 tree, drawn on the card "
+                        "(on the host with --device cpu)")
     p.add_argument("--kv-quant", default=None, choices=["int8"],
                    help="int8 KV cache (half the cache bytes a decode step reads)")
     p.add_argument("--turbo-steps", type=int, default=8,
@@ -454,8 +465,6 @@ def main(argv=None) -> int:
         p.error("not ported yet: --sessions (and --replicas/--turns/--tenants/"
                 "--turn-chars) routes sessions across replicas, which needs "
                 "routing/ (ROADMAP A4)")
-    if args.quantize:
-        p.error(f"not ported yet: --quantize {args.quantize} (int8 weights, ROADMAP A3.5)")
 
     result = run_bench(
         model=args.model,
@@ -465,6 +474,7 @@ def main(argv=None) -> int:
         gen_len=args.gen_len,
         spec_draft=args.spec_draft,
         repetitive=args.repetitive,
+        quantize=args.quantize,
         turbo_steps=args.turbo_steps,
         turbo_depth=args.turbo_depth,
         kv_quant=args.kv_quant,

@@ -40,11 +40,12 @@ The call's rules, which the engine keeps:
   at its end into output buffers allocated outside the pool, so the pool
   holds only temporaries, which are dead between replays: the graphs may
   then replay in any order on the one stream.
-- The kernels' launch counters (``LAUNCHES`` in ``ops/flash.py`` and
-  ``ops/flash_decode.py``) are bumped in Python when a wrapper enqueues
-  its kernel, which a capture does once and a replay never. So a capture
-  records each counter's change and puts the counters back, and every
-  replay adds that change again: the counts read as in eager mode.
+- The kernels' launch counters (``LAUNCHES`` in ``ops/flash.py``,
+  ``ops/flash_decode.py`` and ``ops/w8_matmul.py``) are bumped in Python
+  when a wrapper enqueues its kernel, which a capture does once and a
+  replay never. So a capture records each counter's change and puts the
+  counters back, and every replay adds that change again: the counts
+  read as in eager mode.
 """
 
 import contextlib
@@ -53,7 +54,7 @@ from typing import Any, Callable
 
 import torch
 
-from dstack_tpu_torch.ops import flash, flash_decode
+from dstack_tpu_torch.ops import flash, flash_decode, w8_matmul
 
 # (label, holder, name): every kernel wrapper's launch counter
 _COUNTERS = (
@@ -62,13 +63,16 @@ _COUNTERS = (
     ("flash_bwd_dq", flash, "LAUNCHES_DQ"),
     ("flash_bwd_dkv", flash, "LAUNCHES_DKV"),
     ("flash_decode", flash_decode, "LAUNCHES"),
+    ("w8_matmul", w8_matmul, "LAUNCHES"),
 )
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count (K4's also by variant)."""
+    """Every kernel wrapper's launch count (K4's also by variant, W8's by
+    form)."""
     out = {label: getattr(holder, name) for label, holder, name in _COUNTERS}
     out.update({f"flash_decode_{k}": v for k, v in flash_decode.LAUNCHES_BY_VARIANT.items()})
+    out.update({f"w8_matmul_{k}": v for k, v in w8_matmul.LAUNCHES_BY_FORM.items()})
     return out
 
 
@@ -79,6 +83,8 @@ def add_launches(delta: dict) -> None:
             setattr(holder, name, getattr(holder, name) + delta[label])
     for k in flash_decode.LAUNCHES_BY_VARIANT:
         flash_decode.LAUNCHES_BY_VARIANT[k] += delta.get(f"flash_decode_{k}", 0)
+    for k in w8_matmul.LAUNCHES_BY_FORM:
+        w8_matmul.LAUNCHES_BY_FORM[k] += delta.get(f"w8_matmul_{k}", 0)
 
 
 def _leaves(out) -> tuple:

@@ -62,7 +62,7 @@ import torch
 from aiohttp import web
 
 from dstack_tpu_torch.models.llama import embed_vectors, load_weights_npz
-from dstack_tpu_torch.ops import flash, flash_decode
+from dstack_tpu_torch.ops import flash, flash_decode, w8_matmul
 from dstack_tpu_torch.serve.chat_template import ChatTemplateError, render_chat
 from dstack_tpu_torch.serve.engine import TOP_LOGPROBS, GenParams, InferenceEngine
 from dstack_tpu_torch.serve.tokenizer import ByteTokenizer
@@ -603,8 +603,10 @@ def build_app(
                 "flash_fwd": flash.LAUNCHES,
                 "flash_fwd_mla": flash.LAUNCHES_MLA,
                 "flash_decode": flash_decode.LAUNCHES,
+                "w8_matmul": w8_matmul.LAUNCHES,
             },
             "flash_decode_launches": dict(flash_decode.LAUNCHES_BY_VARIANT),
+            "w8_matmul_launches": dict(w8_matmul.LAUNCHES_BY_FORM),
             # the step sites: graphs (eager variants on the CPU) and capture seconds
             "graph_sites": e.graphs.report(),
             "graph_captures": e.graphs.captures(),
@@ -1046,7 +1048,7 @@ def _warmup_engine(engine: InferenceEngine) -> float:
 
 
 def main(argv=None) -> int:
-    from dstack_tpu_torch.models import llama
+    from dstack_tpu_torch.models import llama, quant
     from dstack_tpu_torch.models.convert_hf import load_checkpoint
     from dstack_tpu_torch.ops import cuda_build
     from dstack_tpu_torch.serve.engine import resolve_device
@@ -1113,6 +1115,12 @@ def main(argv=None) -> int:
              "default the kernel, but the einsum for a chunked-attention "
              "model (Llama4), whose chunk mask the kernel does not take",
     )
+    p.add_argument(
+        "--quantize", default=None, choices=["int8"],
+        help="weight-only int8 (per-output-channel scales), applied on the host "
+             "after --hf-model, --seed and --weights: half the weight bytes a "
+             "decode step reads",
+    )
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     args = p.parse_args(argv)
@@ -1123,9 +1131,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         cuda_build.build_all()
         logger.info("kernels ready in %.1fs", time.perf_counter() - t0)
+    # with --quantize the tree is built or loaded on the host and only its
+    # int8 form goes to the card, as JAX quantizes its host tree
+    # (dstack_tpu/models/quant.py:48-56)
+    load_device = torch.device("cpu") if args.quantize else device
     if args.hf_model:
         t0 = time.perf_counter()
-        config, params = load_checkpoint(args.hf_model, device=device)
+        config, params = load_checkpoint(args.hf_model, device=load_device)
         args.model = Path(args.hf_model).resolve().name
         logger.info(
             "loaded HF checkpoint %s (%.2fB params) in %.1fs; tokenizer: byte (an HF "
@@ -1134,13 +1146,16 @@ def main(argv=None) -> int:
         )
     else:
         config = llama.CONFIGS[args.model]
-        generator = torch.Generator(device=device)
+        generator = torch.Generator(device=load_device)
         generator.manual_seed(args.seed)
-        params = llama.init_params(config, generator, device=device)
+        params = llama.init_params(config, generator, device=load_device)
     if args.weights:
         t0 = time.perf_counter()
         n = load_weights_npz(params, args.weights)
         logger.info("loaded %d weight arrays from %s in %.1fs", n, args.weights, time.perf_counter() - t0)
+    if args.quantize == "int8":
+        params = quant.tree_to(quant.quantize_tree(params, config), device)
+        logger.info("weights quantized to int8 (per-output-channel scales)")
     engine = InferenceEngine(
         config, params, max_batch=args.max_batch, max_seq=args.max_seq,
         seed=args.seed, prefill_chunk=args.prefill_chunk, prefill_pack=args.prefill_pack,

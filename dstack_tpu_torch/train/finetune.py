@@ -28,6 +28,10 @@ registry of ``make_step_callback``, fed at each log window's sync (the
 loss read), as JAX's finetune feeds it, and the lines are read from it;
 the summary's median step is that of the histogram's sample window, the
 last 1024 steps.
+``--export-hf DIR`` also writes the final weights as an HF
+``save_pretrained`` directory (``convert_hf.save_checkpoint``: the
+trained tree with ``--full``, else the base with the adapters merged in),
+as the JAX finetune does.
 ``--profile-dir DIR`` traces three steady steps with ``torch.profiler``
 (the JAX finetune's step arithmetic) into a Chrome trace in DIR. Runs on
 ``cuda`` unless ``--device cpu`` asks for the plain versions on the CPU.
@@ -92,7 +96,13 @@ def _parser() -> argparse.ArgumentParser:
                         "those weights; overrides --model")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler Chrome trace of 3 steady-state steps here")
-    for flag in ("--ckpt-dir", "--eval-data", "--export-hf", "--data-tokenizer"):
+    p.add_argument(
+        "--export-hf", default=None,
+        help="also write the final weights as an HF save_pretrained dir (LoRA "
+             "adapters are merged into the base first): servable by transformers "
+             "or openai_server --hf-model",
+    )
+    for flag in ("--ckpt-dir", "--eval-data", "--data-tokenizer"):
         p.add_argument(flag, default=None)
     p.add_argument("--resume", action="store_true")
     return p
@@ -111,8 +121,6 @@ def _refusals(args) -> list[str]:
         out.append("--ckpt-dir/--resume come with the checkpoint slice")
     if args.eval_data:
         out.append("--eval-data comes with the eval slice")
-    if args.export_hf:
-        out.append("--export-hf (the HF writer) comes with the HF families slice (A3)")
     if args.data_tokenizer:
         out.append("--data-tokenizer (text corpora) comes with the HF loader slice")
     return out
@@ -277,6 +285,10 @@ def main(argv=None) -> int:
     fname = "model_weights.npz" if args.full else "lora_adapters.npz"
     np.savez(out / fname, **flat)
     print(f"weights saved to {out}/{fname} ({len(tree_leaves(trained))} leaves)", flush=True)
+    if args.export_hf:
+        merged = state["params"] if args.full else lora_mod.merge_lora_params(params, state["lora"], lora_conf)
+        convert_hf.save_checkpoint(config, merged, args.export_hf)
+        print(f"HF checkpoint exported to {args.export_hf}", flush=True)
 
     # the registry's median window: a window's mean step time once a step,
     # over the histogram's sample window (its last 1024 steps; a longer run

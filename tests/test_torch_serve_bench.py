@@ -9,8 +9,8 @@
   seed-0 init), which these counts do not read: no request has an eos, and
   at ``turbo_steps`` 8 the macro-step cap never reads the clock.
 - ``main``: one JSON line with ``--device cpu``; without it on a machine
-  with no GPU it raises; ``--sessions`` and its flags (ROADMAP A4) and
-  ``--quantize int8`` (A3.5) are refused by name.
+  with no GPU it raises; ``--sessions`` and its flags (ROADMAP A4) are
+  refused by name (``--quantize int8``: tests/test_torch_quant_engine.py).
 - ``loadgen/textgen.py``: the same numpy seed gives JAX's prompts.
 - The server: ``/metrics`` answers ``text/plain`` with every serve family;
   after completions (one with ``n`` = 2) the request, queue-wait, TTFT,
@@ -149,15 +149,11 @@ def test_main_without_device_cpu_raises(monkeypatch):
     (["--turns", "2"], "ROADMAP A4"),
     (["--tenants", "2"], "ROADMAP A4"),
     (["--turn-chars", "80"], "ROADMAP A4"),
-    (["--quantize", "int8"], "ROADMAP A3.5"),
 ])
 def test_refused_flags_name_their_slice(flags, names, capsys):
     with pytest.raises(SystemExit) as e:
         tbench.main(["--device", "cpu", *flags])
     assert e.value.code == 2 and names in capsys.readouterr().err
-    if "--quantize" in flags:
-        with pytest.raises(ValueError, match="A3.5"):
-            tbench.run_bench(quantize="int8", device="cpu")
 
 
 def test_a_burst_wider_than_the_batch_is_refused():
@@ -199,7 +195,7 @@ HEALTH_KEYS = {
     "status", "model", "device", "decode_kernel", "engine", "queue_depth", "inflight",
     "active_slots", "max_slots", "kv_cache_utilization", "prefix_hits", "prefix_slots",
     "prefix_occupancy", "prefix_tokens", "stats", "kernel_launches", "flash_decode_launches",
-    "graph_sites", "graph_captures", "flight_warm", "device_memory",
+    "w8_matmul_launches", "graph_sites", "graph_captures", "flight_warm", "device_memory",
 }
 
 

@@ -65,7 +65,8 @@ class TestOpenAIServer:
             assert h["status"] == "ok" and h["max_slots"] == 4
             assert h["device"] == "cpu" and h["decode_kernel"] == "flash"
             assert h["stats"]["decode_steps"] == 0
-            assert set(h["kernel_launches"]) == {"flash_fwd", "flash_fwd_mla", "flash_decode"}
+            assert set(h["kernel_launches"]) == {"flash_fwd", "flash_fwd_mla", "flash_decode", "w8_matmul"}
+            assert h["w8_matmul_launches"] == {"proj": 0, "head": 0, "experts": 0}
             assert h["engine"] == {
                 "prefill_pack": 4, "spec_draft": 4, "turbo_steps": 8, "turbo_depth": 1,
                 "prefix_cache": True, "kv_quant": None,

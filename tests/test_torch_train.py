@@ -430,12 +430,15 @@ class TestFinetuneMain:
         "extra",
         [
             ["--tp", "2"], ["--fsdp", "4"], ["--seq-parallel", "ring"], ["--opt-bits", "8"],
-            ["--ckpt-dir", "x"], ["--resume"], ["--eval-data", "x.npy"], ["--export-hf", "x"],
+            ["--ckpt-dir", "x"], ["--resume"], ["--eval-data", "x.npy"],
             ["--data-tokenizer", "x"], ["--sp", "2"], ["--batch", "3", "--grad-accum", "2"],
         ],
+        # each case keeps the id of its position in the list it was added to
+        ids=[f"extra{i}" for i in (0, 1, 2, 3, 4, 5, 6, 8, 9, 10)],
     )
     def test_flags_without_a_counterpart_exit_non_zero(self, extra, capsys):
-        # (--hf-model has its counterpart: tests/test_torch_convert_hf.py)
+        # (--hf-model and --export-hf have their counterparts:
+        # tests/test_torch_convert_hf.py, tests/test_torch_export_hf.py)
         with pytest.raises(SystemExit) as e:
             finetune.main(["--device", "cpu", "--model", "llama-tiny"] + extra)
         assert e.value.code != 0
