@@ -144,8 +144,11 @@ class TestW8OnTheCard:
         assert got.dtype == torch.float32 and got.shape == (m, 128256)
         _close(got, want)
 
+    # mixtral-8x7b's decode (M = 8) and prefill (M = 24 and 80: a partial
+    # 64-row tile after none or one whole one; 320: a packed wave) stacks
     @pytest.mark.parametrize("e, m, k, n", [(8, 8, 4096, 14336), (8, 8, 14336, 4096), (8, 64, 4096, 1008),
-                                            (64, 8, 2048, 1408)])
+                                            (64, 8, 2048, 1408), (8, 24, 14336, 4096), (8, 80, 4096, 14336),
+                                            (8, 80, 14336, 4096), (8, 320, 4096, 14336)])
     def test_experts_match_plain(self, cuda, e, m, k, n):
         x, q, s = _inputs(e, m, k, n, cuda, seed=e + m)
         got = w8.w8_experts(x, q, s)
