@@ -11,8 +11,11 @@ reads 1 byte a weight, writes a 2-byte bf16 copy and reads it back: 5
 bytes against bf16's 2, so int8 weights would decode about 2.5x slower
 than bf16 ones. W8 reads the int8 weight once and converts it on the
 chip. It is bound by the weight bytes at decode (8 to 40 rows) and by
-FLOPs at chunk sizes; the kernel's note says what its design does about
-each.
+FLOPs at chunk sizes, and has a form for each: the byte-streaming form
+(mma.sync) up to ``STREAM_MAX_M`` rows, the chunk form (wgmma on the
+swapped product) above, each fed by a TMA ring. ``w8_plan`` picks
+the form and the split over K from the shapes and the SM count alone; the
+kernel's note says what each design does.
 
 Three forms, one kernel:
 
@@ -30,15 +33,26 @@ JAX package trains no int8 tree.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from dstack_tpu_torch.ops import cuda_build
 
-BN = 128  # output columns a block (csrc/w8_matmul.cu)
+# the grid of each form (csrc/w8_matmul.cu)
 BK = 64  # k rows a ring stage
-BLOCKS_PER_SM = 2  # a split plan aims at about this many blocks on every SM ...
-KTILES_A_SPLIT = 4  # ... and gives each split at least this many k tiles
+STREAM_MAX_M = 16  # the byte-streaming form takes M up to this, the chunk form above
+STREAM_ROWS, STREAM_BN = 16, 256  # rows of x and output columns a block, byte-streaming form
+CHUNK_ROWS, CHUNK_BN = 128, 256  # the same, chunk form (CHUNK_BN // 2 with paired k tiles)
+# the split over K, where a form's output tiles leave SMs idle: as many
+# splits as keep the launch to one block an SM, but at least this many k
+# tiles a split (a split's f32 partial is written and read back; the
+# chunk form's, 128 x 256, costs more). At the shapes chip_smoke.py times,
+# a second block an SM or shorter splits measured slower
+# (tools/torch_w8_plans.py times each plan beside its neighbours)
+STREAM_MIN_KTILES = 8
+CHUNK_MIN_KTILES = 32
+ARRIVALS = 4096  # output tiles a launch that splits may have (the kernel's counters)
 FORMS = ("proj", "head", "experts")
 
 # kernel launches since the counts were last set to 0 (the plain version
@@ -59,10 +73,22 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [
             _c_void, _c_void, _c_void, _c_void, _c_void,  # x q s out ws
             _c_int, _c_int, _c_int, _c_int,  # E M K N
-            _c_int, _c_int, _c_int, _c_int,  # mtiles splits ktiles_per_split epilogue
+            _c_int, _c_int, _c_int, _c_int, _c_int,  # rows cols splits ktiles_per_split epilogue
             _c_void,  # stream
         ]
+        lib.dtpu_w8_arrivals.restype = ctypes.c_int
+        lib.dtpu_w8_arrivals.argtypes = [_c_void, _c_void]
     return lib
+
+
+def arrival_counts(device=None) -> torch.Tensor:
+    """The kernel's split counters on ``device`` (int32 [ARRIVALS], read
+    in stream order): all 0 between launches, since the last split of
+    each output tile sets its counter back."""
+    out = torch.empty(ARRIVALS, dtype=torch.int32, device=device or "cuda")
+    err = _lib().dtpu_w8_arrivals(out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream)
+    cuda_build.check(err, "w8_matmul arrivals")
+    return out
 
 
 def _refuse_autograd(x: torch.Tensor) -> None:
@@ -91,22 +117,40 @@ def w8_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, form: str
     return y * (scale[:, None, :] if form == "experts" else scale)
 
 
-def w8_plan(e: int, m: int, k: int, n: int, sms: int = 132) -> tuple[int, int, int]:
-    """The kernel's grid from shapes alone → (mtiles, splits,
-    ktiles_per_split): one M-tile of 16 rows a block when M <= 16 (decode
-    and verify), else four (64 rows); then, where the grid has fewer
-    blocks than ``sms``, enough splits of the K tiles that it has about
-    ``BLOCKS_PER_SM`` blocks on every SM, but at least ``KTILES_A_SPLIT``
-    tiles a split (a split costs an f32 partial of M x N and its sum).
-    No split is empty."""
-    mtiles = 1 if m <= 16 else 4
-    blocks = -(-m // (16 * mtiles)) * -(-n // BN) * e
+class W8Plan(NamedTuple):
+    """A launch's grid: ``rows`` of x and ``cols`` output columns a block
+    (16 x 256: the byte-streaming form; 128 x 256: the chunk form, whose
+    two consumer warpgroups own 128 columns each; 128 x 128: the chunk
+    form with both warpgroups on one 128-column tile, taking alternate k
+    tiles), ``splits`` of the K tiles and ``per`` tiles a split (the last
+    split may have fewer, none is empty)."""
+
+    rows: int
+    cols: int
+    splits: int
+    per: int
+
+
+def w8_plan(e: int, m: int, k: int, n: int, sms: int = 132) -> W8Plan:
+    """The kernel's grid from shapes alone: the form by M (the chunk form
+    above ``STREAM_MAX_M`` rows); in the chunk form, 128-column tiles
+    with paired k tiles where twice its 256-column tiles still fit the
+    SMs (a narrow N: llama-3-70b's wk and wv); then, where the output
+    tiles number fewer than the ``sms`` SMs, the split over K into as
+    many parts as keep every block of the launch on an SM of its own (one
+    wave) with at least ``STREAM_MIN_KTILES`` (``CHUNK_MIN_KTILES``) k
+    tiles each. No split is empty."""
+    chunk = m > STREAM_MAX_M
+    rows = CHUNK_ROWS if chunk else STREAM_ROWS
+    cols = CHUNK_BN if chunk else STREAM_BN
+    tiles = e * -(-m // rows) * -(-n // cols)
+    if chunk and 2 * tiles <= sms:
+        cols = CHUNK_BN // 2
+        tiles = e * -(-m // rows) * -(-n // cols)
     ktiles = -(-k // BK)
-    splits = 1
-    if blocks < sms:
-        splits = max(1, min(ktiles // KTILES_A_SPLIT, -(-BLOCKS_PER_SM * sms // blocks), 65535 // e))
+    splits = max(1, min(sms // tiles, ktiles // (CHUNK_MIN_KTILES if chunk else STREAM_MIN_KTILES)))
     per = -(-ktiles // splits)
-    return mtiles, -(-ktiles // per), per
+    return W8Plan(rows, cols, -(-ktiles // per), per)
 
 
 def _check(x, q, s, e: int, k: int, n: int) -> None:
@@ -127,11 +171,11 @@ def _check(x, q, s, e: int, k: int, n: int) -> None:
 
 
 def _launch(form: str, x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor, e: int, m: int) -> torch.Tensor:
-    """One launch of the kernel (and its combine) on x2 [E * M, K] → [E,
-    M, N] (bf16, or f32 for the head)."""
+    """One launch of the kernel on x2 [E * M, K] → [E, M, N] (bf16, or f32
+    for the head); a split plan's combine runs in the same launch."""
     k, n = q.shape[-2], q.shape[-1]
     _check(x2, q, s, e, k, n)
-    mtiles, splits, per = w8_plan(e, m, k, n, torch.cuda.get_device_properties(x2.device).multi_processor_count)
+    rows, cols, splits, per = w8_plan(e, m, k, n, torch.cuda.get_device_properties(x2.device).multi_processor_count)
     head = form == "head"
     out = torch.empty((e, m, n), dtype=torch.float32 if head else torch.bfloat16, device=x2.device)
     # the f32 partials; freed after the enqueue, reused in stream order
@@ -139,7 +183,7 @@ def _launch(form: str, x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor, e: in
     err = _lib().dtpu_w8_matmul(
         x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None,
-        e, m, k, n, mtiles, splits, per, 1 if head else 0,
+        e, m, k, n, rows, cols, splits, per, 1 if head else 0,
         torch.cuda.current_stream(x2.device).cuda_stream,
     )
     cuda_build.check(err, f"w8_matmul ({form})")

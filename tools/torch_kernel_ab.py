@@ -4,6 +4,7 @@ full fine-tune step with each.
 
     python3 tools/torch_kernel_ab.py --other DIR [--sources flash_fwd,flash_bwd_dq,flash_bwd_dkv]
     python3 tools/torch_kernel_ab.py --other DIR --sources flash_fwd_mla
+    python3 tools/torch_kernel_ab.py --other DIR --sources w8_matmul
 
 ``DIR`` holds the other version of each source named by ``--sources``
 (default: ``flash_bwd_dq`` and ``flash_bwd_dkv``) with the headers they
@@ -22,8 +23,13 @@ entry is read from the symbol it exports: ``dtpu_flash_mla(q, row,
 ...)``, this tree's, is called through ``flash.flash_mla_with_lse`` with
 the library swapped under it; the older ``dtpu_flash_fwd_mla(q, k, v,
 ...)`` with v the row with its rope columns zeroed and its o 576 wide.
-Prints one JSON line per measurement, each with the card's name and
-power limit:
+W8's entry (``dtpu_w8_matmul``) changed its plan arguments: a build that
+exports ``dtpu_w8_arrivals`` (the fused combine's counters) is this
+tree's (rows, cols, splits, per) and is called through the wrappers with
+the library swapped under them; PR 18's takes (M-tiles, splits, per) and
+launches a second kernel for the combine, and is called through its own
+entry under the plan this tool reproduces (``pr18_w8_plan``). Prints one
+JSON line per measurement, each with the card's name and power limit:
 
 1. each selected training kernel's ms (``chip_smoke.time_ms``: CUDA
    events, L2 flushed) at q/dO [B,32,2048,64] over k/v [B,8,2048,64],
@@ -39,7 +45,13 @@ power limit:
    512) and lse held to the plain version by both of chip_smoke.py's
    rules, then timed in the order other, this, this, other, beside the
    bound and this build's NSPLIT;
-4. with a training kernel: the full fine-tune step of llama-3.2-1b at
+4. with ``w8_matmul``: W8 at every shape of ``chip_smoke.W8_PROJ_SHAPES``,
+   ``W8_HEAD_SHAPES`` and ``W8_EXPERT_SHAPES`` (random int8 weights and
+   scales as chip_smoke.py draws them), each build held to
+   ``w8_matmul_plain`` by both of chip_smoke.py's rules and rerun
+   bit-identical, then timed in the order other, this, this, other beside
+   the bound and each build's plan;
+5. with a training kernel: the full fine-tune step of llama-3.2-1b at
    batch 8 x 2048 (random weights from seed 0; host clock around each
    step, synchronised): 4 steps a turn in the order other, this, this,
    other, other, this; the median, tokens/s and MFU (``flops_per_token``
@@ -63,11 +75,11 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from dstack_tpu_torch.models import llama  # noqa: E402
-from dstack_tpu_torch.ops import cuda_build, flash, flash_decode  # noqa: E402
+from dstack_tpu_torch.ops import cuda_build, flash, flash_decode, w8_matmul  # noqa: E402
 from dstack_tpu_torch.serve import engine  # noqa: E402
 from dstack_tpu_torch.train import step as train_step  # noqa: E402
 
-SOURCES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_decode", "flash_fwd_mla")
+SOURCES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_decode", "flash_fwd_mla", "w8_matmul")
 SWAPPED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_decode")  # launchers alike in both builds
 TRAINING = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 KERNEL_TURNS = ("other", "this", "this", "other")
@@ -176,6 +188,83 @@ def mla_ab(card: str, other: ctypes.CDLL) -> None:
                           "bound_ms": b_ms, "bound_by": b_by}), flush=True)
 
 
+def pr18_w8_plan(e: int, m: int, k: int, n: int, sms: int) -> tuple:
+    """PR 18's W8 grid (its ``ops/w8_matmul.py`` ``w8_plan``) → (mtiles,
+    splits, ktiles_per_split): one M-tile of 16 rows a block when M <= 16,
+    else four; where the grid has fewer blocks than the SMs, splits of the
+    64-row K tiles for about 2 blocks an SM, at least 4 tiles a split."""
+    mtiles = 1 if m <= 16 else 4
+    blocks = -(-m // (16 * mtiles)) * -(-n // 128) * e
+    ktiles = -(-k // 64)
+    splits = 1
+    if blocks < sms:
+        splits = max(1, min(ktiles // 4, -(-2 * sms // blocks), 65535 // e))
+    per = -(-ktiles // splits)
+    return mtiles, -(-ktiles // per), per
+
+
+def w8_ab(card: str, other: ctypes.CDLL) -> None:
+    """W8 of each build at chip_smoke.py's shapes (section 4)."""
+    this = cuda_build.load("w8_matmul")
+    takes_rows = hasattr(other, "dtpu_w8_arrivals")
+    entry = other.dtpu_w8_matmul
+    if not takes_rows:  # PR 18's entry: x q s out ws, E M K N mtiles splits per epilogue, stream
+        entry.restype = ctypes.c_int
+        entry.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wrappers = {"proj": w8_matmul.w8_proj, "head": w8_matmul.w8_head, "experts": w8_matmul.w8_experts}
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for form, shapes in (("proj", chip_smoke.W8_PROJ_SHAPES), ("head", chip_smoke.W8_HEAD_SHAPES),
+                         ("experts", chip_smoke.W8_EXPERT_SHAPES)):
+        fn = wrappers[form]
+        for what, *dims in shapes:
+            *es, m, k, n = dims
+            e = es[0] if es else 1
+            q = torch.randint(-127, 128, (*es, k, n), generator=g, device="cuda", dtype=torch.int8)
+            s = (0.8 + 0.4 * torch.rand(*es, n, generator=g, device="cuda")) * (0.02 / 127)
+            x = torch.randn(*es, m, k, generator=g, device="cuda").bfloat16()
+            plan = pr18_w8_plan(e, m, k, n, sms)
+
+            def run_other():
+                if takes_rows:
+                    cuda_build._libs["w8_matmul"] = other
+                    try:
+                        return fn(x, q, s)
+                    finally:
+                        cuda_build._libs["w8_matmul"] = this
+                out = torch.empty(e, m, n, dtype=torch.float32 if form == "head" else torch.bfloat16, device="cuda")
+                ws = torch.empty(plan[1] * e * m * n, dtype=torch.float32, device="cuda") if plan[1] > 1 else None
+                err = entry(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+                            ws.data_ptr() if ws is not None else None, e, m, k, n, *plan,
+                            1 if form == "head" else 0, torch.cuda.current_stream().cuda_stream)
+                cuda_build.check(err, "other w8_matmul")
+                return out if es else out[0]
+
+            calls = {"other": run_other, "this": lambda: fn(x, q, s)}
+            want = w8_matmul.w8_matmul_plain(x, q, s, form)
+            for tag, call in calls.items():
+                got, again = call(), call()
+                torch.cuda.synchronize()
+                label = f"{tag} w8 {form} {what} E={e} M={m} K={k} N={n}"
+                chip_smoke.assert_close(got, want, label)
+                g3, w3 = (got, want) if got.dim() == 3 else (got[None], want[None])
+                rms = chip_smoke.tile_rel_rms(g3[:, None].float(), w3[:, None].float())
+                if not rms <= chip_smoke.GRAD_RMS_TOL:
+                    raise AssertionError(f"{label}: a tile's relative RMS error {rms:.4g}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{label}: two launches differ")
+            ms: dict = {}
+            for tag in KERNEL_TURNS:
+                ms.setdefault(tag, []).append(chip_smoke.time_ms(calls[tag]))
+            b_ms, b_by = chip_smoke.w8_bound(form, e, m, k, n)
+            print(json.dumps({"card": card, "w8": form, "what": what, "E": e, "M": m, "K": k, "N": n,
+                              "plan_this": list(w8_matmul.w8_plan(e, m, k, n, sms)),
+                              "plan_other": "this tree's" if takes_rows else list(plan),
+                              "ms": ms, "bound_ms": b_ms, "bound_by": b_by}), flush=True)
+            del q, s, x, want
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, required=True, help="directory with the other sources")
@@ -199,6 +288,8 @@ def main() -> int:
 
     if "flash_fwd_mla" in names:
         mla_ab(card, others["flash_fwd_mla"])
+    if "w8_matmul" in names:
+        w8_ab(card, others["w8_matmul"])
     if "flash_decode" in names:
         decode_ab(card, use)
     train = [n for n in names if n in TRAINING]
