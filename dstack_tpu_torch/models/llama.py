@@ -50,10 +50,11 @@ refused under autograd (ROADMAP A5.9).
 :func:`forward` is the whole-sequence forward the trainer differentiates
 (counterpart of ``forward``, dstack_tpu/models/llama.py:1431): attention
 through ``FlashAttention`` (K1 forward, K2/K3 backward on the card), the
-LoRA bypass in every projection, and, with ``config.remat``, one
-``torch.utils.checkpoint`` per layer. JAX saves the flash residuals
-across its remat boundary (llama.py:1494-1504); the port recomputes
-them, so under remat K1 runs twice per layer and step.
+LoRA bypass in every projection, and, with ``config.remat``, each layer
+recomputed in the backward but for its flash call: q, k, v, o and lse
+are kept across the remat boundary, as JAX's ``flash_residuals`` are
+(llama.py:1494-1504), so K1 runs once a layer and micro-batch
+(:func:`_layer_remat`).
 """
 
 import math
@@ -1257,42 +1258,52 @@ def _head_logits(params: dict, x: torch.Tensor, c: LlamaConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _attention_block(
-    x: torch.Tensor, layer: dict, c: LlamaConfig, ropes: tuple, window: int, impl: Optional[str],
+def _attn_qkv(
+    x: torch.Tensor, layer: dict, c: LlamaConfig, ropes: tuple, window: int,
     nope: bool = False, positions: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Attention sublayer (``_attention_block``, llama.py:1177): the input
+) -> tuple:
+    """The attention sublayer up to the flash call → (q, k, v): the input
     norm (:func:`_attn_input`), q/k/v projections and the q/k norms
     (:func:`_qkv_heads`), the layer's rope by its window
     (:func:`layer_rope`; interleaved or rotate-half, partial where the
-    config says), causal attention with the
-    window and the attention softcap, ``wo`` and the post-attention norm
-    (:func:`_attn_out`). Llama4's deltas (llama.py:1224-1235): a rope
-    layer applies rope and then, with ``qk_l2_norm``, the weightless L2
-    norm, and attends within ``attention_chunk_size`` blocks; a ``nope``
-    layer skips rope, scales q by the temperature at ``positions`` and
-    attends globally. Under MLA the projections are :func:`mla_qkv`'s,
-    and v is zero-padded to ``qk_head_dim`` so the flash call sees one head
+    config says). Llama4's deltas (llama.py:1224-1235): a rope layer
+    applies rope and then, with ``qk_l2_norm``, the weightless L2 norm; a
+    ``nope`` layer skips rope and scales q by the temperature at
+    ``positions``. Under MLA the projections are :func:`mla_qkv`'s, and v
+    is zero-padded to ``qk_head_dim`` so the flash call sees one head
     width (llama.py:1196-1202): K1-K3 at D = 192 on DeepSeek-V2-Lite, the
-    padding a real zero tensor the kernels read. The padded columns of o
-    are dropped (llama.py:1268-1269), so their cotangent, and dv's padded
-    columns, are zero."""
-    b, t, _ = x.shape
+    padding a real zero tensor the kernels read."""
+    t = x.shape[1]
     h = _attn_input(x, layer, c)
     cos, sin = layer_rope(ropes, c, window)
     if c.mla:
         q, k, v = mla_qkv(h, layer, c, cos, sin)
-        v = F.pad(v, (0, c.qk_head_dim - c.v_head_dim))
-    else:
-        q, k, v = _qkv_heads(h, layer, c)
-        pos = positions if positions is not None else torch.arange(t, device=x.device)
-        q, k = _position_qk(q, k, c, nope, lambda u: apply_rope(u, cos, sin, interleaved=c.rope_interleaved),
-                            lambda u: u * attn_temp_scales(pos, c)[None, None, :, None].to(u.dtype))
+        return q, k, F.pad(v, (0, c.qk_head_dim - c.v_head_dim))
+    q, k, v = _qkv_heads(h, layer, c)
+    pos = positions if positions is not None else torch.arange(t, device=x.device)
+    q, k = _position_qk(q, k, c, nope, lambda u: apply_rope(u, cos, sin, interleaved=c.rope_interleaved),
+                        lambda u: u * attn_temp_scales(pos, c)[None, None, :, None].to(u.dtype))
+    return q, k, v
+
+
+def _attend(q, k, v, layer: dict, c: LlamaConfig, window: int, impl: Optional[str], nope: bool = False):
+    """Causal attention with the window, the attention softcap and, on a
+    Llama4 rope layer, the ``attention_chunk_size`` blocks: the flash
+    call (``FlashAttention``: K1, and K2/K3 in the backward), which keeps
+    q, k, v, o and lse for its backward."""
     # gpt-oss's sinks reach here only with autograd off (check_trainable):
     # K1 with the exact σ(lse - sink) rescale, as a serving chunk runs them
-    o = attention(q, k, v, causal=True, scale=c.attention_scale, window=window,
-                  softcap=c.attn_softcap, chunk=0 if nope else c.attention_chunk_size, impl=impl,
-                  sinks=layer["sinks"] if c.attn_sinks else None, sinks_forward_only=True)
+    return attention(q, k, v, causal=True, scale=c.attention_scale, window=window,
+                     softcap=c.attn_softcap, chunk=0 if nope else c.attention_chunk_size, impl=impl,
+                     sinks=layer["sinks"] if c.attn_sinks else None, sinks_forward_only=True)
+
+
+def _attn_post(o: torch.Tensor, layer: dict, c: LlamaConfig) -> torch.Tensor:
+    """The flash output o [B, H, T, D] → the sublayer's output [B, T, E]:
+    MLA's padded columns dropped (llama.py:1268-1269, so their cotangent,
+    and dv's padded columns, are zero), the heads merged, ``wo`` and the
+    post-attention norm (:func:`_attn_out`)."""
+    b, _, t, _ = o.shape
     if c.mla:
         o = o[..., : c.v_head_dim]
     return _attn_out(o.transpose(1, 2).reshape(b, t, c.o_dim), layer, c)
@@ -1343,11 +1354,33 @@ def check_trainable(config: LlamaConfig) -> None:
 
 
 def _layer(x, layer, c, ropes, window, impl, nope=False, positions=None):
-    """One layer → (x, its router aux loss): ``_mlp_block``'s pair
+    """One layer → (x, its router aux loss): the attention sublayer (JAX's
+    ``_attention_block``, llama.py:1177: :func:`_attn_qkv`, the flash call
+    :func:`_attend`, :func:`_attn_post`) and ``_mlp_block``'s pair
     (llama.py:1281), added sequentially or, under Cohere's parallel block,
     jointly (:func:`_residual`)."""
-    ao = _attention_block(x, layer, c, ropes, window, impl, nope=nope, positions=positions)
-    return _residual(x, ao, layer, c, aux=True)
+    q, k, v = _attn_qkv(x, layer, c, ropes, window, nope, positions)
+    return _layer_out(x, _attend(q, k, v, layer, c, window, impl, nope), layer, c)
+
+
+def _layer_out(x, o, layer, c):
+    """The layer after its flash call: :func:`_attn_post` on o, then
+    :func:`_residual` → (x, its router aux loss)."""
+    return _residual(x, _attn_post(o, layer, c), layer, c, aux=True)
+
+
+def _layer_remat(x, layer, c, ropes, window, impl, nope=False, positions=None):
+    """:func:`_layer` under remat, differing from it only by the two
+    checkpoint calls: the flash residuals are saved, as JAX's
+    ``save_only_these_names("flash_residuals")`` keeps them
+    (llama.py:1494-1504): the parts before and after the flash call each
+    run under ``torch.utils.checkpoint`` and are recomputed in the
+    backward, while the flash call between them keeps q, k, v, o and lse.
+    So K1 runs once a layer and micro-batch, and the layer keeps its
+    input, q, k, v, o and lse for the backward."""
+    q, k, v = checkpoint(_attn_qkv, x, layer, c, ropes, window, nope, positions, use_reentrant=False)
+    o = _attend(q, k, v, layer, c, window, impl, nope)
+    return checkpoint(_layer_out, x, o, layer, c, use_reentrant=False)
 
 
 def forward(
@@ -1387,8 +1420,9 @@ def forward(
     unbound once, so each leaf's gradient is stacked once in the
     backward instead of being scattered into a zero ``[L, ...]`` tensor
     per layer. With ``config.remat`` (and autograd on) every layer runs
-    under ``torch.utils.checkpoint``: its activations, flash output and
-    logsumexp included, are recomputed in the backward."""
+    as :func:`_layer_remat`: its activations are recomputed in the
+    backward, but not its flash call, whose q, k, v, o and logsumexp are
+    kept (JAX's ``flash_residuals``), so K1 runs once a layer."""
     c = config
     if torch.is_grad_enabled():
         check_trainable(c)
@@ -1408,7 +1442,7 @@ def forward(
         for i, (window, nope) in enumerate(kinds):
             layer = {**{name: ws[i] for name, ws in per_layer.items()}, **extra}
             if remat:
-                x, a = checkpoint(_layer, x, layer, c, ropes, window, impl, nope, pos, use_reentrant=False)
+                x, a = _layer_remat(x, layer, c, ropes, window, impl, nope, pos)
             else:
                 x, a = _layer(x, layer, c, ropes, window, impl, nope, pos)
             auxs.append(a)

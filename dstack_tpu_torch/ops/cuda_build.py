@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNEL_SOURCES = ("flash_fwd", "flash_fwd_mla", "flash_decode", "flash_bwd_dq", "flash_bwd_dkv", "w8_matmul")
+KERNEL_SOURCES = ("flash_fwd", "flash_fwd_mla", "flash_decode", "flash_bwd_dq", "flash_bwd_dkv", "w8_matmul",
+                  "adam8")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

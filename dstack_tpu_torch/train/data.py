@@ -1,13 +1,15 @@
 """Training data for the PyTorch port (counterpart of
-dstack_tpu.train.data): load a pre-tokenized corpus, pack it into fixed
-rows, iterate shuffled batches, and copy them to the device one batch
-ahead.
+dstack_tpu.train.data): load a corpus, pack it into fixed rows, iterate
+shuffled batches, and copy them to the device one batch ahead.
 
-Text corpora (``.jsonl``/``.txt``) need an HF tokenizer and are not
-ported yet (ROADMAP.md); ``load_tokens`` raises for them.
+A corpus is pre-tokenized (``.npy``, ``.bin``) or text (``.jsonl`` with a
+``text`` field, ``.txt`` a document a line) tokenized by an HF tokenizer
+at a local path, imported lazily from ``transformers`` as JAX imports it
+(its ``tokenizers`` backend must be installed; the import error names it).
 """
 
 import collections
+import json
 from pathlib import Path
 from typing import Iterator, Optional
 
@@ -17,14 +19,41 @@ import torch
 __all__ = ["load_tokens", "pack_documents", "batches", "prefetch_to_device"]
 
 
-def load_tokens(path: str, seq_len: int, bin_dtype: str = "uint16") -> np.ndarray:
-    """A pre-tokenized corpus → packed [N, seq_len+1] int32 rows.
+def _tokenize_texts(texts: list, tokenizer_path: str) -> list[np.ndarray]:
+    """Each text → its int32 ids with the tokenizer's eos appended (no
+    other special tokens): JAX's ``_tokenize_texts`` (data.py:35-46)."""
+    try:
+        import tokenizers  # noqa: F401  (AutoTokenizer's fast backend)
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise ImportError(
+            "text corpora (.jsonl/.txt) need the HF 'transformers' package and its 'tokenizers' "
+            f"backend, which this environment lacks ({e}); pass a pre-tokenized .npy or .bin"
+        ) from e
+    tok = AutoTokenizer.from_pretrained(tokenizer_path)
+    eos = tok.eos_token_id
+    docs = []
+    for t in texts:
+        ids = tok(t, add_special_tokens=False)["input_ids"]
+        if eos is not None:
+            ids = ids + [eos]
+        docs.append(np.asarray(ids, np.int32))
+    return docs
+
+
+def load_tokens(path: str, seq_len: int, tokenizer: Optional[str] = None,
+                bin_dtype: str = "uint16") -> np.ndarray:
+    """A corpus → packed [N, seq_len+1] int32 rows (data.py:49-97).
 
     - ``.npy``: [N, seq_len+1] rows as they are; other [N, T] rows are
       repacked (they carry their own separators), a flat [M] stream is
       reshaped.
     - ``.bin``: a flat token stream; ``bin_dtype`` names uint16/uint32
       (guessing from content could fuse token pairs).
+    - ``.jsonl`` (a ``text`` field a line) and ``.txt`` (a document a
+      line; blank lines skipped): tokenized by the HF tokenizer at
+      ``tokenizer``, whose eos ends each document, then packed with no
+      other separator.
     """
     p = Path(path)
     suffix = p.suffix.lower()
@@ -41,10 +70,14 @@ def load_tokens(path: str, seq_len: int, bin_dtype: str = "uint16") -> np.ndarra
         raw = np.fromfile(p, dtype=np.dtype(bin_dtype))
         return _reshape_stream(raw.astype(np.int32), seq_len)
     if suffix in (".jsonl", ".txt"):
-        raise ValueError(
-            f"{suffix} corpora need an HF tokenizer, which the port does not load "
-            "yet (ROADMAP.md, queue A); pass a pre-tokenized .npy or .bin"
-        )
+        if tokenizer is None:
+            raise ValueError(f"{suffix} corpus requires a tokenizer path")
+        lines = p.read_text().splitlines()
+        if suffix == ".jsonl":
+            texts = [json.loads(ln)["text"] for ln in lines if ln.strip()]
+        else:
+            texts = [ln for ln in lines if ln.strip()]
+        return pack_documents(_tokenize_texts(texts, tokenizer), seq_len, eos_id=None)
     raise ValueError(f"unsupported corpus format {suffix!r} ({path})")
 
 

@@ -1,10 +1,14 @@
 """Training step for the PyTorch port (counterpart of dstack_tpu.train.step).
 
 One step is: forward (``llama.forward`` with ``return_hidden`` and
-``return_aux``; K1 flash forward per layer, recomputed under remat), the
-head fused into the cross-entropy, plus the MoE router aux loss, backward
-(K2/K3 per layer), then clip-by-global-norm and AdamW under a
-warmup-cosine schedule. JAX builds the step as one ``jit``
+``return_aux``; K1 flash forward once a layer, its residuals kept across
+remat), the head fused into the cross-entropy (``loss_impl="fused"``, or
+``"chunked"`` over sequence chunks, which a step whose f32 logits pass
+``MAX_LOGITS_BYTES`` takes by default), plus the MoE router aux loss,
+backward (K2/K3 per layer), then clip-by-global-norm and AdamW under a
+warmup-cosine schedule, with bf16 moments or int8 ones
+(``default_optimizer(opt_bits=8)``: ``train/opt8.py``, A8 on the card).
+JAX builds the step as one ``jit``
 over a mesh; the port runs it eagerly on one device and updates the
 parameters and moments in place (the JAX step donates its state, so the
 old state is never read again either).
@@ -13,8 +17,8 @@ Parameters, gradients and moments are plain nested dicts of tensors in
 the JAX package's layout (stacked ``[L, ...]`` layers), so the parity
 tests compare them leaf for leaf. ``make_step_callback`` feeds the
 ``dtpu_train_*`` series of ``new_train_registry`` (the port's own
-``obs`` registry) at the trainer's sync points. The parallel paths
-(meshes, pipeline, ``chunked_cross_entropy``) and ``opt8`` are not ported
+``obs`` registry) at the trainer's sync points; ``make_eval_step`` is
+the held-out loss. The parallel paths (meshes, pipeline) are not ported
 yet (ROADMAP.md).
 """
 
@@ -23,6 +27,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from dstack_tpu_torch.models import llama
 
@@ -103,21 +108,93 @@ def fused_cross_entropy(
     return ((lse - tgt) * m).sum() / total, total
 
 
-def objective(params: dict, batch: dict, config: llama.LlamaConfig, impl=None) -> tuple:
+# the f32 logits the fused loss may hold in one piece: past it the default
+# loss is the chunked one, whose chunks fit it (chunked_cross_entropy's
+# max_chunk_bytes)
+MAX_LOGITS_BYTES = 256 * 1024 * 1024
+
+
+def chunk_count(b: int, t: int, v: int, max_chunk_bytes: int) -> int:
+    """The chunks of :func:`chunked_cross_entropy`: the smallest divisor c
+    of T whose f32 logits chunk [B, T/c, V] fits ``max_chunk_bytes``, or
+    T (step.py:96-102)."""
+    c = 1
+    while c < t and (b * (t // c) * v * 4 > max_chunk_bytes or t % c != 0):
+        c += 1
+    while t % c != 0:
+        c += 1
+    return c
+
+
+def _chunk_nll(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+               softcap: float) -> torch.Tensor:
+    """One chunk's masked negative log-likelihood sum: its f32 logits
+    (tanh-capped under ``softcap``), log-softmax, the targets' entries."""
+    logits = llama.matmul_f32(x, head)
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    ll = torch.log_softmax(logits, dim=-1).gather(-1, targets[..., None].long())[..., 0]
+    return -(ll * mask).sum()
+
+
+def chunked_cross_entropy(
+    x: torch.Tensor,  # [B, T, E] final hidden (model dtype)
+    head: torch.Tensor,  # [E, V]
+    targets: torch.Tensor,  # [B, T] int
+    mask: Optional[torch.Tensor],  # [B, T] 0/1
+    max_chunk_bytes: int = MAX_LOGITS_BYTES,
+    softcap: float = 0.0,  # Gemma2's final-logit tanh cap
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The head fused into the loss, chunked over the sequence
+    (step.py:73-127): :func:`chunk_count` chunks, each chunk's head
+    product and log-softmax under ``torch.utils.checkpoint``, so at most
+    one chunk's f32 logits exist at a time, in the forward and in the
+    backward, which recomputes them. → (mean loss over the mask, total
+    weight)."""
+    m, total = _mask(targets, mask)
+    n = x.shape[1] // chunk_count(x.shape[0], x.shape[1], head.shape[-1], max_chunk_bytes)
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    # one split node: its backward joins the chunks' gradients at once
+    for xc, tc, mc in zip(x.split(n, dim=1), targets.split(n, dim=1), m.split(n, dim=1)):
+        nll = nll + checkpoint(_chunk_nll, xc, head, tc, mc, softcap, use_reentrant=False)
+    return nll / total, total
+
+
+LOSS_IMPLS = ("fused", "chunked")
+
+
+def loss_impl_for(b: int, t: int, v: int) -> str:
+    """The loss a step of B x T tokens over V classes takes by default:
+    ``"fused"`` where its f32 logits fit MAX_LOGITS_BYTES in one piece,
+    else ``"chunked"``. JAX leaves the choice to its caller (default
+    ``"fused"``); the two agree wherever the logits fit."""
+    return "fused" if chunk_count(b, t, v, MAX_LOGITS_BYTES) == 1 else "chunked"
+
+
+def objective(params: dict, batch: dict, config: llama.LlamaConfig, impl=None,
+              loss_impl: Optional[str] = None) -> tuple:
     """The full fine-tune objective as the JAX step's ``loss_fn`` returns
-    it (step.py:308-331) → (CE + aux, (CE, aux)): the cross-entropy, the
-    config's final-logit cap inside the fused loss, and the router aux
-    loss summed over the MoE layers (0 for a dense model)."""
+    it (step.py:305-331) → (CE + aux, (CE, aux)): the cross-entropy
+    (:func:`fused_cross_entropy`, or :func:`chunked_cross_entropy` with
+    ``loss_impl="chunked"``; None picks by :func:`loss_impl_for`) with the
+    config's final-logit cap inside it, and the router aux loss summed
+    over the MoE layers (0 for a dense model)."""
+    if loss_impl is None:
+        loss_impl = loss_impl_for(*batch["tokens"].shape, config.vocab_size)
+    if loss_impl not in LOSS_IMPLS:
+        raise ValueError(f"loss_impl {loss_impl!r} not in {LOSS_IMPLS}")
     x, aux = llama.forward(params, batch["tokens"], config, return_hidden=True, return_aux=True,
                            impl=impl)
     head = llama.lm_head_weight(params, config)
-    ce = fused_cross_entropy(x, head, batch["targets"], batch.get("mask"), softcap=config.logit_softcap)[0]
+    loss = chunked_cross_entropy if loss_impl == "chunked" else fused_cross_entropy
+    ce = loss(x, head, batch["targets"], batch.get("mask"), softcap=config.logit_softcap)[0]
     return ce + aux, (ce, aux)
 
 
-def full_loss(params: dict, batch: dict, config: llama.LlamaConfig, impl=None) -> torch.Tensor:
+def full_loss(params: dict, batch: dict, config: llama.LlamaConfig, impl=None,
+              loss_impl: Optional[str] = None) -> torch.Tensor:
     """The full fine-tune loss, CE + aux: what the JAX step differentiates."""
-    return objective(params, batch, config, impl)[0]
+    return objective(params, batch, config, impl, loss_impl)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -274,13 +351,17 @@ def default_optimizer(
     warmup: int = 100,
     decay_steps: int = 10000,
     opt_bits: int = 32,
-) -> AdamW:
+):
     """clip-by-global-norm(1.0) then AdamW(b1 0.9, b2 0.95) under
-    warmup-cosine (step.py:141). The int8 moments (``opt_bits=8``,
-    train/opt8.py) are not ported yet."""
-    if opt_bits != 32:
-        raise NotImplementedError("opt_bits=8 (int8 Adam moments) comes with the opt8 slice")
+    warmup-cosine (step.py:141); ``opt_bits=8`` keeps the moments as
+    blockwise int8 (``train/opt8.py``'s :class:`AdamW8`, step.py:154-160)."""
+    if opt_bits not in (8, 32):
+        raise ValueError(f"opt_bits must be 8 or 32, got {opt_bits}")
     schedule = warmup_cosine_decay(lr, warmup, max(decay_steps, warmup + 1))
+    if opt_bits == 8:
+        from dstack_tpu_torch.train.opt8 import AdamW8
+
+        return AdamW8(schedule, b1=0.9, b2=0.95, weight_decay=weight_decay)
     return AdamW(schedule, b1=0.9, b2=0.95, weight_decay=weight_decay)
 
 
@@ -307,12 +388,19 @@ def init_train_state(
 
 def make_train_step(
     config: llama.LlamaConfig,
-    optimizer: AdamW,
+    optimizer,
     grad_accum: int = 1,
     impl: Optional[str] = None,
+    loss_impl: Optional[str] = None,
 ) -> Callable:
     """(state, batch{tokens, targets, mask}) → (state, metrics): the full
     fine-tune step, whose gradients are of CE + the router aux loss.
+    ``loss_impl`` picks the head's fusion into the loss, as JAX's does
+    (step.py:276): ``"fused"`` (one f32 logits tensor) or ``"chunked"``
+    (:func:`chunked_cross_entropy`: one chunk's at a time); the default,
+    None, picks by the micro-batch's size (:func:`loss_impl_for`), so a
+    step whose logits would not fit the card takes the chunked loss.
+    ``optimizer`` is :class:`AdamW` or ``opt8.AdamW8``.
     ``state`` is updated in place and returned; ``metrics`` hold 0-dim
     device tensors (``loss``: the CE, ``aux_loss``, and ``grad_norm``
     before the clip; the JAX step's, step.py:374), read without a host
@@ -320,11 +408,35 @@ def make_train_step(
 
     def step(state: dict, batch: dict) -> tuple[dict, dict]:
         (_, (ce, aux)), grads = accumulate_grads(objective, state["params"], batch, grad_accum, config,
-                                                 impl, has_aux=True)
+                                                 impl, loss_impl, has_aux=True)
         gnorm = global_norm(grads)
         optimizer.update(grads, state["opt_state"], state["params"])
         state["step"] += 1
         return state, {"loss": ce, "aux_loss": aux, "grad_norm": gnorm}
+
+    if loss_impl is not None and loss_impl not in LOSS_IMPLS:
+        raise ValueError(f"loss_impl {loss_impl!r} not in {LOSS_IMPLS}")
+    return step
+
+
+def eval_loss(params: dict, batch: dict, config: llama.LlamaConfig, *, lora: Optional[dict] = None,
+              lora_scale: float = 1.0, impl: Optional[str] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The held-out loss of one batch with autograd off → (mean loss
+    over the mask, total weight): the forward's f32 logits (K1 once a
+    layer, no backward) and :func:`cross_entropy_loss`, as the JAX
+    finetune's ``_eval_fwd`` takes them (finetune.py:237-245); with
+    ``lora`` the adapters' bypass."""
+    with torch.no_grad():
+        logits = llama.forward(params, batch["tokens"], config, lora=lora, lora_scale=lora_scale, impl=impl)
+        return cross_entropy_loss(logits, batch["targets"], batch.get("mask"))
+
+
+def make_eval_step(config: llama.LlamaConfig, impl: Optional[str] = None) -> Callable:
+    """(params, batch) → {"loss"}: the JAX ``make_eval_step``
+    (step.py:387-399) on one device."""
+
+    def step(params: dict, batch: dict) -> dict:
+        return {"loss": eval_loss(params, batch, config, impl=impl)[0]}
 
     return step
 

@@ -72,7 +72,7 @@ def test_source_scan_finds_no_jax_or_dstack_tpu_import():
 def test_the_port_has_its_own_kernel_sources():
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {
         "flash_fwd.cu", "flash_fwd_mla.cu", "flash_decode.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
-        "w8_matmul.cu",
+        "w8_matmul.cu", "adam8.cu",
     }
 
 
