@@ -196,7 +196,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    completion: each time the registry's requests, TTFT count, generated
    tokens, prefill dispatches and step seconds must equal what was sent
    and what the engine's stats counted, and the compile families the
-   step sites' variants (``_metrics_identities``). Then
+   step sites' variants (``_metrics_identities``). Last, the lifecycle
+   server (``robust``, ``robust_phase``): llama-3.2-1b without the warmup,
+   with QoS, a watchdog over a hang planted on slot 7 (``ROBUST_ENV``'s
+   ``DTPU_FAULT_PLAN``) and ``DTPU_PROFILER_DIR``; a tenant's burst shed
+   and deferred, a deadline ending a decode with 504, the eighth request
+   wedged and aborted while the next gives the baseline's greedy tokens,
+   a greedy resume equal to the uninterrupted stream, ``X-DTPU-Trace`` on
+   every response and its spans in ``/debug/traces``, the boot stages,
+   every family of the JAX server's ``/metrics`` with the lifecycle
+   counters fed, and a live profiler window whose chrome trace names K1's
+   and K4's kernels (its device ms by kernel logged), then K1's and K4's
+   launch identities. Then
    the serving bench (``bench_phase``): ``dstack_tpu_torch/serve/bench.py``
    on llama-3.2-1b at full width and depth (``BENCH_ARGS``: batch 8,
    256-token prompts, 128 tokens, bursts of 8), the default engine once
@@ -546,7 +557,13 @@ SPEC_ROWS = 5  # rows a query head verifies: the server's --spec-draft 4, plus o
 # start-up), the JAX server's default engine on the bf16 and on the int8
 # cache, then gpt-oss-20b, gemma-3-4b, deepseek-v2-lite, glm-4-9b,
 # olmo-2-7b and qwen-3-30b-a3b at the defaults, and llama-3.2-1b at the
-# defaults with int8 weights (--quantize int8: W8 on every projection)
+# defaults with int8 weights (--quantize int8: W8 on every projection),
+# and last the lifecycle server (robust_phase: QoS, a watchdog over a
+# planted hang, deadlines, resume, traces, the debug routes and the live
+# profiler) without the warmup, so that the planted hang's slot is the
+# eighth request's: a fresh engine gives request k slot k - 1 (an
+# admission prefers a slot holding no cached prefix), and no warmup step
+# reaches it first
 SERVER_MODES = {
     "serial": (MODEL, ["--prefill-pack", "1", "--spec-draft", "0", "--turbo-steps", "0",
                        "--no-prefix-cache", "--no-warmup"]),
@@ -559,6 +576,18 @@ SERVER_MODES = {
     "olmo": (OLMO, []),
     "qwen3moe": (QWEN_MOE, []),
     "w8": (MODEL, ["--quantize", "int8"]),
+    "robust": (MODEL, ["--qos-rps", "0.05", "--qos-burst", "2", "--qos-tenant-inflight", "1", "--no-warmup"]),
+}
+ROBUST_WATCHDOG_S = 4.0
+ROBUST_HANG_S = 10.0
+ROBUST_HANG_SLOT = 7
+ROBUST_PROFILE_DIR = ROOT / "build" / "chip_smoke_robust_profile"
+ROBUST_ENV = {
+    "DTPU_ENGINE_WATCHDOG_SECONDS": str(ROBUST_WATCHDOG_S),
+    "DTPU_FAULT_PLAN": json.dumps({"seed": 0, "rules": [{
+        "point": "serve.engine.step", "action": "hang", "seconds": ROBUST_HANG_S,
+        "ctx": {"slot": ROBUST_HANG_SLOT}, "times": 1}]}),
+    "DTPU_PROFILER_DIR": str(ROBUST_PROFILE_DIR),
 }
 
 # the request features beside plain completions (logprobs, n, tools,
@@ -2213,9 +2242,10 @@ def _text(n: int, step: int = 7, shift: int = 0) -> str:
 
 
 @contextlib.contextmanager
-def _server(name: str, model: str, flags: list):
+def _server(name: str, model: str, flags: list, env=None):
     """``python -m dstack_tpu_torch.serve.openai_server`` on a free port,
-    with no ``--device`` flag (cuda is the server's default) → (base URL,
+    with no ``--device`` flag (cuda is the server's default) and ``env``
+    added to this process's environment → (base URL,
     the first ``/health``, seconds to ready, the start-up warmup's seconds
     from its log or None). A fresh process: every count starts at 0. The
     process is stopped on the way out; its log is
@@ -2229,7 +2259,7 @@ def _server(name: str, model: str, flags: list):
             [sys.executable, "-m", "dstack_tpu_torch.serve.openai_server",
              "--model", model, "--decode-kernel", "flash",
              "--port", str(port), "--seed", "0", *flags],
-            cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT,
+            cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT, env={**os.environ, **(env or {})},
         )
         try:
             t0 = time.perf_counter()
@@ -2366,6 +2396,8 @@ def path_phase(mode: str) -> dict:
     """One server process in ``mode`` (SERVER_MODES), driven and checked
     → its counts and serving metrics."""
     model, flags = SERVER_MODES[mode]
+    if mode == "robust":
+        return robust_phase()
     maker = None
     if mode == "w8":  # this process's copy of the server's tree, made while the server makes its own
         maker = threading.Thread(target=w8_llama_tree)
@@ -2380,6 +2412,273 @@ def path_phase(mode: str) -> dict:
     finally:
         if maker is not None:
             maker.join()
+
+
+def _call(url: str, body=None, headers=None, timeout: float = 300) -> tuple:
+    """POST ``body`` (GET when None) → (status, response headers, JSON
+    body), an HTTP error status included."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def _families(base: str) -> set:
+    """The family names ``/metrics`` declares (its ``# TYPE`` lines)."""
+    with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+        return set(re.findall(r"^# TYPE (\S+) ", r.read().decode(), re.M))
+
+
+def _profile_kernels(trace_dir: Path) -> dict:
+    """The chrome trace the server's profiler wrote → {kernel name: [device
+    ms, launches]} over its device events (``cat`` kernel)."""
+    [trace] = sorted(trace_dir.glob("dtpu_trace_*.json"))
+    events = json.loads(trace.read_text())["traceEvents"]
+    out: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel" and "dur" in e:
+            row = out.setdefault(e["name"], [0.0, 0])
+            row[0] += e["dur"] / 1e3
+            row[1] += 1
+    return out
+
+
+def robust_phase() -> dict:
+    """The lifecycle server (SERVER_MODES["robust"], ROBUST_ENV): the JAX
+    server's request lifecycle on llama-3.2-1b at full width and depth on
+    the default engine (CUDA graphs, K1 and K4), each feature held to what
+    it must do:
+
+    1. QoS: a tenant's burst of three (a burst of 2, an in-flight cap of 1)
+       is two served, the second deferred at the cap, and one 429 with a
+       Retry-After; ``dtpu_qos_*`` counts the shed, the admissions and the
+       deferral.
+    2. A deadline of 1 s on a 1,900-token completion (eos banned) ends
+       mid-decode with a 504: a ``deadline_abort`` post-mortem names its
+       slot, ``dtpu_serve_deadline_expired_total`` is 1, and the slot is
+       free for the next request.
+    3. The planted hang (ROBUST_ENV's fault plan: ``serve.engine.step`` on
+       slot 7, once, for 10 s under a 4 s watchdog): seven requests fill
+       slots 0-6, the eighth takes slot 7 and gets the watchdog's 500, and
+       the request behind it gives the greedy tokens this server gave its
+       prompt before; one watchdog abort, and ``/debug/flight`` holds the
+       post-mortem naming slot 7 and the eighth request's trace.
+    4. A ``dtpu_resume`` continuation of a greedy chat (biased to the ASCII
+       ids, so the delivered text re-encodes to its tokens) gives the rest
+       of the uninterrupted text; a resume asking for logprobs is refused.
+    5. ``X-DTPU-Trace`` on every completion and chat response; a trace
+       continued from a header holds its request, queue, prefill and
+       decode spans in ``/debug/traces``; ``/debug/boot`` lists the
+       start-up stages.
+    6. ``/metrics`` declares every family of the port's serve, QoS, trace,
+       SLO, flight and boot registries (the families the JAX server
+       renders: held equal on the CPU), and the four lifecycle families
+       read what the scenario fed them.
+    7. ``/debug/profiler/start``, three 300-token requests of 32 tokens,
+       ``/stop``: a chrome trace whose device events name K1's and K4's
+       kernels; the device ms by kernel name over the window is logged
+       with the card (no claim rides on it).
+    8. The launch identities of the default server: K1 n_layers a serial
+       chunk, K4 n_layers a device step (the abandoned step dispatched
+       nothing)."""
+    from dstack_tpu_torch.obs import boot as obs_boot
+    from dstack_tpu_torch.obs import flight as obs_flight
+    from dstack_tpu_torch.obs import slo as obs_slo
+    from dstack_tpu_torch.obs import tracing as obs_tracing
+    from dstack_tpu_torch.qos import metrics as qos_metrics
+    from dstack_tpu_torch.serve.metrics import new_serve_registry
+
+    model, flags = SERVER_MODES["robust"]
+    c = llama.CONFIGS[model]
+    shutil.rmtree(ROBUST_PROFILE_DIR, ignore_errors=True)
+    checks: dict = {}
+    traced: list = []  # every completion and chat response's (status, its X-DTPU-Trace)
+
+    def call(base, path, body, tenant, **headers):
+        status, hdrs, data = _call(base + path, body, {"X-DTPU-Tenant": tenant, **headers})
+        traced.append((status, hdrs.get("X-DTPU-Trace")))
+        return status, hdrs, data
+
+    with _server("robust", model, flags, env=ROBUST_ENV) as (base, h0, ready_s, _):
+        if any(_counts(h0).values()) or h0["device"] != DEVICE:
+            raise AssertionError(f"[robust] counts not zero, or not on the card, before the phase: {h0}")
+        t_phase = time.perf_counter()
+        same = _text(40, shift=3)
+        one = {"prompt": same, "max_tokens": 64, "temperature": 0}
+        status, _, base_body = call(base, "/v1/completions", one, "r1")  # slot 0
+        if status != 200:
+            raise AssertionError(f"[robust] the baseline failed: {status} {base_body}")
+        trace_ids = []
+        for i in range(2, 8):  # slots 1-6, each a continued trace
+            tid = f"{i:016x}"
+            status, hdrs, body = call(base, "/v1/completions", {"prompt": _text(20 + i), "max_tokens": 8},
+                                      f"r{i}", **{"X-DTPU-Trace": f"{tid}-{i:08x}"})
+            if status != 200 or hdrs.get("X-DTPU-Trace") != tid:
+                raise AssertionError(f"[robust] request {i}: {status} {hdrs} {body}")
+            trace_ids.append(tid)
+        # 3. the eighth request takes slot 7 and wedges; the next waits behind it
+        victim_trace = "00000000000000ee"
+        out: dict = {}
+
+        def send(key, body, tenant, **headers):
+            out[key] = call(base, "/v1/completions", body, tenant, **headers)
+
+        t_wedge = time.perf_counter()
+        th_v = threading.Thread(target=send, args=("victim", {"prompt": _text(40, shift=9), "max_tokens": 64},
+                                                  "victim"), kwargs={"X-DTPU-Trace": f"{victim_trace}-000000ee"})
+        th_v.start()
+        time.sleep(0.5)
+        th_s = threading.Thread(target=send, args=("survivor", one, "survivor"))
+        th_s.start()
+        th_v.join(timeout=120)
+        th_s.join(timeout=120)
+        wedge_s = time.perf_counter() - t_wedge
+        (vs, _, vbody), (ss, _, sbody) = out["victim"], out["survivor"]
+        flight_view = _call(base + "/debug/flight?limit=4&postmortems=4")[2]
+        pm = [p for p in flight_view["postmortems"] if p["reason"] == "watchdog_abort"]
+        if not (vs == 500 and vbody == {"detail": "engine watchdog aborted a wedged decode step"}
+                and ss == 200 and sbody["choices"][0]["text"] == base_body["choices"][0]["text"]
+                and sbody["usage"] == base_body["usage"] and len(pm) == 1
+                and pm[0]["ctx"]["wedge"] == f"slot:{ROBUST_HANG_SLOT}"
+                and pm[0]["ctx"]["slots"].get(str(ROBUST_HANG_SLOT)) == victim_trace
+                and pm[0]["records"][-1]["phase"] == "wedge"):
+            raise AssertionError(f"[robust] the watchdog: victim {vs} {vbody}, survivor {ss} {sbody} against "
+                                 f"{base_body}, post-mortems {json.dumps(flight_view['postmortems'])[:3000]}")
+        checks["watchdog"] = {"seconds": round(wedge_s, 3), "survivor_tokens": sbody["usage"]["completion_tokens"],
+                              "postmortem_ctx": pm[0]["ctx"]}
+        # 1. QoS: three at once from one tenant
+        burst: list = [None] * 3
+
+        def burst_one(i):
+            burst[i] = call(base, "/v1/completions", {"prompt": _text(30 + i), "max_tokens": 32}, "qa")
+
+        ths = [threading.Thread(target=burst_one, args=(i,)) for i in range(3)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=120)
+        statuses = sorted(b[0] for b in burst)
+        shed = [b for b in burst if b[0] == 429]
+        m = _scrape(base)
+        qos_counts = {k: m.get(f'{k}{{tenant="qa"}}') for k in (
+            "dtpu_qos_admitted_total", "dtpu_qos_shed_total", "dtpu_qos_inflight_deferred_total")}
+        if not (statuses == [200, 200, 429] and int(shed[0][1].get("Retry-After", 0)) >= 1
+                and qos_counts == {"dtpu_qos_admitted_total": 2.0, "dtpu_qos_shed_total": 1.0,
+                                   "dtpu_qos_inflight_deferred_total": 1.0}):
+            raise AssertionError(f"[robust] QoS: {burst} {qos_counts}")
+        checks["qos"] = {"statuses": statuses, "retry_after": shed[0][1]["Retry-After"], **qos_counts}
+        # 2. a deadline that ends a long decode, its sampled path's sites
+        # captured first: without the warmup their first captures eat into
+        # the deadline (one run decoded 14 tokens in its second, another 115)
+        no_eos = {"logit_bias": {str(EOS_ID): -100}}
+        call(base, "/v1/completions", {"prompt": _text(40, shift=6), "max_tokens": 16, **no_eos}, "dl0")
+        tok0 = _scrape(base)["dtpu_serve_tokens_generated_total"]
+        status, _, body = call(base, "/v1/completions",
+                               {"prompt": _text(40, shift=5), "max_tokens": 1900, **no_eos},
+                               "dl", **{"X-DTPU-Deadline": "1"})
+        m = _scrape(base)
+        h = _get(base + "/health")
+        pms = _call(base + "/debug/flight?limit=1&postmortems=4")[2]["postmortems"]
+        dl_tokens = m["dtpu_serve_tokens_generated_total"] - tok0
+        after = call(base, "/v1/completions", {"prompt": _text(30), "max_tokens": 8}, "dl2")[0]
+        if not (status == 504 and body == {"detail": "request deadline exceeded"}
+                and m["dtpu_serve_deadline_expired_total"] == 1 and 1 < dl_tokens < 1900
+                and pms[-1]["reason"] == "deadline_abort" and h["inflight"] == 0 and h["active_slots"] == 0
+                and after == 200):
+            raise AssertionError(f"[robust] the deadline: {status} {body}, {dl_tokens} tokens, {pms[-1:]}, "
+                                 f"inflight {h['inflight']}, next request {after}")
+        checks["deadline"] = {"tokens_before_expiry": dl_tokens, "slots": pms[-1]["ctx"]["slots"]}
+        # 4. resume: ASCII only, so the delivered text re-encodes to its
+        # tokens (a bias of +100 on the 128 ASCII ids: banning the other
+        # 128k would be a body past aiohttp's 1 MB limit)
+        ascii_only = {str(i): 100 for i in range(128)}
+        chat = {"messages": [{"role": "user", "content": "Tell me about foxes."}], "max_tokens": 16,
+                "temperature": 0, "logit_bias": ascii_only}
+        status, _, full = call(base, "/v1/chat/completions", chat, "rs")
+        text = full["choices"][0]["message"]["content"]
+        cut = 6
+        rstatus, _, rbody = call(base, "/v1/chat/completions", {**chat, "dtpu_resume": {"text": text[:cut]}},
+                                 "rs2", **{"X-DTPU-Resume": "1"})
+        lstatus, _, lbody = call(base, "/v1/chat/completions",
+                                 {**chat, "logprobs": True, "dtpu_resume": {"text": text[:cut]}}, "rs3",
+                                 **{"X-DTPU-Resume": "1"})
+        rest = rbody["choices"][0]["message"]["content"] if rstatus == 200 else None
+        if not (status == rstatus == 200 and len(text) == 16 and rest == text[cut:]
+                and lstatus == 400 and lbody == {"detail": "a resumed continuation cannot carry logprobs"}):
+            raise AssertionError(f"[robust] resume: {text!r} then {rest!r} ({rstatus}), logprobs {lstatus} {lbody}")
+        checks["resume"] = {"text": text, "continuation": rest}
+        # 5. traces and boot
+        spans = _call(base + f"/debug/traces?id={trace_ids[-1]}")[2]["trace"]["spans"]
+        names = {sp["name"] for sp in spans}
+        boot_view = _call(base + "/debug/boot")[2]
+        stages = [e["stage"] for e in boot_view["timeline"]]
+        # the kernels' build is the card's share of warmup_compile, before the config
+        want_stages = ["warmup_compile"] * (h0["device"] == "cuda") + [
+            "config_load", "weights_load", "engine_init", "tokenizer_load", "listener_up",
+            obs_boot.READY_MARK, obs_boot.SERVED_MARK]
+        untraced = [t for t in traced if not t[1]]
+        if not (names >= {"serve.request", "serve.queue", "serve.prefill", "serve.decode"} and not untraced
+                and stages == want_stages):
+            raise AssertionError(f"[robust] traces {names}, untraced responses {untraced}, boot stages {stages}")
+        checks["trace_spans"] = sorted(names)
+        checks["boot"] = boot_view["summary"]["stages"]
+        # 7. the live profiler, its shapes captured first
+        profiled = {"prompt": _text(300, shift=1), "max_tokens": 32, "temperature": 0}
+        call(base, "/v1/completions", profiled, "p0")
+        started = _call(base + "/debug/profiler/start", {})
+        for i in range(1, 4):
+            call(base, "/v1/completions", {**profiled, "prompt": _text(300, shift=1 + i)}, f"p{i}")
+        stopped = _call(base + "/debug/profiler/stop", {})
+        if not (started[:1] == (200,) and started[2] == {"tracing": True, "dir": str(ROBUST_PROFILE_DIR)}
+                and stopped[:1] == (200,) and stopped[2] == {"tracing": False, "dir": str(ROBUST_PROFILE_DIR)}):
+            raise AssertionError(f"[robust] profiler replies: {started} {stopped}")
+        by_kernel = _profile_kernels(ROBUST_PROFILE_DIR)
+        mine = {name: [sum(v[i] for k, v in by_kernel.items() if sym in k) for i in (0, 1)]
+                for name, sym in (("K1", "flash_fwd_kernel"), ("K4", "flash_decode_kernel"),
+                                  ("K4_combine", "flash_decode_combine_kernel"))}
+        k1, k4 = mine["K1"][1], mine["K4"][1]
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+        log(f"[robust] live profiler, llama-3.2-1b at full depth, 3 requests of 300 + 32 tokens: device ms and "
+            f"launches by kernel over the traced window ({card_line()}): hand-written "
+            + json.dumps({k: [round(v[0], 3), v[1]] for k, v in mine.items()}) + "; the 12 largest "
+            + json.dumps({k[:120]: [round(v[0], 3), v[1]] for k, v in top})
+            + f"; total {sum(v[0] for v in by_kernel.values()):.3f} ms over {len(by_kernel)} kernels")
+        if not (k1 and k4):
+            raise AssertionError(f"[robust] the profiler's trace names no K1 ({k1}) or K4 ({k4}) launch: "
+                                 f"{sorted(by_kernel)[:40]}")
+        checks["profiler"] = {"by_kernel": mine, "device_ms": round(sum(v[0] for v in by_kernel.values()), 3)}
+        # 6. every family, the lifecycle families fed
+        fams = _families(base)
+        want = set()
+        for reg in (new_serve_registry(), qos_metrics.new_qos_registry(), obs_tracing.new_trace_registry(),
+                    obs_slo.new_slo_registry(), obs_flight.new_flight_registry(), obs_boot.new_boot_registry()):
+            want |= set(reg.metric_names())
+        m = _scrape(base)
+        fed = {k: m[k] for k in ("dtpu_serve_watchdog_aborts_total", "dtpu_serve_deadline_expired_total",
+                                 "dtpu_serve_resumed_requests_total", "dtpu_serve_postmortems_total")}
+        if not (want <= fams and fed == {"dtpu_serve_watchdog_aborts_total": 1.0,
+                                         "dtpu_serve_deadline_expired_total": 1.0,
+                                         "dtpu_serve_resumed_requests_total": 1.0,
+                                         "dtpu_serve_postmortems_total": 2.0}):
+            raise AssertionError(f"[robust] /metrics lacks {sorted(want - fams)} or reads {fed}")
+        checks["metrics"] = {"families": len(fams), **fed}
+        # 8. the launch identities
+        h = _get(base + "/health")
+        st, launches, variants = _since(h, h0)
+        n = c.n_layers
+        serial_chunks = st["prefill_dispatches"] - st["packed_dispatches"]
+        steps = st["decode_steps"] + st["spec_steps"] + st["turbo_device_steps"]
+        if not (launches["flash_fwd"] == n * serial_chunks and serial_chunks
+                and launches["flash_decode"] == n * steps and steps
+                and variants["bf16_decode"] + variants["bf16_verify"] == launches["flash_decode"]):
+            raise AssertionError(f"[robust] launches {launches} {variants} against {st}")
+        phase_s = round(time.perf_counter() - t_phase, 1)
+    report = {"launches": {**launches, **variants}, "stats": st, "ready_s": ready_s, "seconds": phase_s, **checks}
+    log("[robust] " + json.dumps(report))
+    return report
 
 
 _W8_TREE: dict = {}

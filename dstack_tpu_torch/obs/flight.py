@@ -1,9 +1,14 @@
-"""Engine flight recorder, compile accounting part (own copy of
-``dstack_tpu.obs.flight``'s ring and compile accounting, no JAX import).
+"""Engine flight recorder (own copy of ``dstack_tpu.obs.flight``, no JAX
+import): per-step timeline, compile accounting, device-memory
+watermarks, and watchdog post-mortems.
 
-- **Flight ring.** A bounded per-process ring of records written with
-  host-side data only (:func:`record`); the engine writes its ``compile``
-  and ``recompile`` records here.
+- **Flight ring.** A bounded per-process ring of per-step flight
+  records written by ``InferenceEngine.step()``, ``prefill_step()`` and
+  ``prefill_wave()`` with host-side data only (no device sync, and never
+  inside a step site): step seq, phase (``prefill``/``prefill_packed``/
+  ``decode``/``spec``/``turbo``), batch composition (live slots, G/C
+  bucket, packed rows), host-side vs dispatch wall time, tokens emitted,
+  KV/prefix occupancy, and the trace ids riding the step.
 - **Compile accounting.** :func:`watch_jit` wraps each of the engine's
   compiled step sites (``serve/graphs.py``: a CUDA graph captured per
   key on the card, the same site run eagerly on the CPU) so that a
@@ -14,9 +19,16 @@
   A compile observed after the engine declared itself warm is a
   **steady-state recompile** (``recompile`` ring record,
   ``dtpu_serve_recompiles_total{fn}``, WARNING log).
-
-Left for ROADMAP A4, with the watchdog they serve: post-mortems, the
-device-memory poll and ``/debug/flight``.
+- **Device-memory watermarks.** The caching allocator's counts
+  (``torch.cuda.memory_stats()``: no CUDA call, so no stream sync and
+  nothing a graph capture on another thread could trip over), polled at
+  a bounded interval into gauges and per-record peak fields; a process
+  that has not initialised CUDA (the CPU) reports an honest
+  ``available: false`` instead of zeros, as JAX's CPU backend does.
+- **Post-mortems.** On a watchdog abort, engine exception, prefill
+  failure, or deadline batch-abort, :func:`post_mortem` snapshots the
+  last N flight records + the wedge attribution + compile/memory state
+  into a bounded buffer, exposed with the ring via ``GET /debug/flight``.
 
 Zero cost when disabled, as in JAX: :func:`record` is bound to
 :func:`_noop_record` until a recorder is installed, and :func:`watch_jit`
@@ -37,46 +49,165 @@ from dstack_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("obs.flight")
 
+__all__ = [
+    "DEFAULT_BUFFER",
+    "POSTMORTEM_KEEP",
+    "POSTMORTEM_RECORDS",
+    "FlightRecorder",
+    "JitWatch",
+    "watch_jit",
+    "record",
+    "enabled",
+    "enable",
+    "disable",
+    "get_recorder",
+    "post_mortem",
+    "maybe_poll_memory",
+    "health_summary",
+    "debug_payload",
+    "read_device_memory",
+    "new_flight_registry",
+    "get_flight_registry",
+]
+
 DEFAULT_BUFFER = 512
+POSTMORTEM_KEEP = 16  # bounded post-mortem buffer
+POSTMORTEM_RECORDS = 32  # ring records snapshotted per post-mortem
 COMPILE_EVENTS_KEEP = 128  # recent compile events retained verbatim
+MEM_POLL_INTERVAL_S = 0.5  # device-memory poll throttle
 
 
 def _tail(seq, n) -> list:
-    """Last ``n`` items as plain dict copies (0 means none)."""
+    """Last ``n`` items as plain dict copies (``[-0:]`` would be the
+    WHOLE list — 0 must mean none)."""
     n = max(0, int(n))
     if n == 0:
         return []
     return [dict(x) for x in list(seq)[-n:]]
 
 
+def new_flight_registry() -> Registry:
+    """Registry pre-populated with the recorder's own bookkeeping
+    families (the compile/memory families live in the ENGINE's serve
+    registry — ``serve/metrics.py`` — so per-replica ``/metrics``
+    pages stay per-replica)."""
+    r = Registry()
+    r.counter(
+        "dtpu_flight_records_total",
+        "Flight records written to this process's bounded ring "
+        "(engine steps, prefill waves, compile/recompile events, "
+        "wedge markers)",
+    )
+    r.counter(
+        "dtpu_flight_postmortems_total",
+        "Post-mortem snapshots captured (watchdog aborts, engine "
+        "exceptions, prefill failures, deadline batch-aborts) into "
+        "the bounded post-mortem buffer",
+    )
+    return r
+
+
+_registry: Optional[Registry] = None
+
+
+def get_flight_registry() -> Registry:
+    """The process-global flight registry (rendered on the OpenAI
+    server's ``/metrics``)."""
+    global _registry
+    if _registry is None:
+        _registry = new_flight_registry()
+    return _registry
+
+
+def read_device_memory() -> Optional[dict]:
+    """The caching allocator's counts summed over this process's cards →
+    ``{"bytes_in_use", "peak_bytes_in_use", "bytes_limit", "devices"}``,
+    or None when the process has not initialised CUDA (the CPU: the
+    honest ``unavailable``, never a fake zero). ``memory_stats`` reads the
+    allocator's host-side books and the limit is the cached device
+    property: no CUDA call, so no stream sync. Imports torch lazily."""
+    try:
+        import torch
+
+        if not torch.cuda.is_initialized():
+            return None
+        n = torch.cuda.device_count()
+    except Exception:  # noqa: BLE001 - no CUDA runtime = no stats
+        return None
+    in_use = peak = limit = 0
+    for d in range(n):
+        s = torch.cuda.memory_stats(d)
+        in_use += int(s.get("allocated_bytes.all.current", 0))
+        peak += int(s.get("allocated_bytes.all.peak", 0))
+        limit += int(torch.cuda.get_device_properties(d).total_memory)
+    return {
+        "bytes_in_use": in_use,
+        "peak_bytes_in_use": peak,
+        "bytes_limit": limit,
+        "devices": n,
+    }
+
+
 class FlightRecorder:
-    """Bounded ring of flight records and the per-fn compile counts.
-    Thread-safe: the engine writes from the server's worker thread while
-    the event loop reads; one lock covers everything."""
+    """Bounded ring of flight records + compile/memory/post-mortem
+    state.
+
+    Thread-safe: the engine writes from a worker thread
+    (``asyncio.to_thread`` dispatches) while ``/debug/flight`` and the
+    watchdog read from the event loop; one lock covers everything."""
 
     def __init__(self, buffer: int = DEFAULT_BUFFER):
         self.buffer = max(16, int(buffer))
         self._lock = threading.Lock()
         self._ring: deque = deque(maxlen=self.buffer)
         self._seq = 0
+        self._postmortems: deque = deque(maxlen=POSTMORTEM_KEEP)
+        # monotonic capture count: the bounded deque SATURATES at
+        # POSTMORTEM_KEEP, so deltas (the soak artifact) and probe
+        # signals must read this, never len(deque)
+        self._postmortems_total = 0
+        # compile accounting (per fn name; the causing bucket key rides
+        # the per-event entries and the ring)
         self._compiles: dict = {}
         self._recompiles: dict = {}
         self._compile_seconds: dict = {}
         self._compile_events: deque = deque(maxlen=COMPILE_EVENTS_KEEP)
+        # device-memory watermarks (throttled poll; running peak)
+        self._mem: dict = {"available": False}
+        self._mem_t = 0.0
+
+    # -- the ring --
 
     def record(self, phase: str = "step", **fields) -> None:
-        """Append one flight record (host-side plain values only)."""
+        """Append one flight record. All values must already be
+        host-side plain data (the engine's contract — never a device
+        array)."""
         with self._lock:
             self._seq += 1
-            entry: dict = {"seq": self._seq, "t": round(time.time(), 6), "phase": phase}
+            entry: dict = {
+                "seq": self._seq,
+                "t": round(time.time(), 6),
+                "phase": phase,
+            }
+            if self._mem.get("available"):
+                # per-record watermark: the latest polled peak
+                entry["mem_peak_bytes"] = self._mem.get("peak_bytes_in_use")
             for k, v in fields.items():
                 if v is not None:
                     entry[k] = v
             self._ring.append(entry)
+        get_flight_registry().family("dtpu_flight_records_total").inc(1)
+        return None
+
+    @property
+    def seq(self) -> int:
+        return self._seq
 
     def records(self, limit: int = 50) -> list:
         with self._lock:
             return _tail(self._ring, limit)
+
+    # -- compile accounting --
 
     def note_compile(
         self,
@@ -121,17 +252,160 @@ class FlightRecorder:
             )
 
     def compile_totals(self) -> dict:
-        """Cumulative per-fn compile accounting."""
+        """Cumulative per-fn compile accounting — what the soak
+        artifact deltas over a run."""
         with self._lock:
             return {
                 "compiles": dict(self._compiles),
                 "recompiles": dict(self._recompiles),
-                "seconds": {k: round(v, 6) for k, v in self._compile_seconds.items()},
+                "seconds": {
+                    k: round(v, 6) for k, v in self._compile_seconds.items()
+                },
             }
 
     def compile_events(self, limit: int = COMPILE_EVENTS_KEEP) -> list:
         with self._lock:
             return _tail(self._compile_events, limit)
+
+    # -- device-memory watermarks --
+
+    def maybe_poll_memory(self, registry: Optional[Registry] = None) -> dict:
+        """Throttled device-memory poll (at most one read of the
+        allocator's books per :data:`MEM_POLL_INTERVAL_S`); updates the gauges in
+        ``registry`` when stats are available and keeps the running
+        peak for per-record watermark fields."""
+        now = time.monotonic()
+        with self._lock:
+            if now - self._mem_t < MEM_POLL_INTERVAL_S:
+                return dict(self._mem)
+            self._mem_t = now
+        stats = read_device_memory()
+        with self._lock:
+            if stats is None:
+                self._mem = {"available": False}
+            else:
+                prev_peak = self._mem.get("peak_bytes_in_use", 0) or 0
+                self._mem = {
+                    "available": True,
+                    "bytes_in_use": stats["bytes_in_use"],
+                    # running high-water mark: backends that reset
+                    # peak_bytes_in_use between queries still report
+                    # the true process peak here
+                    "peak_bytes_in_use": max(
+                        prev_peak, stats["peak_bytes_in_use"]
+                    ),
+                    "bytes_limit": stats["bytes_limit"],
+                    "devices": stats["devices"],
+                }
+            mem = dict(self._mem)
+        if registry is not None and mem.get("available"):
+            registry.family("dtpu_serve_device_memory_bytes_in_use").set(
+                mem["bytes_in_use"]
+            )
+            registry.family("dtpu_serve_device_memory_peak_bytes").set(
+                mem["peak_bytes_in_use"]
+            )
+        return mem
+
+    def memory(self) -> dict:
+        with self._lock:
+            return dict(self._mem)
+
+    # -- post-mortems --
+
+    def post_mortem(
+        self, reason: str, registry: Optional[Registry] = None, **ctx
+    ) -> dict:
+        """Snapshot the recorder's state at a failure: the last
+        :data:`POSTMORTEM_RECORDS` ring records, compile accounting,
+        and memory watermarks, plus the caller's context (wedge
+        attribution, affected slots/traces, error text). ``registry``
+        (the owning ENGINE's) additionally counts the capture into
+        ``dtpu_serve_postmortems_total`` so multi-engine processes
+        attribute post-mortems per replica."""
+        with self._lock:
+            self._postmortems_total += 1
+            pm: dict = {
+                "reason": reason,
+                "t": round(time.time(), 6),
+                "seq": self._seq,
+                "records": [
+                    dict(r)
+                    for r in list(self._ring)[-POSTMORTEM_RECORDS:]
+                ],
+                "compile": {
+                    "compiles": dict(self._compiles),
+                    "recompiles": dict(self._recompiles),
+                },
+                "memory": dict(self._mem),
+            }
+            if ctx:
+                pm["ctx"] = {
+                    k: v for k, v in ctx.items() if v is not None
+                }
+            self._postmortems.append(pm)
+        get_flight_registry().family("dtpu_flight_postmortems_total").inc(1)
+        if registry is not None:
+            registry.family("dtpu_serve_postmortems_total").inc(1)
+        logger.warning(
+            "flight post-mortem captured: %s (seq %d, %d records)",
+            reason, pm["seq"], len(pm["records"]),
+        )
+        return pm
+
+    def postmortems(self, limit: int = POSTMORTEM_KEEP) -> list:
+        with self._lock:
+            return _tail(self._postmortems, limit)
+
+    def postmortems_total(self) -> int:
+        """Monotonic capture count (never saturates, unlike the
+        bounded snapshot buffer) — what deltas must read."""
+        with self._lock:
+            return self._postmortems_total
+
+    # -- summaries --
+
+    def health_summary(self) -> dict:
+        """The compact block ``/health`` embeds so probes can see a
+        replica mid compile storm (compiles/recompiles climbing) or
+        accumulating post-mortems."""
+        with self._lock:
+            return {
+                "enabled": True,
+                "seq": self._seq,
+                "compiles": int(sum(self._compiles.values())),
+                "recompiles": int(sum(self._recompiles.values())),
+                "postmortems": self._postmortems_total,
+            }
+
+    def snapshot(
+        self, limit: int = 50, postmortems: int = POSTMORTEM_KEEP
+    ) -> dict:
+        with self._lock:
+            fns = sorted(set(self._compiles) | set(self._recompiles))
+            compile_block = {
+                "fns": {
+                    fn: {
+                        "compiles": self._compiles.get(fn, 0),
+                        "recompiles": self._recompiles.get(fn, 0),
+                        "seconds": round(
+                            self._compile_seconds.get(fn, 0.0), 6
+                        ),
+                    }
+                    for fn in fns
+                },
+                "events": [
+                    dict(e) for e in list(self._compile_events)[-20:]
+                ],
+            }
+            return {
+                "enabled": True,
+                "seq": self._seq,
+                "records": _tail(self._ring, limit),
+                "compile": compile_block,
+                "memory": dict(self._mem),
+                "postmortems": _tail(self._postmortems, postmortems),
+            }
 
 
 class JitWatch:
@@ -202,11 +476,19 @@ def watch_jit(
     return JitWatch(fn, name, registry, key=key, warm=warm, on_compile=on_compile)
 
 
+
+# ---------------------------------------------------------------------------
+# module-level no-op fast path (the faults.fire idiom)
+# ---------------------------------------------------------------------------
+
+
 def _noop_record(phase: str = "step", **fields) -> None:
     return None
 
 
-# the installed recorder (None = disabled); `record` is rebound on enable
+# the installed recorder (None = disabled); `record` is REBOUND on
+# enable so the disabled path is one no-op call — tests assert
+# `flight.record is flight._noop_record` to pin the zero-cost contract
 _recorder: Optional[FlightRecorder] = None
 record = _noop_record
 
@@ -220,7 +502,8 @@ def get_recorder() -> Optional[FlightRecorder]:
 
 
 def enable(buffer: int = DEFAULT_BUFFER) -> FlightRecorder:
-    """Install a fresh recorder (rebinding :func:`record`) and return it."""
+    """Install a fresh recorder (rebinding :func:`record`) and return
+    it."""
     global _recorder, record
     rec = FlightRecorder(buffer=buffer)
     _recorder = rec
@@ -235,9 +518,55 @@ def disable() -> None:
     record = _noop_record
 
 
+def post_mortem(
+    reason: str, registry: Optional[Registry] = None, **ctx
+) -> Optional[dict]:
+    if _recorder is None:
+        return None
+    return _recorder.post_mortem(reason, registry=registry, **ctx)
+
+
+def maybe_poll_memory(registry: Optional[Registry] = None) -> Optional[dict]:
+    if _recorder is None:
+        return None
+    return _recorder.maybe_poll_memory(registry)
+
+
+def health_summary() -> dict:
+    if _recorder is None:
+        return {"enabled": False}
+    return _recorder.health_summary()
+
+
+def debug_payload(query) -> dict:
+    """The ``GET /debug/flight`` response body (``query`` is any
+    mapping of string query params: ``limit`` bounds the returned
+    records, ``postmortems`` bounds the post-mortem list)."""
+    if _recorder is None:
+        return {"enabled": False, "records": [], "postmortems": []}
+    try:
+        limit = max(1, int(query.get("limit") or 50))
+    except (TypeError, ValueError):
+        limit = 50
+    try:
+        pms = max(0, int(query.get("postmortems") or POSTMORTEM_KEEP))
+    except (TypeError, ValueError):
+        pms = POSTMORTEM_KEEP
+    return _recorder.snapshot(limit=limit, postmortems=pms)
+
+
+def _env_on(name: str, default: str) -> bool:
+    return os.getenv(name, default).strip().lower() not in (
+        "0", "false", "no",
+    )
+
+
 def _install_from_env() -> None:
-    """Install the recorder at import per ``DTPU_FLIGHT`` (default on)."""
-    if os.getenv("DTPU_FLIGHT", "1").strip().lower() in ("0", "false", "no"):
+    """Install the recorder at import per ``DTPU_FLIGHT`` (default ON
+    — the ring is bounded and a record is a handful of dict writes per
+    engine STEP, not per token; ``DTPU_FLIGHT=0`` restores the no-op
+    binding)."""
+    if not _env_on("DTPU_FLIGHT", "1"):
         return
     try:
         buffer = int(os.getenv("DTPU_FLIGHT_BUFFER", "") or DEFAULT_BUFFER)

@@ -2,7 +2,9 @@
 
 Each ``csrc/<name>.cu`` is one shared library with a plain C interface,
 compiled by ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at the
-root of the checkout and loaded with ``ctypes``. The library's file name
+root of the checkout (or the directory :func:`set_build_dir` names: the
+server's ``--compile-cache``, ``DSTACK_TPU_COMPILE_CACHE``, a volume that
+outlives the process) and loaded with ``ctypes``. The library's file name
 carries a hash of its sources and flags, so an edited source rebuilds
 and a stale library is never loaded. :func:`build_all` starts one
 ``nvcc`` per source, all at once, so a cold build costs the slowest
@@ -50,8 +52,16 @@ def _nvcc() -> str:
     )
 
 
+def set_build_dir(path) -> Path:
+    """Build and load the libraries under ``path`` from now on (a library
+    already loaded in this process stays loaded) → the directory."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).expanduser().resolve()
+    return BUILD_DIR
+
+
 def library_path(name: str) -> Path:
-    """``build/torch_kernels/<name>-<hash>.so`` for the current sources."""
+    """``BUILD_DIR/<name>-<hash>.so`` for the current sources."""
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.name.encode())

@@ -98,6 +98,7 @@ from typing import Optional
 
 import torch
 
+from dstack_tpu_torch import faults
 from dstack_tpu_torch.models.llama import (
     LlamaConfig,
     _attn_input,
@@ -176,6 +177,9 @@ class GenParams:
     stop: Optional[list] = None  # stop strings (matched by the server)
     # None = off; n >= 0 = collect logprobs with n alternatives (<= 5)
     logprobs: Optional[int] = None
+    # the request's trace id (the server's root span): the TTFT and TPOT
+    # histograms attach it as the exemplar of the bucket it lands in
+    trace_id: Optional[str] = None
 
 
 # ---------------------------------------------------------------------------
@@ -1259,6 +1263,18 @@ class InferenceEngine:
             "ttft_max_s": 0.0,
         }
         self._admit_t0: dict[int, float] = {}
+        self._trace_ids: dict[int, str] = {}  # slot → exemplar trace id
+        # watchdog plumbing, as in JAX: the server runs step() on a worker
+        # thread and may give up on a wedged one (abandon_step). The
+        # abandoned thread checks the epoch after every pre-dispatch fault
+        # point, so its eventual return never touches slot state (or a
+        # step site's buffers) the scheduler has reused since
+        self._step_epoch = 0
+        self._step_wedge: Optional[tuple] = None  # ("slot", i) | ("dispatch",)
+        # extra context merged into every serve.engine.step fire and flight
+        # record (a harness with several engines in one process sets e.g.
+        # {"replica": "r1"} so a fault rule can target one engine)
+        self.fault_ctx: dict = {}
         # the compiled step sites (serve/graphs.py), with the JAX jit
         # sites' names and keys: CUDA graphs on the card unless
         # graphs=False, the same functions run eagerly on the CPU. Each is
@@ -1495,10 +1511,19 @@ class InferenceEngine:
         last_ix = (tp - 1 - start) if final else (cl - 1)
         # the chunk and its index in one upload, outside the site
         up = torch.tensor([chunk + [last_ix]], dtype=torch.long, device=self.device)
+        t0 = time.perf_counter()
         logits = self._chunk_fn(cl, start)(up[:, :cl], self.slot_index(slot), up[0, cl:])
         self.stats["prefill_dispatches"] += 1
         self.metrics.family("dtpu_serve_prefill_dispatches_total").inc(1)
         self.metrics.family("dtpu_serve_prefill_pack_rows").observe(1)
+        if flight.enabled():
+            # host-side data only: the serial chunk at its (C, start) key
+            trace = st["gen"].trace_id
+            flight.record(
+                phase="prefill", slots=[slot], rows=1, g=1, cl=cl, start=start, final=final,
+                dispatch_s=round(time.perf_counter() - t0, 6),
+                traces={slot: trace} if trace else None, **self.fault_ctx,
+            )
         if not final:
             st["next"] = start + cl
             return None
@@ -1558,11 +1583,21 @@ class InferenceEngine:
         # the rows and their three columns in one upload, outside the site
         up = torch.tensor([r + [sl, s0, ix] for r, sl, s0, ix in zip(tok_rows, slot_ix, starts, last_ix)],
                           dtype=torch.long, device=self.device)
+        t0 = time.perf_counter()
         logits = self._packed_fn(g, cl)(up[:, :cl], up[:, cl], up[:, cl + 1], up[:, cl + 2])
         self.stats["prefill_dispatches"] += 1
         self.stats["packed_dispatches"] += 1
         self.metrics.family("dtpu_serve_prefill_dispatches_total").inc(1)
         self.metrics.family("dtpu_serve_prefill_pack_rows").observe(len(rows))
+        if flight.enabled():
+            # the wave's composition from its host lists: the (G, C) key,
+            # the real rows packed and their starts
+            flight.record(
+                phase="prefill_packed", g=g, cl=cl, rows=len(rows), slots=list(rows),
+                starts=starts[: len(rows)], dispatch_s=round(time.perf_counter() - t0, 6),
+                traces={s: states[s]["gen"].trace_id for s in rows if states[s]["gen"].trace_id} or None,
+                **self.fault_ctx,
+            )
         out: dict[int, int] = {}
         for i, s in enumerate(rows):
             st = self._prefilling.get(s)
@@ -1632,14 +1667,15 @@ class InferenceEngine:
         if gen.logprobs is not None:
             lp, tids, tlps = (a.tolist() for a in self._logprobs(logits, toks))
             self._last_logprobs[slot] = (lp[0], list(zip(tids[0], tlps[0])))
+        if gen.trace_id:
+            self._trace_ids[slot] = gen.trace_id
         t_admit = self._admit_t0.pop(slot, None)
         if t_admit is not None:
             ttft = time.perf_counter() - t_admit
             self.stats["ttft_count"] += 1
             self.stats["ttft_sum_s"] += ttft
             self.stats["ttft_max_s"] = max(self.stats["ttft_max_s"], ttft)
-            # exemplars wait for trace ids (ROADMAP A4)
-            self.metrics.family("dtpu_serve_ttft_seconds").observe(ttft)
+            self.metrics.family("dtpu_serve_ttft_seconds").observe(ttft, exemplar=gen.trace_id)
         self.metrics.family("dtpu_serve_tokens_generated_total").inc(1)
         self.active[slot] = True
         if self.prefix_cache:
@@ -1689,12 +1725,43 @@ class InferenceEngine:
             return []
         return h[j + n : j + n + self.spec_draft]
 
-    def step(self) -> dict:
+    def step(self, device_lock=None) -> dict:
         """Advance every active slot → {slot: [tokens]}. Slots that hit
         EOS, their budget or the cache end deactivate. A speculative or
-        turbo step may emit several tokens a slot; a plain step one."""
+        turbo step may emit several tokens a slot; a plain step one.
+
+        The ``serve.engine.step`` fault point fires once per live slot
+        with ctx ``slot=<i>`` first, on the host and before any step site
+        replays (a no-op call when no plan is installed): a raise is a
+        mid-decode engine failure, a hang with a ctx slot wedges exactly
+        that slot's step, the shape the server's watchdog attributes
+        (``_step_wedge``) and aborts (:meth:`abandon_step`). Only the
+        dispatch runs under ``device_lock`` (the server's lock that keeps
+        the kernels' launch counters exact), so a slot wedged in the fault
+        point holds no lock and the next step serves the other slots."""
+        epoch = self._step_epoch
+        t_all0 = time.perf_counter()
+        for i in range(self.max_batch):
+            if not self.active[i]:
+                continue
+            self._step_wedge = ("slot", i)
+            faults.fire("serve.engine.step", slot=i, **self.fault_ctx)
+            if epoch != self._step_epoch:
+                # abandoned while wedged here: the slot state may have been
+                # reused since, so return before touching anything
+                return {}
+        self._step_wedge = ("dispatch",)
         t0 = time.perf_counter()
-        out = self._step_dispatch()
+        if device_lock is None:
+            out = self._step_dispatch()
+        else:
+            with device_lock:
+                out = self._step_dispatch()
+        self._step_wedge = None
+        # no epoch check after the dispatch (JAX's order): its host and
+        # device mutations already happened; a dispatch-abandoned step is
+        # neutralised by the server, which quiesces until this thread
+        # returns and then calls finish_abandoned_step()
         if out:
             dt = time.perf_counter() - t0
             n_tokens = sum(len(v) for v in out.values())
@@ -1706,9 +1773,62 @@ class InferenceEngine:
             m.family("dtpu_serve_decode_step_seconds").observe(dt)
             m.family("dtpu_serve_tokens_generated_total").inc(n_tokens)
             if n_tokens and dt > 0:
-                m.family("dtpu_serve_tpot_seconds").observe(dt / n_tokens)
+                # TPOT covers the batch: the exemplar is the trace of the
+                # slot that yielded the most tokens (ties by slot order)
+                ex = None
+                for s in sorted(out, key=lambda s: -len(out[s])):
+                    ex = self._trace_ids.get(s)
+                    if ex is not None:
+                        break
+                m.family("dtpu_serve_tpot_seconds").observe(dt / n_tokens, exemplar=ex)
                 m.family("dtpu_serve_decode_tokens_per_sec").observe(n_tokens / dt)
+            if flight.enabled():
+                # one record per emitting step, host-side fields only
+                flight.record(
+                    phase=kind, slots=list(out), tokens=n_tokens, dispatch_s=round(dt, 6),
+                    host_s=round(max(0.0, time.perf_counter() - t_all0 - dt), 6),
+                    kv_util=round(self.kv_cache_utilization(), 4),
+                    prefix_slots=len(self._prefix_registry),
+                    traces={s: self._trace_ids[s] for s in out if s in self._trace_ids} or None,
+                    **self.fault_ctx,
+                )
+                flight.maybe_poll_memory(self.metrics)
         return out
+
+    def abandon_step(self) -> Optional[tuple]:
+        """Watchdog entry: give up on a wedged :meth:`step` running on a
+        worker thread → the wedge: ``("slot", i)`` when the hang is in one
+        slot's pre-dispatch fault point (only that slot need die; the epoch
+        bump makes the sleeping thread return before it touches any state
+        or replays a step site), ``("dispatch",)`` when the dispatch itself
+        is stuck (the whole batch fails, and the caller must quiesce until
+        the thread returns, then call :meth:`finish_abandoned_step`), or
+        None when the step finished concurrently with the trip (harvest its
+        result, abort nothing)."""
+        phase = self._step_wedge
+        self._step_epoch += 1
+        self._step_wedge = None
+        if phase is not None and flight.enabled():
+            # the wedge itself is the post-mortem's last record: the slot
+            # and its trace when attributable, a dispatch marker when not
+            if phase[0] == "slot":
+                flight.record(phase="wedge", slot=phase[1], trace=self._trace_ids.get(phase[1]),
+                              **self.fault_ctx)
+            else:
+                flight.record(phase="wedge", dispatch=True, **self.fault_ctx)
+            flight.post_mortem(
+                "watchdog_abort", registry=self.metrics,
+                wedge=f"slot:{phase[1]}" if phase[0] == "slot" else "dispatch",
+                slots={i: self._trace_ids.get(i) for i in range(self.max_batch) if self.active[i]},
+                **self.fault_ctx,
+            )
+        return phase
+
+    def finish_abandoned_step(self) -> None:
+        """Once a dispatch-abandoned step's thread has returned: it rebuilt
+        the device mirrors from slot state the scheduler has released
+        since, so drop them and the next dispatch rebuilds from the host."""
+        self._invalidate_decode_cache()
 
     def _step_dispatch(self) -> dict:
         live = [i for i in range(self.max_batch) if self.active[i]]
@@ -1947,6 +2067,7 @@ class InferenceEngine:
         self._invalidate_decode_cache()
         self._prefilling.pop(slot, None)
         self._admit_t0.pop(slot, None)
+        self._trace_ids.pop(slot, None)
         self._last_logprobs.pop(slot, None)
 
     def warm_prefix_copies(self) -> None:
@@ -2061,7 +2182,9 @@ class InferenceEngine:
         entries.set(len(self._packed_fns), "packed")
         entries.set(len(self._turbo_sites), "turbo")
         entries.set(len(self._copy_fns), "copy")
-        if self.device.type == "cuda":
+        # scrape-time memory freshness through the flight recorder's
+        # throttled poll; without a recorder, the engine's card directly
+        if flight.maybe_poll_memory(m) is None and self.device.type == "cuda":
             in_use = m.family("dtpu_serve_device_memory_bytes_in_use")
             peak = m.family("dtpu_serve_device_memory_peak_bytes")
             in_use.set(torch.cuda.memory_allocated(self.device))

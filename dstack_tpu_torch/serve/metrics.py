@@ -13,15 +13,14 @@ package's names, types, help texts, label names and buckets, used by:
   side, chunk, packed, copy and mark_prompt on the prefill side, CUDA
   graphs on the card) feed the compile families through
   ``obs.flight.watch_jit`` as JAX's jit sites do;
-- ``serve/openai_server.py``, which counts requests, errors and queue
-  waits, refreshes the state gauges and renders the page on ``/metrics``.
+- ``serve/openai_server.py``, which counts requests, errors, queue
+  waits, watchdog aborts, expired deadlines and resumed requests,
+  refreshes the state gauges and renders the page on ``/metrics``;
+- ``obs/flight.py``, whose post-mortems (watchdog aborts, engine and
+  prefill errors, deadline batch-aborts) count into
+  ``dtpu_serve_postmortems_total``.
 
-Families registered with no source in the port yet (they render and stay
-at zero until their slice feeds them):
-``dtpu_serve_watchdog_aborts_total``, ``dtpu_serve_deadline_expired_total``,
-``dtpu_serve_resumed_requests_total`` and ``dtpu_serve_postmortems_total``:
-the engine watchdog, request deadlines, ``dtpu_resume`` and the flight
-recorder come with ROADMAP A4.
+Every family has its source in the port, at JAX's sites.
 """
 
 from dstack_tpu_torch.obs import (
@@ -29,14 +28,6 @@ from dstack_tpu_torch.obs import (
     SHORT_LATENCY_BUCKETS_S,
     THROUGHPUT_BUCKETS,
     Registry,
-)
-
-# the families of the note above that nothing in the port feeds yet
-UNFED_FAMILIES = (
-    "dtpu_serve_watchdog_aborts_total",
-    "dtpu_serve_deadline_expired_total",
-    "dtpu_serve_resumed_requests_total",
-    "dtpu_serve_postmortems_total",
 )
 
 

@@ -30,11 +30,15 @@ def _port_modules() -> list[str]:
 
 
 def test_the_scan_covers_the_step_sites_and_their_accounting():
-    """The modules below hold copies of JAX-package code (the flight
-    recorder's compile accounting, the boot manifest's keys) beside the
-    graph sites: the two scans here must reach them."""
+    """The modules below hold copies of JAX-package code (the flight and
+    boot recorders, tracing, the SLO engine, the fault layer, QoS, the retry
+    helpers, the profiler's routes and the HF tokenizer) beside the graph
+    sites: the two scans here must reach them."""
     assert {"dstack_tpu_torch.obs.flight", "dstack_tpu_torch.obs.boot",
-            "dstack_tpu_torch.serve.graphs"} <= set(_port_modules())
+            "dstack_tpu_torch.serve.graphs", "dstack_tpu_torch.obs.tracing", "dstack_tpu_torch.obs.slo",
+            "dstack_tpu_torch.obs.profiling", "dstack_tpu_torch.faults", "dstack_tpu_torch.faults.catalog",
+            "dstack_tpu_torch.faults.__main__", "dstack_tpu_torch.qos", "dstack_tpu_torch.qos.metrics",
+            "dstack_tpu_torch.utils.retry", "dstack_tpu_torch.serve.tokenizer"} <= set(_port_modules())
 
 
 def test_importing_every_module_loads_no_jax():

@@ -15,11 +15,13 @@
   port's ``stats`` seconds sum to its step histogram's sum. The compile
   families (both flight recorders on, JAX's jit caches emptied first)
   count the same compiles, the prefill sites' and the decode sites'.
-  Left out are the families the port registers but does
-  not feed yet (``serve.metrics.UNFED_FAMILIES``: the watchdog, deadline,
-  resume and post-mortem counts of ROADMAP A4), which must read zero in
-  the port, and the device-memory gauges, absent on the CPU in the port
-  (JAX sets them only where its flight recorder runs).
+  Left out are only the device-memory gauges, absent on the CPU in the
+  port (JAX sets them only where its flight recorder runs).
+- The lifecycle families (``LIFECYCLE_FAMILIES``: watchdog aborts,
+  expired deadlines, resumed requests, post-mortems): both servers'
+  schedulers over both engines take one scenario that aborts a wedged
+  slot, expires a deadline in decode and resumes a stream; then every
+  family of the two engines' registries is equal, these four non-zero.
 - ``obs/flight.py``: the same compile events noted by JAX's recorder and
   the port's render the compile families byte-identically.
 - ``train/step.py``: ``make_step_callback`` gives JAX's registry values
@@ -27,27 +29,45 @@
   a trace.
 """
 
+import asyncio
+import time
+
 import jax
 import numpy as np
 import pytest
 import torch
+from aiohttp.test_utils import TestClient, TestServer
 
+from dstack_tpu import faults as jfaults
 from dstack_tpu import obs as jobs
+from dstack_tpu import qos as jqos
 from dstack_tpu.obs import flight as jflight
 from dstack_tpu.models import llama as jllama
 from dstack_tpu.serve import engine as jengine
+from dstack_tpu.serve import openai_server as jserver
 from dstack_tpu.serve.metrics import new_serve_registry as jax_serve_registry
+from dstack_tpu.serve.tokenizer import ByteTokenizer as JByteTokenizer
 from dstack_tpu.train import step as jstep
+from dstack_tpu_torch import faults as tfaults
 from dstack_tpu_torch import obs as tobs
+from dstack_tpu_torch import qos as tqos
 from dstack_tpu_torch.models import llama as tllama
 from dstack_tpu_torch.serve import engine as tengine
 from dstack_tpu_torch.obs import flight as tflight
-from dstack_tpu_torch.serve.metrics import UNFED_FAMILIES
+from dstack_tpu_torch.serve import openai_server as tserver
 from dstack_tpu_torch.serve.metrics import new_serve_registry as port_serve_registry
+from dstack_tpu_torch.serve.tokenizer import ByteTokenizer
 from dstack_tpu_torch.train import finetune as tfinetune
 from dstack_tpu_torch.train import step as tstep
 
 MEMORY_GAUGES = ("dtpu_serve_device_memory_bytes_in_use", "dtpu_serve_device_memory_peak_bytes")
+# fed by the server's scheduler and the flight recorder's post-mortems
+LIFECYCLE_FAMILIES = (
+    "dtpu_serve_watchdog_aborts_total",
+    "dtpu_serve_deadline_expired_total",
+    "dtpu_serve_resumed_requests_total",
+    "dtpu_serve_postmortems_total",
+)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -151,7 +171,7 @@ def _families(r) -> dict:
 def test_serve_registry_has_jax_families():
     jf, tf = _families(jax_serve_registry()), _families(port_serve_registry())
     assert tf == jf
-    assert set(UNFED_FAMILIES) < set(tf)
+    assert set(LIFECYCLE_FAMILIES) < set(tf)
     assert port_serve_registry().render() == jax_serve_registry().render()
 
 
@@ -214,7 +234,7 @@ def _snapshot(reg) -> dict:
     histogram counts, and the pack rows' bucket counts."""
     out = {}
     for name in reg.metric_names():
-        if name in UNFED_FAMILIES or name in MEMORY_GAUGES:
+        if name in MEMORY_GAUGES:
             continue
         fam = reg.family(name)
         series = dict(fam.items())
@@ -272,12 +292,77 @@ def test_engine_metrics_match_jax(weights, recorders, kv_quant):
     compiles = dict(m.family("dtpu_serve_compiles_total").items())
     assert {"verify", "turbo", "sample", "mark_seen"} <= {fn for (fn,) in compiles}
     assert m.family("dtpu_serve_recompiles_total").items() == []
-    # the unfed families read zero (labelled ones: no series at all), and
-    # the CPU engine sets no device-memory gauge
-    for name in UNFED_FAMILIES:
-        fam = m.family(name)
-        assert fam.items() == [] and (fam.kind == "histogram" or fam.value() == 0.0)
+    # nothing aborted, expired or resumed here, and the CPU engine sets no
+    # device-memory gauge
+    assert all(m.family(name).value() == 0.0 for name in LIFECYCLE_FAMILIES)
     assert all(m.family(name).items() == [] for name in MEMORY_GAUGES)
+
+
+WATCHDOG_S, HANG_S = 2.5, 6.0
+
+
+async def _lifecycle(server, faults, qos, tok, engine) -> None:
+    """One server over ``engine``: a greedy pair (every variant the wedge
+    replays compiles here, with the watchdog off), the same pair with a
+    hang planted in the first slot's ``serve.engine.step`` under the
+    watchdog (an abort and its post-mortem), a streamed chat whose deadline
+    the ``serve.deadline`` skew expires mid-decode (a deadline batch-abort
+    post-mortem), and a resumed chat."""
+    app = server.build_app(engine, tok(), "tiny", qos_policy=qos.QoSPolicy(), watchdog_seconds=0.0,
+                           deadline_default=0.0, boot=None)
+    c = TestClient(TestServer(app))
+    await c.start_server()
+    one = {"prompt": "The quick brown fox jumps", "max_tokens": 12}
+    ascii_only = {str(i): -100 for i in range(128, JC.vocab_size)}
+    chat = {"messages": [{"role": "user", "content": "Tell me about foxes"}], "max_tokens": 12,
+            "logit_bias": ascii_only}
+    try:
+        statuses = [(await c.post("/v1/completions", json=one)).status for _ in range(1)]
+        statuses += [r.status for r in await asyncio.gather(*(c.post("/v1/completions", json=one)
+                                                                for _ in range(2)))]
+        app["scheduler"].watchdog_seconds = WATCHDOG_S
+        faults.install_plan({"rules": [{"point": "serve.engine.step", "action": "hang", "seconds": HANG_S,
+                                        "nth": 1}]})
+        t0 = time.monotonic()
+        statuses += sorted(r.status for r in await asyncio.gather(*(c.post("/v1/completions", json=one)
+                                                                      for _ in range(2))))
+        faults.clear()
+        # the steps below may compile new variants: no watchdog over them
+        app["scheduler"].watchdog_seconds = 0.0
+        faults.install_plan({"rules": [{"point": "serve.deadline", "action": "corrupt", "value": 1e9,
+                                        "nth": 3}]})
+        r = await c.post("/v1/chat/completions", json={**chat, "stream": True}, headers={"X-DTPU-Deadline": "60"})
+        body = await r.text()
+        faults.clear()
+        assert '"error": "request deadline exceeded"' in body
+        r = await c.post("/v1/chat/completions", json={**chat, "dtpu_resume": {"text": "ab"}},
+                         headers={"X-DTPU-Resume": "1"})
+        statuses.append(r.status)
+        assert statuses == [200, 200, 200, 200, 500, 200]
+        # the abandoned step's thread sleeps on: let it return first
+        await asyncio.sleep(max(0.0, HANG_S - (time.monotonic() - t0)) + 0.5)
+    finally:
+        faults.clear()
+        await c.close()
+
+
+async def test_lifecycle_families_match_jax(weights, recorders):
+    """The four lifecycle families fed through both servers' schedulers
+    over both engines by one scenario: every family of the engines'
+    registries equal, those four non-zero."""
+    jp, tp = weights
+    kw = dict(max_batch=4, max_seq=MAX_SEQ, prefill_chunk=CHUNK, turbo_quiet_s=1e9)
+    je = jengine.InferenceEngine(JC, jp, **kw)
+    te = tengine.InferenceEngine(TC, tp, device="cpu", **kw)
+    await _lifecycle(jserver, jfaults, jqos, JByteTokenizer, je)
+    await _lifecycle(tserver, tfaults, tqos, ByteTokenizer, te)
+    je.update_state_gauges()
+    te.update_state_gauges()
+    assert _snapshot(te.metrics) == _snapshot(je.metrics)
+    m = te.metrics
+    assert [m.family(name).value() for name in LIFECYCLE_FAMILIES] == [1.0, 1.0, 1.0, 2.0]
+    reasons = [pm["reason"] for pm in recorders[1].postmortems()]
+    assert reasons == [pm["reason"] for pm in recorders[0].postmortems()] == ["watchdog_abort", "deadline_abort"]
 
 
 def test_compile_families_render_as_jax(recorders):

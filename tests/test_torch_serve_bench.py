@@ -193,9 +193,12 @@ def test_backend_info(monkeypatch):
 CONFIG = llama.LLAMA_TINY_64
 HEALTH_KEYS = {
     "status", "model", "device", "decode_kernel", "engine", "queue_depth", "inflight",
-    "active_slots", "max_slots", "kv_cache_utilization", "prefix_hits", "prefix_slots",
+    "active_slots", "max_slots", "prefix_hits", "prefix_slots",
     "prefix_occupancy", "prefix_tokens", "stats", "kernel_launches", "flash_decode_launches",
     "w8_matmul_launches", "graph_sites", "graph_captures", "flight_warm", "device_memory",
+    # the JAX server's lifecycle keys (the profiler, the flight summary, the
+    # SLO windows and the boot block)
+    "kv_utilization", "profiler_tracing", "flight", "slo_windows", "boot",
 }
 
 

@@ -75,7 +75,7 @@ class TestOpenAIServer:
                 "bf16_decode", "bf16_verify", "int8_decode", "int8_verify",
                 "bf16_decode_sinks", "bf16_verify_sinks", "int8_decode_sinks", "int8_verify_sinks",
             }
-            assert h["prefix_hits"] == 0 and h["kv_cache_utilization"] == 0.0
+            assert h["prefix_hits"] == 0 and h["kv_utilization"] == 0.0
             m = await (await client.get("/v1/models")).json()
             assert m["data"][0]["id"] == "llama-tiny-64"
         finally:
