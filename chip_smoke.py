@@ -6,7 +6,15 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order; any failure raises and the script exits non-zero.
+Two exceptions to the order, to keep the run well inside its time
+limit: phase 2's D = 256 (Gemma) parts and the embeddings' shapes run
+after phase 3's servers, while two helper processes (``warm_flex``)
+compile their ``flex_attention`` yardsticks into Inductor's cache in
+the checkout as the servers run, so the timed calls load them; and each
+server of phase 3 starts with the one before it (SERVER_MODES' order
+keeps any two within 69 GB of the card), as the ``--weights`` server
+starts during the export round trip.
 
 1. Print the card's name and power limit (``nvidia-smi``), build the
    hand-written kernels from ``dstack_tpu_torch/csrc`` (one ``nvcc`` per
@@ -219,6 +227,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    cache and a repetitive prompt with spec_draft 4; each run's K4 launches
    over its timed sections must be n_layers x its plain, verify and turbo
    device steps, its K1 launches n_layers x its serial chunks. Then the
+   multi-replica paths (ROADMAP A4.2), in this process, llama-3.2-1b at
+   full width and depth on graphs, each with the counts set to 0 before
+   it and read after (K1 and K4 must launch): the session bench
+   (``sessions_phase``: ``run_session_bench`` with SESSION_ARGS, 2
+   replicas sharing one tree, 8 sessions of 4 turns, 32 tokens a turn,
+   chunk 256) logs warm-turn TTFT p50/p95 with affinity on and off, cold
+   TTFT p50, prefix hits and ``same_replica_rate``, and fails unless the
+   affinity-on pass has more prefix hits than the off pass; then the
+   loadgen soak (``soak_phase``: ``run_soak`` over ``default_spec(30 s,
+   1.5 rps)`` at seed 7, 2 replicas behind the port's router with QoS,
+   drain then kill, and a cold scale-up replica built on the card under
+   its own boot recorder at 20 % of the schedule; at 3 rps the soak's ASCII
+   bias saturates the event loop), which logs goodput and TTFT by class, the
+   router's counters, the scale-up replica's boot stages and the host ms
+   a request spends on the soak's 128,128-entry ASCII bias, and fails
+   unless no client saw a 5xx or a failure, a breaker opened, a stream
+   resumed or a request failed over, the tail recovered, the sheds were
+   honest and the report's digest is the compiled schedule's. Then the
    graph phase (``graph_phase``): in this process, llama-3.2-1b,
    gpt-oss-20b, gemma-3-4b and glm-4-9b on both caches and
    deepseek-v2-lite and olmo-2-7b at full width (llama-3.2-1b at full
@@ -354,6 +380,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -564,19 +591,27 @@ SPEC_ROWS = 5  # rows a query head verifies: the server's --spec-draft 4, plus o
 # eighth request's: a fresh engine gives request k slot k - 1 (an
 # admission prefers a slot holding no cached prefix), and no warmup step
 # reaches it first
+#
+# Each server starts with the one before it (``_server``'s ``then``), so
+# two share the card; the order pairs each large model with a small one.
+# Reserved bytes after the warmup on an NVIDIA H100 80GB HBM3:
+# llama-3.2-1b 3.5-5.2 GB, gpt-oss-20b 46.7, gemma-3-4b 13.1,
+# deepseek-v2-lite 34.1, glm-4-9b 28.0, olmo-2-7b 31.5, qwen-3-30b-a3b
+# 64.8; the largest pair is 69 GB, and the flex warm-up processes
+# (warm_flex) have ended before it starts
 SERVER_MODES = {
     "serial": (MODEL, ["--prefill-pack", "1", "--spec-draft", "0", "--turbo-steps", "0",
                        "--no-prefix-cache", "--no-warmup"]),
-    "default": (MODEL, []),
-    "int8": (MODEL, ["--kv-quant", "int8"]),
     "gptoss": (GPT_OSS, []),
-    "gemma": (GEMMA3, []),
+    "default": (MODEL, []),
     "deepseek": (DEEPSEEK, []),
-    "glm": (GLM, []),
+    "gemma": (GEMMA3, []),
     "olmo": (OLMO, []),
-    "qwen3moe": (QWEN_MOE, []),
+    "glm": (GLM, []),
+    "int8": (MODEL, ["--kv-quant", "int8"]),
     "w8": (MODEL, ["--quantize", "int8"]),
     "robust": (MODEL, ["--qos-rps", "0.05", "--qos-burst", "2", "--qos-tenant-inflight", "1", "--no-warmup"]),
+    "qwen3moe": (QWEN_MOE, []),
 }
 ROBUST_WATCHDOG_S = 4.0
 ROBUST_HANG_S = 10.0
@@ -648,6 +683,8 @@ W8_70B = "llama-3-70b"
 W8_BENCH_ARGS = {**BENCH_ARGS, "model": W8_70B, "quantize": "int8"}
 # each phase's wall seconds, logged before the total
 PHASE_S: dict = {}
+# set in the flex warm-up processes only (warm_flex): time_ms calls once
+WARM_ONLY = False
 WARMUP_RE = re.compile(r"warmup: \d+ requests ran \S+ in ([\d.]+)s")
 
 
@@ -657,12 +694,14 @@ def log(msg: str) -> None:
 
 @contextlib.contextmanager
 def phase(name: str):
-    """Adds the block's wall seconds to ``PHASE_S[name]``."""
+    """Adds the block's wall seconds to ``PHASE_S[name]`` and logs them (a run cut
+    at its time limit still shows where its time went)."""
     t0 = time.perf_counter()
     try:
         yield
     finally:
         PHASE_S[name] = round(PHASE_S.get(name, 0.0) + time.perf_counter() - t0, 1)
+        log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
 
 
 def free_card() -> None:
@@ -688,7 +727,11 @@ def time_ms(fn, iters: int = 30) -> float:
     path reads each layer's K/V cold). A spin of about 1 ms on the card
     before the start event lets the host finish enqueueing ``fn`` (the
     plain versions are a dozen eager ops), so the events bracket device
-    work and no host-side gap."""
+    work and no host-side gap. In a flex warm-up process
+    (:func:`warm_flex`) ``fn`` runs once and nothing is timed."""
+    if WARM_ONLY:
+        fn()
+        return 0.0
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
@@ -2241,51 +2284,80 @@ def _text(n: int, step: int = 7, shift: int = 0) -> str:
     return "".join(chr(97 + (i * step + n + shift) % 26) for i in range(n))
 
 
-@contextlib.contextmanager
-def _server(name: str, model: str, flags: list, env=None):
-    """``python -m dstack_tpu_torch.serve.openai_server`` on a free port,
-    with no ``--device`` flag (cuda is the server's default) and ``env``
-    added to this process's environment → (base URL,
-    the first ``/health``, seconds to ready, the start-up warmup's seconds
-    from its log or None). A fresh process: every count starts at 0. The
-    process is stopped on the way out; its log is
-    ``build/chip_smoke_server_<name>.log``, printed on failure."""
+# servers started ahead of their phase (:func:`spawn_server`): name →
+# (process, its log file, port, start time)
+_SPAWNED: dict = {}
+
+
+def spawn_server(name: str, model: str, flags: list, env=None) -> None:
+    """Start ``python -m dstack_tpu_torch.serve.openai_server`` for
+    :func:`_server` ``name`` now, on a free port, with no ``--device``
+    flag (cuda is the server's default) and ``env`` added to this
+    process's environment; :func:`_server` takes it over. Its log is
+    ``build/chip_smoke_server_<name>.log``."""
     port = _free_port()
-    base = f"http://127.0.0.1:{port}"
     server_log = ROOT / "build" / f"chip_smoke_server_{name}.log"
     server_log.parent.mkdir(parents=True, exist_ok=True)
-    with open(server_log, "w") as log_f:
+    with open(server_log, "w") as log_f:  # the child keeps its own descriptor
         proc = subprocess.Popen(
             [sys.executable, "-m", "dstack_tpu_torch.serve.openai_server",
              "--model", model, "--decode-kernel", "flash",
              "--port", str(port), "--seed", "0", *flags],
             cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT, env={**os.environ, **(env or {})},
         )
-        try:
-            t0 = time.perf_counter()
-            while True:
-                if proc.poll() is not None:
-                    raise RuntimeError(f"server exited with {proc.returncode} before it was ready")
-                try:
-                    h0 = _get(base + "/health")
-                    break
-                except OSError:
-                    if time.perf_counter() - t0 > 600:
-                        raise RuntimeError("server not ready after 600 s")
-                    time.sleep(0.5)
-            ready_s = time.perf_counter() - t0
-            m = WARMUP_RE.search(server_log.read_text())
-            yield base, h0, ready_s, float(m.group(1)) if m else None
-        except BaseException:
-            log(f"server [{name}] log tail:\n" + server_log.read_text()[-4000:])
-            raise
-        finally:
-            proc.terminate()
+    _SPAWNED[name] = (proc, server_log, port, time.perf_counter())
+
+
+def _stop(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+def stop_spawned() -> None:
+    """Stop every server started ahead that no phase took over."""
+    while _SPAWNED:
+        _stop(_SPAWNED.popitem()[1][0])
+
+
+@contextlib.contextmanager
+def _server(name: str, model: str, flags: list, env=None, then=None):
+    """The server ``name`` (started now by :func:`spawn_server`, or taken
+    over where it was started ahead) once ``/health`` answers → (base URL,
+    the first ``/health``, seconds from its start to ready, the start-up
+    warmup's seconds from its log or None). A fresh process: every count
+    starts at 0. ``then`` (the arguments of :func:`spawn_server`) is the
+    next server, started now, so that its start-up overlaps this one's
+    start-up and drive. The process is stopped on the way out; its log
+    is printed on failure."""
+    if name not in _SPAWNED:
+        spawn_server(name, model, flags, env)
+    proc, server_log, port, t0 = _SPAWNED.pop(name)
+    base = f"http://127.0.0.1:{port}"
+    if then is not None:
+        spawn_server(*then)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise RuntimeError(f"server exited with {proc.returncode} before it was ready")
             try:
-                proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(timeout=30)
+                h0 = _get(base + "/health")
+                break
+            except OSError:
+                if time.perf_counter() - t0 > 600:
+                    raise RuntimeError("server not ready after 600 s")
+                time.sleep(0.5)
+        ready_s = time.perf_counter() - t0
+        m = WARMUP_RE.search(server_log.read_text())
+        yield base, h0, ready_s, float(m.group(1)) if m else None
+    except BaseException:
+        log(f"server [{name}] log tail:\n" + server_log.read_text()[-4000:])
+        raise
+    finally:
+        _stop(proc)
 
 
 def _scrape(base: str) -> dict:
@@ -2392,18 +2464,26 @@ def _since(h: dict, h0: dict) -> tuple[dict, dict, dict]:
     return st, launches, variants
 
 
-def path_phase(mode: str) -> dict:
-    """One server process in ``mode`` (SERVER_MODES), driven and checked
-    → its counts and serving metrics."""
+def server_spec(mode: str) -> tuple:
+    """The arguments of :func:`spawn_server` for ``mode``'s server."""
     model, flags = SERVER_MODES[mode]
+    return mode, model, flags, ROBUST_ENV if mode == "robust" else None
+
+
+def path_phase(mode: str, then=None) -> dict:
+    """One server process in ``mode`` (SERVER_MODES), driven and checked
+    → its counts and serving metrics. ``then``: the next mode, whose
+    server starts with this one."""
+    model, flags = SERVER_MODES[mode]
+    then = server_spec(then) if then else None
     if mode == "robust":
-        return robust_phase()
+        return robust_phase(then)
     maker = None
     if mode == "w8":  # this process's copy of the server's tree, made while the server makes its own
         maker = threading.Thread(target=w8_llama_tree)
         maker.start()
     try:
-        with _server(mode, model, flags) as (base, h0, ready_s, warmup_s):
+        with _server(mode, model, flags, then=then) as (base, h0, ready_s, warmup_s):
             path = _drive_server(llama.CONFIGS[model], base, mode, h0, ready_s, warmup_s)
             if maker is not None:
                 maker.join()
@@ -2446,7 +2526,7 @@ def _profile_kernels(trace_dir: Path) -> dict:
     return out
 
 
-def robust_phase() -> dict:
+def robust_phase(then=None) -> dict:
     """The lifecycle server (SERVER_MODES["robust"], ROBUST_ENV): the JAX
     server's request lifecycle on llama-3.2-1b at full width and depth on
     the default engine (CUDA graphs, K1 and K4), each feature held to what
@@ -2502,7 +2582,7 @@ def robust_phase() -> dict:
         traced.append((status, hdrs.get("X-DTPU-Trace")))
         return status, hdrs, data
 
-    with _server("robust", model, flags, env=ROBUST_ENV) as (base, h0, ready_s, _):
+    with _server("robust", model, flags, env=ROBUST_ENV, then=then) as (base, h0, ready_s, _):
         if any(_counts(h0).values()) or h0["device"] != DEVICE:
             raise AssertionError(f"[robust] counts not zero, or not on the card, before the phase: {h0}")
         t_phase = time.perf_counter()
@@ -3305,6 +3385,152 @@ def bench_phase() -> dict:
     return {"runs": runs, "launches": launches, "default": default}
 
 
+# the multi-replica paths (ROADMAP A4.2): the session bench and the soak.
+# The soak's ASCII bias (128,128 entries, a 1.94 MB body) costs each request
+# 0.27-0.39 s of the one event loop that the driver, the router and the
+# replicas share (the client's encoding, the router's and the server's JSON
+# parses, the server's checks and the engine's bias row; bias_host_ms, PERF.md
+# section 5). At the 3 rps of the JAX package's chaos soaks
+# (tests/chaos/test_chaos_loadgen.py, test_chaos_boot.py), whose small
+# vocabulary makes the bias cheap, that loop saturates on the card, its
+# queue grows and goodput fell to 0.09-0.14; so the soak here runs at 1.5 rps,
+# where seed 7 draws 33 events (seed 0 draws 60, and those saturate it too:
+# ROADMAP B16, open). The cold replica spawns at
+# 20 % of the schedule, not the 45 % default: its warmup's captures hold the
+# replicas' device lock for 5-17 s, and at 45 % it joined after the last
+# request
+SESSION_ARGS = dict(model=MODEL, replicas=2, sessions=8, turns=4, gen_len=32, prefill_chunk=256)
+SOAK_SEED, SOAK_DURATION_S, SOAK_RATE_RPS, SOAK_SCALE_UP_FRAC = 7, 30.0, 1.5, 0.2
+
+
+def _launch_check(what: str, launches: dict) -> None:
+    """K1 and K4 (bf16 decode) must have launched on the path."""
+    if not (launches["flash_fwd"] and launches["bf16_decode"]):
+        raise AssertionError(f"[{what}] K1 or K4 launched no time: {launches}")
+
+
+def sessions_phase(card: str) -> dict:
+    """``run_session_bench`` (SESSION_ARGS) on the card: two in-process
+    replicas of llama-3.2-1b sharing one tree, routed by the port's pool
+    picker with prefix affinity on, then off. → {"launches", "result"}."""
+    from dstack_tpu_torch.serve.bench import run_session_bench
+
+    reset_counts()
+    t0 = time.perf_counter()
+    r = run_session_bench(**SESSION_ARGS, device=DEVICE)
+    launches = read_counts()
+    seconds = time.perf_counter() - t0
+    x = r["extra"]
+    on, off = x["affinity_on"], x["affinity_off"]
+    log(f"[sessions] {card}: " + json.dumps({
+        "seconds": round(seconds, 1), "affinity_on": on, "affinity_off": off,
+        "warm_ttft_speedup_p50": x["warm_ttft_speedup_p50"], "timed_launches": x["kernel_launches"],
+        "launches": {k: launches[k] for k in ("flash_fwd", "bf16_decode", "bf16_verify")}}))
+    if not on["prefix_hits"] > off["prefix_hits"]:
+        raise AssertionError(f"[sessions] affinity on hit the prefix cache {on['prefix_hits']} times, "
+                             f"off {off['prefix_hits']}: {x}")
+    if x["graphs"] is not True or x["backend"] != "cuda":
+        raise AssertionError(f"[sessions] not on the card's graphs: {x}")
+    _launch_check("sessions", launches)
+    free_card()
+    return {"launches": launches, "result": r}
+
+
+def bias_host_ms(c, iters: int = 5) -> dict:
+    """The host ms one soak request spends on its ASCII bias (128,128
+    entries at llama-3.2-1b's vocabulary): the driver's JSON encoding, the
+    router's parse, the server's parse, check and sampling parameters, and
+    the engine's bias row; each the median of ``iters`` calls."""
+    from dstack_tpu_torch.routing import forward
+    from dstack_tpu_torch.serve import openai_server
+
+    bias = {str(i): -100 for i in range(128, c.vocab_size)}
+    payload = {"model": MODEL, "max_tokens": 8, "stream": True, "temperature": 0.0, "logit_bias": bias,
+               "messages": [{"role": "user", "content": _text(200)}]}
+    body = json.dumps(payload).encode()
+    tok = ByteTokenizer()
+    gen = openai_server._gen_params(payload, tok)
+    steps = {
+        "client_encode": lambda: json.dumps(payload).encode(),
+        "router_parse": lambda: forward._json_payload(body),
+        "server_parse": lambda: json.loads(body),
+        "server_check": lambda: openai_server._bad_sampling_params(payload),
+        "server_gen_params": lambda: openai_server._gen_params(payload, tok),
+        "engine_bias_row": lambda: engine.bias_row(gen.logit_bias, c.vocab_size),
+    }
+    out = {}
+    for name, fn in steps.items():
+        ts = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out[name] = round(sorted(ts)[len(ts) // 2], 3)
+    out["total"] = round(sum(out.values()), 3)
+    out["body_bytes"] = len(body)
+    return out
+
+
+def soak_phase(card: str) -> dict:
+    """``run_soak`` on the card: ``default_spec(SOAK_DURATION_S,
+    SOAK_RATE_RPS)`` at SOAK_SEED through the port's router over two
+    replicas of llama-3.2-1b (one tree, one device lock) with QoS, the
+    drain flip, the kill, and a cold scale-up replica. → {"launches",
+    "report"}."""
+    from dstack_tpu_torch.loadgen import compile_schedule, default_spec
+    from dstack_tpu_torch.loadgen.soak import SoakConfig, run_soak
+
+    c = llama.CONFIGS[MODEL]
+    bias_ms = bias_host_ms(c)
+    log(f"[soak] host ms a request spends on the ASCII bias ({card}'s host): {json.dumps(bias_ms)}")
+    schedule = compile_schedule(default_spec(duration_s=SOAK_DURATION_S, rate_rps=SOAK_RATE_RPS), SOAK_SEED)
+    cfg = SoakConfig(replicas=2, model=MODEL, chaos=True, scale_up=True, scale_up_frac=SOAK_SCALE_UP_FRAC,
+                     output=None, device=DEVICE)
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = run_soak(schedule, cfg)
+    launches = read_counts()
+    seconds = time.perf_counter() - t0
+    boot = rep["boot"] or {}
+    log(f"[soak] {card}: " + json.dumps({
+        "seconds": round(seconds, 1), "events": rep["events"], "goodput": rep["value"],
+        "classes": {name: {k: cls.get(k) for k in ("requests", "goodput_ratio", "ttft_ms_p50", "ttft_ms_p95",
+                                                    "tpot_ms_p50", "ttft_slo_ms", "tpot_slo_ms")}
+                    for name, cls in rep["classes"].items()},
+        "outcomes": rep["overall"]["outcomes"], "client_5xx": rep["client_5xx"], "failures": rep["failures"],
+        "router": rep["router"], "windows": {k: {m: v.get(m) for m in ("requests", "goodput_ratio",
+                                                                         "ttft_ms_p95", "recovered",
+                                                                         "tail_goodput_ratio")}
+                                             for k, v in rep["windows"].items()},
+        "sheds": rep["overall"]["sheds"], "open_loop": rep["open_loop"],
+        "boot": {k: boot.get(k) for k in ("replica", "t_spawn", "stages", "marks", "time_to_ready_s", "ttfst_s",
+                                          "manifest_variants", "warm")},
+        "flight": {k: (rep["flight"] or {}).get(k) for k in ("compiles", "recompiles", "compile_seconds",
+                                                              "postmortems", "peak_memory_bytes")},
+        "launches": {k: launches[k] for k in ("flash_fwd", "bf16_decode", "bf16_verify")},
+        "backend": rep["backend"], "device": rep.get("device"), "power_limit": rep.get("power_limit")}))
+    router = rep["router"]
+    checks = {
+        "no client 5xx": rep["client_5xx"] == 0,
+        "no failures": rep["failures"] == 0,
+        "every event fired": rep["overall"]["requests"] == len(schedule.events),
+        "a breaker opened": router["dtpu_router_breaker_opens_total"] >= 1,
+        "a resume or a failover": router["dtpu_router_stream_resumes_total"]
+        + router["dtpu_router_failovers_total"] >= 1,
+        "the tail recovered": rep["windows"]["_recovery"]["recovered"] is True,
+        "honest sheds": rep["overall"]["sheds"]["honest"] is True,
+        "the compiled schedule's digest": rep["schedule_digest"] == schedule.digest(),
+        "the scale-up replica booted and served": bool(boot.get("warm")) and boot.get("ttfst_s") is not None,
+        "on the card": rep["backend"] == "cuda",
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"[soak] failed: {failed}")
+    _launch_check("soak", launches)
+    free_card()
+    return {"launches": launches, "report": rep, "bias_host_ms": bias_ms}
+
+
 def w8_bench_phase() -> dict:
     """llama-3-70b at full width and depth with int8 weights through the
     bench (``run_bench(**W8_BENCH_ARGS)``: the tree drawn on the card,
@@ -3676,6 +3902,10 @@ def _family_engine_pair(name: str, layers: int, weights=None) -> dict:
     return report
 
 
+WEIGHTS_NPZ = ROOT / "build" / "chip_smoke_train_full" / "model_weights.npz"
+WEIGHTS_SERVER = ("weights", MODEL, ["--weights", str(WEIGHTS_NPZ)])  # spawn_server's arguments
+
+
 def weights_server_phase() -> dict:
     """A server started with ``--weights`` on the llama full fine-tune's
     ``model_weights.npz`` (TRAIN_RUNS["full"]) serves a greedy completion
@@ -3683,9 +3913,9 @@ def weights_server_phase() -> dict:
     process's engine over the same file loaded by ``load_weights_npz``
     (the logprobs stand for the token ids the byte tokenizer's text
     hides). → the server's launches and the numbers."""
-    path = ROOT / "build" / "chip_smoke_train_full" / "model_weights.npz"
+    path = WEIGHTS_NPZ
     prompt = _text(LOGPROBS_PROMPT_LEN, shift=11)
-    with _server("weights", MODEL, ["--weights", str(path)]) as (base, h0, ready_s, warmup_s):
+    with _server(*WEIGHTS_SERVER) as (base, h0, ready_s, warmup_s):
         body = _complete(base, prompt, MAX_TOKENS, logprobs=0)
         _, launches, variants = _since(_get(base + "/health"), h0)
     c, params = llama_tf_params()
@@ -4579,17 +4809,79 @@ def grad_parity_phase(name: str = MODEL) -> dict:
     return report
 
 
+# the flex warm-up processes' parts: each process compiles its parts'
+# flex_attention graphs (the embeddings reach flex at gemma-3-4b's D = 256)
+WARM_PARTS = {"gemma": ("gemma", "embed"), "gemma_bwd": ("gemma_bwd",)}
+_WARM: list = []  # the flex warm-up processes, once started
+
+
+def warm_flex(which: str) -> None:
+    """A flex warm-up process's work: the kernel parts WARM_PARTS[which]
+    (of ``gemma_kernel_phase``, ``gemma_backward_kernel_phase`` and
+    ``embed_kernel_phase``, the parts that call the compiled
+    ``flex_attention``), run once with nothing timed (WARM_ONLY), so that
+    each flex graph they compile lands in Inductor's and Triton's caches
+    in the checkout (TORCHINDUCTOR_CACHE_DIR, TRITON_CACHE_DIR, set by
+    :func:`main`). The main process makes the same calls after the
+    servers and loads them from there instead of compiling them again."""
+    global WARM_ONLY
+    WARM_ONLY = True
+    # the other families' rows are made by parts this process skips
+    rows = collections.defaultdict(lambda: {"max_abs_err": 0.0})
+    fns = {"gemma": gemma_kernel_phase, "gemma_bwd": gemma_backward_kernel_phase,
+           "embed": lambda: embed_kernel_phase(rows)}
+    for part in WARM_PARTS[which]:
+        with phase(f"warm_{part}"):
+            fns[part]()
+    log(f"peak reserved bytes {torch.cuda.max_memory_reserved()}")
+
+
+def start_flex_warm() -> None:
+    """Start :func:`warm_flex` in one process for each entry of WARM_PARTS
+    (the output of each in ``build/chip_smoke_flex_warm_<which>.log``)."""
+    for which in WARM_PARTS:
+        with open(ROOT / "build" / f"chip_smoke_flex_warm_{which}.log", "w") as log_f:  # the child keeps its own
+            _WARM.append((which, subprocess.Popen(
+                [sys.executable, "-c", f"import chip_smoke; chip_smoke.warm_flex({which!r})"],
+                cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT)))
+    log(f"flex warm-up processes started: {list(WARM_PARTS)}")
+
+
+def wait_flex_warm() -> None:
+    """Wait for the flex warm-up processes. A failure costs time only:
+    the main process then compiles what it finds missing."""
+    for which, proc in _WARM:
+        if proc.returncode is not None:
+            continue
+        t0 = time.perf_counter()
+        try:
+            rc = proc.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait(timeout=30)
+        text = (ROOT / "build" / f"chip_smoke_flex_warm_{which}.log").read_text()
+        log(f"flex warm-up [{which}] exited {rc} after {time.perf_counter() - t0:.1f} s of waiting: "
+            + json.dumps({"parts_s": re.findall(r"\[phase\] (warm_\w+): ([\d.]+) s", text),
+                          "peak_reserved_bytes": re.findall(r"peak reserved bytes (\d+)", text)}))
+        if rc != 0:
+            log(f"flex warm-up [{which}] log tail:\n" + text[-4000:])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
               file=sys.stderr)
         return 2
     t_all = time.perf_counter()
-    # the compiled library yardstick's caches stay in the checkout, and
-    # Inductor compiles in this process (no worker pool to stop)
+    # the compiled library yardstick's caches stay in the checkout, where
+    # the flex warm-up process fills them for this one (the FX graph and
+    # the AOTAutograd caches on), and Inductor compiles in the process
+    # that asks (no worker pool to stop)
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, str(ROOT / "build" / sub))
-    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
+    for var, value in (("TORCHINDUCTOR_COMPILE_THREADS", "1"), ("TORCHINDUCTOR_FX_GRAPH_CACHE", "1"),
+                       ("TORCHINDUCTOR_AUTOGRAD_CACHE", "1")):
+        os.environ.setdefault(var, value)
     card = card_line()
     log(f"card: {card}")
     t0 = time.perf_counter()
@@ -4597,29 +4889,58 @@ def main() -> int:
         seconds = cuda_build.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s (per source: {json.dumps(seconds)})")
 
+    try:
+        return _main(card, t_all)
+    finally:
+        stop_spawned()
+        for _, proc in _WARM:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+
+
+def _kernel_parts(parts, rows: dict) -> None:
+    """Run each kernel part, its rows merged into ``rows`` and its seconds
+    under its own key (PHASE_S "k_<part>")."""
+    for part, fn in parts:
+        with phase(f"k_{part}"):
+            for name, row in (fn() or {}).items():
+                rows.setdefault(name, {}).update(row)
+
+
+def _main(card: str, t_all: float) -> int:
     with phase("kernels"):
         ptxas = ptxas_gate()
         rows = {}
-        # each part's seconds under its own key too (PHASE_S "k_<part>")
-        for part, fn in (("k1_k4", kernel_phase), ("bwd", backward_kernel_phase),
-                         ("gpt_oss", gpt_oss_kernel_phase), ("gemma", gemma_kernel_phase),
-                         ("d128", d128_kernel_phase), ("gemma_bwd", gemma_backward_kernel_phase),
-                         ("mla", mla_kernel_phase),
-                         ("mla_h128", lambda: mla_kernel_phase(DEEPSEEK_V3, MLA_V3_SHAPES, "flash_fwd_d576_h128")),
-                         ("mla_train", mla_train_kernel_phase), ("embed", lambda: embed_kernel_phase(rows)),
-                         ("w8", w8_kernel_phase), ("adam8", adam8_kernel_phase),
-                         ("d128_train", d128_train_kernel_phase)):
-            with phase(f"k_{part}"):
-                for name, row in (fn() or {}).items():
-                    rows.setdefault(name, {}).update(row)
+        _kernel_parts((("k1_k4", kernel_phase), ("bwd", backward_kernel_phase),
+                       ("gpt_oss", gpt_oss_kernel_phase), ("d128", d128_kernel_phase),
+                       ("mla", mla_kernel_phase),
+                       ("mla_h128", lambda: mla_kernel_phase(DEEPSEEK_V3, MLA_V3_SHAPES, "flash_fwd_d576_h128")),
+                       ("mla_train", mla_train_kernel_phase), ("w8", w8_kernel_phase),
+                       ("adam8", adam8_kernel_phase), ("d128_train", d128_train_kernel_phase)), rows)
     free_card()  # the servers need the card's memory
+    # the Gemma parts' flex_attention yardsticks compile in helper
+    # processes while the servers run; the parts run after the servers
+    start_flex_warm()
     serve = {}
-    for mode in SERVER_MODES:
+    modes = list(SERVER_MODES)
+    for mode, then in zip(modes, [*modes[1:], None]):
+        if then == "qwen3moe":  # the largest pair on the card (69 GB): no other process beside it
+            wait_flex_warm()
         with phase(f"server_{mode}"):
-            serve[mode] = path_phase(mode)
+            serve[mode] = path_phase(mode, then)
+    wait_flex_warm()
+    with phase("kernels_d256"):
+        _kernel_parts((("gemma", gemma_kernel_phase), ("gemma_bwd", gemma_backward_kernel_phase),
+                       ("embed", lambda: embed_kernel_phase(rows))), rows)
+    free_card()
     with phase("bench"):
         bench = bench_phase()
     free_card()
+    with phase("sessions"):
+        sessions = sessions_phase(card)
+    with phase("soak"):
+        soak = soak_phase(card)
     with phase("graphs"):
         graphs = graph_phase()
     with phase("family_engines"):
@@ -4656,6 +4977,7 @@ def main() -> int:
         if run == OPT8_RUN:
             with phase(f"train_{RESUME_RUN}"):
                 train[RESUME_RUN] = resume_check(train[run])
+    spawn_server(*WEIGHTS_SERVER)  # its start-up overlaps the export's checks
     with phase("export"):
         export = export_phase()
     with phase("server_weights"):
@@ -4675,6 +4997,8 @@ def main() -> int:
         **{f"serve_{mode}": (SERVER_MODES[mode][0], path["launches"]) for mode, path in serve.items()},
         "serve_weights": (MODEL, weights_server["launches"]),
         **{f"bench_{name}": (MODEL, counts) for name, counts in bench["launches"].items()},
+        "sessions": (MODEL, sessions["launches"]),
+        "soak": (MODEL, soak["launches"]),
         **{f"graph_{key}": (key.rsplit("_", 1)[0], report["launches"]) for key, report in graphs.items()},
         **{f"family_engine_{name}": (name, report["launches"]) for name, report in family_engines.items()},
         **{f"teacher_forced_{key}": (key.rsplit("_", 1)[0], report["launches"])

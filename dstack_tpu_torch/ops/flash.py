@@ -156,7 +156,15 @@ def flash_attention_plain(
     else:
         p = torch.softmax(s, dim=-1)
     o = torch.matmul(p.to(v.dtype), v)
-    lse = torch.logsumexp(s, dim=-1)
+    if s.device.type == "cpu":
+        # logsumexp's own formula, but exp's underflow path (a score masked
+        # to NEG_INF) runs ~15x slower than a normal exp on the CPU: clamped,
+        # a masked score adds exp(-87) < 1.7e-38 to a sum >= 1, which leaves
+        # it unchanged
+        m = s.amax(dim=-1, keepdim=True)
+        lse = (m + (s - m).clamp_(min=-87.0).exp_().sum(dim=-1, keepdim=True).log()).squeeze(-1)
+    else:
+        lse = torch.logsumexp(s, dim=-1)
     o = torch.where(live[..., None], o, torch.zeros_like(o))
     lse = torch.where(live, lse, torch.full_like(lse, NEG_INF))
     return o, lse

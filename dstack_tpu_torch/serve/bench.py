@@ -39,8 +39,15 @@ Deltas from it:
   large for the card in bf16 (llama-3-70b) runs at full depth; its
   products go through W8 (``ops/w8_matmul.py``), whose launches by form
   ``kernel_launches`` adds;
-- ``--sessions`` and its flags (``run_session_bench``) need ``routing/``
-  and come with ROADMAP A4, and are refused.
+- ``--sessions N`` (``run_session_bench``) is JAX's multi-replica
+  chat-session workload: N seeded multi-turn conversations from
+  interleaved tenants routed across ``--replicas`` in-process engines
+  (one shared weights tree) through the port's
+  :class:`~dstack_tpu_torch.routing.pool.ReplicaPool` picker, once with
+  prefix-affinity routing and once without, with JAX's keys; prefix hits
+  are read from the engine's ``stats["prefix_hits"]``, chats rendered
+  with the port's ``render_chat``, and ``extra`` adds the K1/K4 launches
+  of the timed passes and the card's name and power limit.
 
 The host clock around ``step()`` and the clock up to a slot's activation
 include the device's work only because each ends in a device-to-host
@@ -57,12 +64,18 @@ import time
 import numpy as np
 import torch
 
-from dstack_tpu_torch.loadgen.textgen import repetitive_prompts, token_prompts
+from dstack_tpu_torch.loadgen.report import percentile as _percentile
+from dstack_tpu_torch.loadgen.textgen import (
+    conversation_texts,
+    repetitive_prompts,
+    token_prompts,
+)
 from dstack_tpu_torch.models import llama, quant
-from dstack_tpu_torch.ops import cuda_build, flash_decode
+from dstack_tpu_torch.ops import cuda_build
 from dstack_tpu_torch.serve.engine import (
     GenParams,
     InferenceEngine,
+    default_decode_kernel,
     resolve_device,
 )
 from dstack_tpu_torch.serve.graphs import launch_counts
@@ -235,8 +248,7 @@ def run_bench(
         params = quant.random_quantized_params_on_device(config, device=dev)
     else:
         params = llama.init_params(config, torch.Generator(device=dev).manual_seed(0), device=dev)
-    if decode_kernel is None and not (config.mla or flash_decode.flash_decode_supported(config, max_seq)):
-        decode_kernel = "einsum"  # K4 has no form for this head width
+    decode_kernel = decode_kernel or default_decode_kernel(config, max_seq)
     eng = InferenceEngine(
         config, params, max_batch=batch, max_seq=max_seq,
         spec_draft=spec_draft, turbo_steps=turbo_steps,
@@ -413,8 +425,159 @@ def run_bench(
     }
 
 
-# the JAX bench's --sessions mode and its flags: routing/ comes with A4
-_SESSION_FLAGS = ("sessions", "replicas", "turns", "tenants", "turn_chars")
+def run_session_bench(
+    model: str = "llama-tiny",
+    replicas: int = 2,
+    sessions: int = 6,
+    turns: int = 4,
+    tenants: int = 2,
+    gen_len: int = 8,
+    turn_chars: int = 160,
+    batch: int = 8,
+    max_seq: int = 2048,
+    prefill_chunk: int = 64,
+    seed: int = 0,
+    device="cuda",
+) -> dict:
+    """Multi-session chat workload over ≥2 in-process replicas, routed
+    by the real pool picker: prefix-affinity on vs off → result dict.
+
+    Each session is a seeded multi-turn conversation (its own tenant,
+    interleaved with the others turn by turn, assistant replies fed back
+    into the history: the prompt of turn *k+1* extends turn *k*'s).
+    Affinity-on routes each turn through ``pool.pick(affinity=...)``
+    exactly like the production forwarder; the control uses the same pool
+    with affinity disabled (plain least-outstanding + round-robin ties).
+    Warm turns (2..N) are where the KV either is or is not where the
+    router sends the request: their TTFT p50/p95 is the headline. Both
+    passes run once untimed first, so that first calls (graph captures of
+    the chunk and prefix-copy variants) never land in the measured
+    numbers."""
+    from dstack_tpu_torch.routing.affinity import AffinityConfig, request_affinity
+    from dstack_tpu_torch.routing.pool import PoolConfig, ReplicaPool
+    from dstack_tpu_torch.serve.chat_template import DEFAULT_CHAT_TEMPLATE, render_chat
+    from dstack_tpu_torch.serve.tokenizer import ByteTokenizer
+
+    if replicas < 2:
+        raise ValueError("--replicas must be >= 2: the point is routing")
+    dev = resolve_device(device)
+    config = llama.CONFIGS[model]
+    if dev.type == "cuda":
+        cuda_build.build_all()  # a no-op where the libraries exist
+    # one tree shared by every replica, as JAX's bench shares its params
+    params = llama.init_params(config, torch.Generator(device=dev).manual_seed(0), device=dev)
+    tok = ByteTokenizer()
+    engines = [
+        InferenceEngine(
+            config, params, max_batch=batch, max_seq=max_seq, prefill_chunk=prefill_chunk,
+            decode_kernel=default_decode_kernel(config, max_seq), device=dev,
+        )
+        for _ in range(replicas)
+    ]
+    pool = ReplicaPool("bench", "sessions", PoolConfig(startup_grace=0.0))
+    pool.sync([(f"r{i}", "inproc", i) for i in range(replicas)])
+    by_rid = {f"r{i}": engines[i] for i in range(replicas)}
+    launches = {k: 0 for k in launch_counts()}
+
+    def _conversations():
+        """Seeded turn texts, regenerated identically per pass: the
+        loadgen generator, so bench sessions and soak sessions are the
+        same workload."""
+        return conversation_texts(np.random.default_rng(seed), sessions, turns, turn_chars)
+
+    def run_pass(affinity_on: bool, timed: bool) -> dict:
+        for eng in engines:
+            eng.reset_prefix_cache()
+        pool.affinity.clear()
+        pool.affinity.config = AffinityConfig(enabled=affinity_on)
+        pool._rr = 0
+        convs = _conversations()
+        histories = [[] for _ in range(sessions)]
+        last_rid = [None] * sessions
+        warm_ttft_ms, cold_ttft_ms = [], []
+        sticky = moved = 0
+        hits0 = {rid: e.stats["prefix_hits"] for rid, e in by_rid.items()}
+        l0 = launch_counts()
+        # sessions arrive in a seeded-shuffled order each turn: a FIXED
+        # order would let the control's round-robin tie-break pin session
+        # s to replica s % N, a stickiness the load-only picker does not
+        # promise
+        order_rng = np.random.default_rng(seed + 1)
+        for t in range(turns):
+            order = list(range(sessions))
+            order_rng.shuffle(order)
+            for s in order:
+                tenant = f"tenant-{s % tenants}"
+                histories[s].append({"role": "user", "content": convs[s][t]})
+                key = request_affinity("chat/completions", {"messages": histories[s]}, tenant)
+                entry = pool.pick(affinity=key if affinity_on else None)
+                pool.affinity.record(key, entry.replica_id)
+                eng = by_rid[entry.replica_id]
+                prompt_ids = tok.encode(render_chat(histories[s], DEFAULT_CHAT_TEMPLATE))
+                # the clock ends in the first token's device-to-host copy
+                t0 = time.perf_counter()
+                slot, first = eng.add_request(prompt_ids, GenParams(max_new_tokens=gen_len))
+                ttft_ms = (time.perf_counter() - t0) * 1e3
+                out = [first]
+                while eng.active[slot]:
+                    for toks in eng.step().get(slot, []):
+                        out.append(toks)
+                eng.release(slot)
+                histories[s].append({"role": "assistant", "content": tok.decode(out)})
+                if timed:
+                    (warm_ttft_ms if t > 0 else cold_ttft_ms).append(ttft_ms)
+                    if t > 0:
+                        if entry.replica_id == last_rid[s]:
+                            sticky += 1
+                        else:
+                            moved += 1
+                last_rid[s] = entry.replica_id
+        if not timed:
+            return {}
+        for k, v in launch_counts().items():
+            launches[k] += v - l0[k]
+        warm_total = max(1, sticky + moved)
+        return {
+            "ttft_warm_ms_p50": round(_percentile(warm_ttft_ms, 0.5), 1),
+            "ttft_warm_ms_p95": round(_percentile(warm_ttft_ms, 0.95), 1),
+            "ttft_cold_ms_p50": round(_percentile(cold_ttft_ms, 0.5), 1),
+            "prefix_hits": sum(e.stats["prefix_hits"] - hits0[rid] for rid, e in by_rid.items()),
+            "same_replica_rate": round(sticky / warm_total, 3),
+        }
+
+    results = {}
+    for name, on in (("affinity_on", True), ("affinity_off", False)):
+        run_pass(on, timed=False)  # first calls outside the timing, identical schedule
+        results[name] = run_pass(on, timed=True)
+    on, off = results["affinity_on"], results["affinity_off"]
+    backend = backend_info(dev)
+    return {
+        "metric": f"serve_session_ttft_warm_ms[{model},replicas={replicas}]",
+        "value": on["ttft_warm_ms_p50"],
+        "unit": "ms",
+        "extra": {
+            **results,
+            "warm_ttft_speedup_p50": round(
+                off["ttft_warm_ms_p50"] / max(on["ttft_warm_ms_p50"], 1e-9), 2
+            ),
+            "sessions": sessions,
+            "turns": turns,
+            "tenants": tenants,
+            "replicas": replicas,
+            "gen_len": gen_len,
+            "turn_chars": turn_chars,
+            "prefill_chunk": prefill_chunk,
+            "seed": seed,
+            "decode_kernel": engines[0].decode_kernel,
+            # K1's and K4's launches over both timed passes
+            "kernel_launches": {
+                "flash_fwd": launches["flash_fwd"],
+                "flash_decode": launches["flash_decode"],
+            },
+            "graphs": engines[0].graphs.capture,
+            **backend,
+        },
+    }
 
 
 def main(argv=None) -> int:
@@ -455,35 +618,59 @@ def main(argv=None) -> int:
         help="decode attention: the ragged flash-decode kernel (the default "
              "where it takes the model) or the plain masked attention",
     )
-    for flag in _SESSION_FLAGS:
-        p.add_argument("--" + flag.replace("_", "-"), type=int, default=None,
-                       help="--sessions mode: not ported yet (ROADMAP A4)")
+    p.add_argument(
+        "--sessions", type=int, default=0,
+        help="multi-session chat-workload mode: route this many seeded "
+             "multi-turn conversations across --replicas engines via the "
+             "real pool picker and report warm-turn TTFT with prefix-affinity "
+             "routing on vs off (0 = regular bench)",
+    )
+    p.add_argument("--replicas", type=int, default=2,
+                   help="in-process replicas for --sessions mode (>= 2)")
+    p.add_argument("--turns", type=int, default=4,
+                   help="turns per conversation in --sessions mode")
+    p.add_argument("--tenants", type=int, default=2,
+                   help="tenant identities the sessions interleave across "
+                        "(the affinity session key is tenant-scoped)")
+    p.add_argument("--turn-chars", type=int, default=160,
+                   help="approximate user-message length per turn (--sessions)")
     p.add_argument("--output", default=None, help="also write the result JSON to this file")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if any(getattr(args, f) for f in _SESSION_FLAGS):
-        p.error("not ported yet: --sessions (and --replicas/--turns/--tenants/"
-                "--turn-chars) routes sessions across replicas, which needs "
-                "routing/ (ROADMAP A4)")
 
-    result = run_bench(
-        model=args.model,
-        batch=args.batch,
-        max_seq=args.max_seq,
-        prompt_len=args.prompt_len,
-        gen_len=args.gen_len,
-        spec_draft=args.spec_draft,
-        repetitive=args.repetitive,
-        quantize=args.quantize,
-        turbo_steps=args.turbo_steps,
-        turbo_depth=args.turbo_depth,
-        kv_quant=args.kv_quant,
-        decode_kernel=args.decode_kernel,
-        prefill_chunk=args.prefill_chunk,
-        prefill_pack=args.prefill_pack,
-        arrival_burst=args.arrival_burst,
-        device=args.device,
-    )
+    if args.sessions:
+        result = run_session_bench(
+            model=args.model,
+            replicas=args.replicas,
+            sessions=args.sessions,
+            turns=args.turns,
+            tenants=args.tenants,
+            gen_len=args.gen_len,
+            turn_chars=args.turn_chars,
+            batch=args.batch,
+            max_seq=args.max_seq,
+            prefill_chunk=args.prefill_chunk,
+            device=args.device,
+        )
+    else:
+        result = run_bench(
+            model=args.model,
+            batch=args.batch,
+            max_seq=args.max_seq,
+            prompt_len=args.prompt_len,
+            gen_len=args.gen_len,
+            spec_draft=args.spec_draft,
+            repetitive=args.repetitive,
+            quantize=args.quantize,
+            turbo_steps=args.turbo_steps,
+            turbo_depth=args.turbo_depth,
+            kv_quant=args.kv_quant,
+            decode_kernel=args.decode_kernel,
+            prefill_chunk=args.prefill_chunk,
+            prefill_pack=args.prefill_pack,
+            arrival_burst=args.arrival_burst,
+            device=args.device,
+        )
     line = json.dumps(result)
     print(line)
     if args.output:

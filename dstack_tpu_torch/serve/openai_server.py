@@ -177,7 +177,7 @@ class Scheduler:
     is abandoned and its wedged slot aborted (:meth:`_guarded_step`)."""
 
     def __init__(self, engine: InferenceEngine, tokenizer, tenant_inflight: int = 0,
-                 watchdog_seconds: float = 0.0, boot=None):
+                 watchdog_seconds: float = 0.0, boot=None, device_lock=None):
         self.engine = engine
         self.tokenizer = tokenizer
         self.pending = qos.PriorityPending()
@@ -193,7 +193,8 @@ class Scheduler:
         self.by_slot: dict[int, _Request] = {}
         self.by_prefill: dict[int, _Request] = {}  # chunked prefills in flight
         self._task: Optional[asyncio.Task] = None
-        self._device = threading.Lock()
+        # replicas of one process on one card share one lock (``build_app``)
+        self._device = device_lock or threading.Lock()
 
     async def run_on_device(self, fn):
         """``fn()`` on a worker thread, never beside another call made
@@ -475,7 +476,11 @@ class Scheduler:
             lambda r: self._tenant_cap_ok(r, held), discard=lambda r: r.cancelled))
         for req in admitted:
             try:
-                slot = self.engine.start_request(req.prompt_ids, req.gen)
+                # under the device lock, as every call that reaches the card:
+                # a prefix hit's copy replays a step site, or captures one,
+                # which must not overlap another replica's capture
+                slot = await self.run_on_device(
+                    functools.partial(self.engine.start_request, req.prompt_ids, req.gen))
             except Exception as e:  # noqa: BLE001 - reported per request
                 logger.exception("admission failed: %s", e)
                 self._fail(req, str(e))
@@ -854,12 +859,20 @@ def build_app(
     watchdog_seconds: Optional[float] = None,
     deadline_default: Optional[float] = None,
     boot=_BOOT_FROM_ENV,
+    device_lock=None,
+    client_max_size: int = 1 << 20,
 ) -> web.Application:
     """The server's routes over ``engine``, with JAX's defaults: the QoS
     policy from ``DTPU_QOS_*``, the watchdog from
     ``DTPU_ENGINE_WATCHDOG_SECONDS``, the default deadline from
     ``DTPU_REQUEST_DEADLINE_DEFAULT`` (0 = off each) and the process's boot
-    recorder (an explicit None opts this app out)."""
+    recorder (an explicit None opts this app out). ``device_lock``: the
+    lock the scheduler holds around its engine calls; several apps of one
+    process on one card (the soak's replicas) pass one, so that their
+    engines' work and launch counts take turns as one server's do.
+    ``client_max_size``: the largest request body read, aiohttp's 1 MiB
+    default as in the JAX server (a larger body answers 400 "invalid JSON
+    body"); the soak's replicas raise it for their ASCII bias."""
     if qos_policy is None:
         qos_policy = qos.QoSPolicy.from_env()
     if watchdog_seconds is None:
@@ -868,10 +881,10 @@ def build_app(
         deadline_default = _env_float("DTPU_REQUEST_DEADLINE_DEFAULT", 0.0)
     if boot is _BOOT_FROM_ENV:
         boot = obs_boot.get_recorder()
-    app = web.Application()
+    app = web.Application(client_max_size=client_max_size)
     app["boot"] = boot
     sched = Scheduler(engine, tokenizer, tenant_inflight=qos_policy.tenant_inflight,
-                      watchdog_seconds=watchdog_seconds, boot=boot)
+                      watchdog_seconds=watchdog_seconds, boot=boot, device_lock=device_lock)
     app["scheduler"] = sched
     # live SLO windows over this replica's registries (None under
     # DTPU_SLO=0): /health embeds them as `slo_windows`, which a router's

@@ -32,13 +32,19 @@ def _port_modules() -> list[str]:
 def test_the_scan_covers_the_step_sites_and_their_accounting():
     """The modules below hold copies of JAX-package code (the flight and
     boot recorders, tracing, the SLO engine, the fault layer, QoS, the retry
-    helpers, the profiler's routes and the HF tokenizer) beside the graph
-    sites: the two scans here must reach them."""
+    helpers, the profiler's routes, the HF tokenizer, the routing pool and
+    forwarder, and the loadgen soak) beside the graph sites: the two scans
+    here must reach them."""
     assert {"dstack_tpu_torch.obs.flight", "dstack_tpu_torch.obs.boot",
             "dstack_tpu_torch.serve.graphs", "dstack_tpu_torch.obs.tracing", "dstack_tpu_torch.obs.slo",
             "dstack_tpu_torch.obs.profiling", "dstack_tpu_torch.faults", "dstack_tpu_torch.faults.catalog",
             "dstack_tpu_torch.faults.__main__", "dstack_tpu_torch.qos", "dstack_tpu_torch.qos.metrics",
-            "dstack_tpu_torch.utils.retry", "dstack_tpu_torch.serve.tokenizer"} <= set(_port_modules())
+            "dstack_tpu_torch.utils.retry", "dstack_tpu_torch.serve.tokenizer",
+            "dstack_tpu_torch.routing", "dstack_tpu_torch.routing.affinity", "dstack_tpu_torch.routing.pool",
+            "dstack_tpu_torch.routing.forward", "dstack_tpu_torch.routing.metrics",
+            "dstack_tpu_torch.loadgen", "dstack_tpu_torch.loadgen.soak", "dstack_tpu_torch.loadgen.driver",
+            "dstack_tpu_torch.loadgen.schedule", "dstack_tpu_torch.loadgen.spec", "dstack_tpu_torch.loadgen.report",
+            "dstack_tpu_torch.loadgen.metrics", "dstack_tpu_torch.loadgen.__main__"} <= set(_port_modules())
 
 
 def test_importing_every_module_loads_no_jax():

@@ -63,15 +63,20 @@ def clock(monkeypatch):
 
 
 @pytest.fixture
-def fresh_registries():
-    """Every module-global registry of both packages starts empty."""
-    mods = (jtracing, ttracing, jflight, tflight, jboot, tboot, jslo, tslo, jqm, tqm)
-    saved = [(m, m._registry) for m in mods]
-    for m in mods:
-        m._registry = None
+def fresh_registries(monkeypatch):
+    """Every module-global registry of both packages starts empty, and each
+    package's trace ring fresh (a ring that earlier tests of the process
+    filled would evict, and count, traces in one package only); all
+    restored after the test."""
+    for m in (jtracing, ttracing, jflight, tflight, jboot, tboot, jslo, tslo, jqm, tqm):
+        monkeypatch.setattr(m, "_registry", None)
+    for m in (jtracing, ttracing):
+        tracer = m.get_tracer()
+        monkeypatch.setattr(m, "_tracer", tracer)
+        monkeypatch.setattr(m, "span", m.span)
+        if tracer is not None:
+            m.enable(buffer=m.DEFAULT_BUFFER, sample=tracer.sample)
     yield
-    for m, r in saved:
-        m._registry = r
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,9 @@
   seed-0 init), which these counts do not read: no request has an eos, and
   at ``turbo_steps`` 8 the macro-step cap never reads the clock.
 - ``main``: one JSON line with ``--device cpu``; without it on a machine
-  with no GPU it raises; ``--sessions`` and its flags (ROADMAP A4) are
-  refused by name (``--quantize int8``: tests/test_torch_quant_engine.py).
+  with no GPU it raises (``--quantize int8``:
+  tests/test_torch_quant_engine.py; ``--sessions``:
+  tests/test_torch_session_bench.py).
 - ``loadgen/textgen.py``: the same numpy seed gives JAX's prompts.
 - The server: ``/metrics`` answers ``text/plain`` with every serve family;
   after completions (one with ``n`` = 2) the request, queue-wait, TTFT,
@@ -141,19 +142,6 @@ def test_main_without_device_cpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tbench.main(["--model", "llama-tiny"])
-
-
-@pytest.mark.parametrize("flags, names", [
-    (["--sessions", "3"], "ROADMAP A4"),
-    (["--replicas", "3"], "ROADMAP A4"),
-    (["--turns", "2"], "ROADMAP A4"),
-    (["--tenants", "2"], "ROADMAP A4"),
-    (["--turn-chars", "80"], "ROADMAP A4"),
-])
-def test_refused_flags_name_their_slice(flags, names, capsys):
-    with pytest.raises(SystemExit) as e:
-        tbench.main(["--device", "cpu", *flags])
-    assert e.value.code == 2 and names in capsys.readouterr().err
 
 
 def test_a_burst_wider_than_the_batch_is_refused():

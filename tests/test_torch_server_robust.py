@@ -118,12 +118,19 @@ def frozen_buckets(monkeypatch):
     """Both packages' tenant buckets on one frozen clock; an SLO tick so
     long that each app's SLO windows tick once, at their first read (the
     count of evaluations then depends on the reads, not on the host's
-    speed); both packages' process registries and fault plans fresh."""
+    speed); both packages' process registries, trace rings and fault plans
+    fresh (a ring that earlier tests of the process filled would evict, and
+    count, traces in one package only)."""
     monkeypatch.setenv("DTPU_SLO_TICK", "1e6")
     for pkg in (JAX_PKG, PORT_PKG):
         monkeypatch.setattr(pkg.qos.TenantBuckets.__init__, "__defaults__", (256, lambda: 1000.0))
         for mod in (pkg.qm, pkg.tracing, pkg.flight, pkg.slo, pkg.boot):
             monkeypatch.setattr(mod, "_registry", None)
+        tracer = pkg.tracing.get_tracer()
+        if tracer is not None:
+            monkeypatch.setattr(pkg.tracing, "_tracer", tracer)  # restored after the test,
+            monkeypatch.setattr(pkg.tracing, "span", pkg.tracing.span)  # with its span
+            pkg.tracing.enable(buffer=pkg.tracing.DEFAULT_BUFFER, sample=tracer.sample)
         pkg.faults.clear()
     yield
     for pkg in (JAX_PKG, PORT_PKG):
