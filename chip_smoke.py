@@ -136,7 +136,8 @@ starts during the export round trip.
    K2 and K3 at llama-3-8b's training micro-batch (q/dO [8,32,2048,128]
    over k/v [8,8,2048,128], causal; ``d128_train_kernel_phase``) by both
    rules, reruns bitwise, timed beside the bounds, the plain versions and
-   SDPA.
+   SDPA; and again at starcoder2-7b's training micro-batch, G = 9 (q/dO
+   [8,36,2048,128] over k/v [8,4,2048,128]: rows ``*_d128_g9``).
 3. Path phase: start ``python -m dstack_tpu_torch.serve.openai_server
    --decode-kernel flash`` with no ``--device`` flag (the server runs on
    ``cuda`` by default, which ``/health`` must show; full width and depth, random
@@ -234,22 +235,28 @@ starts during the export round trip.
    replicas sharing one tree, 8 sessions of 4 turns, 32 tokens a turn,
    chunk 256) logs warm-turn TTFT p50/p95 with affinity on and off, cold
    TTFT p50, prefix hits and ``same_replica_rate``, and fails unless the
-   affinity-on pass has more prefix hits than the off pass; then the
-   loadgen soak (``soak_phase``: ``run_soak`` over ``default_spec(30 s,
-   1.5 rps)`` at seed 7, 2 replicas behind the port's router with QoS,
-   drain then kill, and a cold scale-up replica built on the card under
-   its own boot recorder at 20 % of the schedule; at 3 rps the soak's ASCII
-   bias saturates the event loop), which logs goodput and TTFT by class, the
-   router's counters, the scale-up replica's boot stages and the host ms
-   a request spends on the soak's 128,128-entry ASCII bias, and fails
-   unless no client saw a 5xx or a failure, a breaker opened, a stream
-   resumed or a request failed over, the tail recovered, the sheds were
-   honest and the report's digest is the compiled schedule's. Then the
+   affinity-on pass has more prefix hits than the off pass; then the two
+   loadgen soaks of the JAX package's acceptance (``soak_phase``:
+   ``run_soak`` over ``default_spec(30 s, 1.5 rps)`` at seed 7, 2 replicas
+   behind the port's router with QoS; at 3 rps the soak's ASCII bias
+   saturates the event loop): the chaos soak (a drain, then a kill that
+   waits up to 3 s for its replica to hold a request) and the boot soak (a
+   cold scale-up replica built on the card under its own boot recorder at
+   10 % of the schedule). Each logs goodput and TTFT by class, its windows
+   and the router's counters, the boot soak the scale-up replica's boot
+   stages, the chaos soak the host ms a request spends on the soak's
+   128,128-entry ASCII bias; each fails unless no client saw a 5xx or a
+   failure, every event fired, the sheds were honest and the report's
+   digest is the compiled schedule's, and, for the chaos soak, a breaker
+   opened, a stream resumed or a request failed over, the kill window
+   served and the tail recovered, for the boot soak, every boot stage and
+   mark was recorded, the replica served, the join window served and
+   goodput held at 0.5 or more. Then the
    graph phase (``graph_phase``): in this process, llama-3.2-1b,
    gpt-oss-20b, gemma-3-4b and glm-4-9b on both caches and
    deepseek-v2-lite and olmo-2-7b at full width (llama-3.2-1b at full
-   depth, the others at ``GRAPH_LAYERS``' depths: gpt-oss-20b 4,
-   gemma-3-4b 6, deepseek-v2-lite 5, glm-4-9b 6, olmo-2-7b 4), the graph
+   depth, the others at ``GRAPH_LAYERS``' depths: gpt-oss-20b 2,
+   gemma-3-4b 6, deepseek-v2-lite 2, glm-4-9b 2, olmo-2-7b 2), the graph
    engine against the eager engine
    (``graphs=False``) on the same traffic (a burst of four prompts, a
    verify, seeded sampling with penalties and logprobs, a seed skip): the
@@ -323,12 +330,17 @@ starts during the export round trip.
    then Gemma at head_dim 256 for 5 steps each: gemma-3-4b LoRA and
    gemma-2-2b LoRA (softcap 50 in K1-K3, the logit cap 30 in the loss,
    windows of 4096 on alternate layers) in one micro-batch, gemma-3-1b
-   ``--full`` at ``--grad-accum 2``. From each summary line: finite
-   losses, the first within 1.0 of ln(vocab), per micro-batch of every
-   step K1, K2 and K3 n_layers times each (K1's residuals are kept across
-   remat) and K1 n_layers times more an eval batch, A8 once a quantized
-   leaf a step of the opt8 runs and never in the others; the median step
-   time, tokens/s, MFU and peak memory are printed.
+   ``--full`` at ``--grad-accum 2``; gpt-oss-20b LoRA at full width and
+   depth (24 layers, 41.8 GB of bf16 weights) at ``--grad-accum 4``, 3
+   steps. From each summary line: finite losses, the first within
+   1.0 of ln(vocab), per micro-batch of every step K1, K2 and K3 once a
+   flash layer each (K1's residuals are kept across remat; gpt-oss's
+   sinks take the masked attention, as JAX trains them, so its run
+   launches none) and K1 n_layers times more an eval batch, A8 once a
+   quantized leaf a step of the opt8 runs and never in the others; a LoRA
+   run's base weights bitwise as drawn (``tree_digest`` before the first
+   step and after the run) and every adapter's B factor moved from 0; the
+   median step time, tokens/s, MFU and peak memory are printed.
    Then one more full fine-tune step in this process, traced with
    torch.profiler: device time by kernel family and the device's busy
    share of the step. Then deepseek-v2-lite fully fine-tuned in this
@@ -340,13 +352,14 @@ starts during the export round trip.
    (K1, K2 and K3 4 a micro-batch), finite losses, the first CE
    within 1.0 of ln(vocab); step seconds (the median after the first),
    tokens/s, MFU on the active parameters, peak memory, CE and aux. Then
-   llama-3-8b fully fine-tuned in this process at full width and depth
-   (``train_8b_phase``: ``default_optimizer(opt_bits=8)``,
+   llama-3-8b and then starcoder2-7b (LayerNorm with a bias, every bias,
+   the gateless MLP) fully fine-tuned in this process at full width and
+   depth (``train_opt8_phase``: ``default_optimizer(opt_bits=8)``,
    ``make_train_step``, whose default loss at batch 8 x 2048 in one
-   micro-batch is the chunked one; out of memory fails it; 4 steps): K1, K2 and
-   K3 32 a step, A8 once a quantized leaf a step, finite losses, the first
-   within 1.0 of ln(vocab); step seconds, tokens/s, MFU, peak memory
-   beside the bytes of the parameters and the moments.
+   micro-batch is the chunked one; out of memory fails it; 4 steps each):
+   K1, K2 and K3 32 a step, A8 once a quantized leaf a step, finite
+   losses, the first within 1.0 of ln(vocab); step seconds, tokens/s,
+   MFU, peak memory beside the bytes of the parameters and the moments.
    The llama full and LoRA runs also write ``--export-hf`` directories,
    which ``load_checkpoint(..., device="cuda")`` gives back bitwise as the
    trained tree and the merged one, each forward bitwise the original's
@@ -358,19 +371,26 @@ starts during the export round trip.
 5. Gradient-parity phase: the full fine-tune loss (random weights from
    seed 0, one batch of 1 x 2048 tokens) of llama-3.2-1b at full width
    and depth, of gemma-3-4b and gemma-3-1b at 6 layers and gemma-2-2b at
-   4 (full width, norms at identity), and of deepseek-v2-lite at full
-   width and 4 layers (routing pinned to the f32 path's choices),
-   differentiated on three paths (kernels in bf16, plain in bf16, plain
-   in f32): for every parameter leaf the kernel path's relative RMS
-   gradient error against f32 may be at most 1.5 times the plain bf16
-   path's; the two bf16 losses agree within 2e-2, and each lies within
-   the model's limit of the f32 loss (``GRAD_PARITY``: 2e-3, gemma-3-4b
-   6e-2, deepseek-v2-lite 1e-2).
+   4 (full width, norms at identity), of deepseek-v2-lite at full
+   width and 4 layers (routing pinned to the f32 path's choices), of
+   qwen-2.5-7b, glm-4-9b, olmo-2-7b, command-r-35b, minitron-4b and
+   starcoder2-7b at full width and 4 layers (biases and norms drawn), of
+   gpt-oss-20b at 4 (two sliding, two global layers, sinks and biases
+   drawn), and llama-4-scout's LoRA loss at 4 (layers 0-2 rope, layer 3
+   NoPE), differentiated on three paths (kernels in bf16, plain in bf16,
+   plain in f32): for every parameter (or adapter) leaf the kernel
+   path's relative RMS gradient error against f32 may be at most 1.5
+   times the plain bf16 path's; the two bf16 losses agree within 2e-2,
+   and each lies within the model's limit of the f32 loss
+   (``GRAD_PARITY``: 2e-3, gemma-3-4b 6e-2, gpt-oss-20b 5e-3,
+   llama-4-scout 6e-3).
 6. Print the ``kernels`` JSON line (K1 at the llama, the gpt-oss, the
    Gemma, the dense families' D = 128 (with G = 5, and llama-3-8b's
-   training micro-batch), the MLA serving (at 16 and, in its own row, at
-   deepseek-v3's 128 heads) and the MLA training shape, K2 and K3 at
-   head_dim 64, 128, 192 and 256, A8 with its four leaves, K4 as one row per
+   training micro-batch and starcoder2-7b's at G = 9), the MLA serving (at
+   16 and, in its own row, at deepseek-v3's 128 heads) and the MLA
+   training shape, K2 and K3 at head_dim 64, 128 (llama-3-8b's and, in
+   their own rows, starcoder2-7b's micro-batch), 192 and 256, A8 with its
+   four leaves, K4 as one row per
    form, eight at head_dim 64, four at 128 and four at 256, each with its launches on
    every path of its models; a form launched on no path fails the run;
    every row carries its kernel's ptxas report, K1 its training- and
@@ -471,13 +491,16 @@ FAMILY_TF = ("qwen-2.5-7b", "qwen-3-8b", "mistral-7b", "starcoder2-7b", "minitro
 FAMILY_TF_LAYERS = 4
 # the graph phase's depths (their servers run at full depth; llama-3.2-1b
 # runs there at its full 16): every form and site, gpt-oss-20b's sliding
-# and global layers (2 of each), gemma-3-4b's global layer 5 beside five
-# local ones, deepseek-v2-lite's dense layer and 4 MoE layers, so that the
-# run keeps its margin under the 1200 s limit on a slow host: the graph
-# phase took 159.6-218.8 s at the depths gpt-oss 24, gemma 34, deepseek
-# 27, glm 10, olmo 8, and 108.2 s at 8, 12, 9, 6, 4 in a whole run of
-# 1106.8 s, on an NVIDIA H100 80GB HBM3 at 700 W
-GRAPH_LAYERS = {GPT_OSS: 4, GEMMA3: 6, DEEPSEEK: 5, GLM: 6, OLMO: 4}
+# and global layer, gemma-3-4b's global layer 5 beside five local ones,
+# deepseek-v2-lite's dense layer and an MoE layer, so that the run keeps
+# its margin under the 1200 s limit on a slow host: the graph phase took
+# 159.6-218.8 s at the depths gpt-oss 24, gemma 34, deepseek 27, glm 10,
+# olmo 8, 108.2 s at 8, 12, 9, 6, 4 in a whole run of 1106.8 s, and 86.8 s
+# at 4, 6, 5, 6, 4 on a slow host (its bench 114.7 s against 92.5 in a
+# whole run of 745.3 s), on an NVIDIA H100 80GB HBM3 at 700 W; with the
+# training phases of every served family (ROADMAP A5.7-A5.9) gpt-oss-20b,
+# deepseek-v2-lite, glm-4-9b and olmo-2-7b run here at 2
+GRAPH_LAYERS = {GPT_OSS: 2, GEMMA3: 6, DEEPSEEK: 2, GLM: 2, OLMO: 2}
 # the remaining families (ROADMAP A3.2-A3.4). qwen-3-30b-a3b serves at full
 # width and depth (61.1 GB; 128 experts, 8 a token, G = 8); mixtral-8x7b
 # (G = 4), llama-4-scout (G = 5, NoPE layers, chunked attention, the
@@ -505,13 +528,16 @@ COHERE2_HF = {
 # the expert-read floor of a qwen-3-30b-a3b decode step: the port's MoE
 # reads every expert's weights (48 x 128 x 3 x 2048 x 768 bf16) at 3.35 TB/s
 QWEN_MOE_FLOOR_MS = 48 * 128 * 3 * 2048 * 768 * 2 / PEAK_BYTES_S * 1e3
-# llama-3-8b fully fine-tuned in this process (train_8b_phase) at full
-# width and depth: int8 moments (A8), the chunked loss, TRAIN_8B's rows of
-# 2048 tokens in one micro-batch and steps; K1-K3 at its micro-batch
-# (D128_TRAIN_SHAPE: B, H, Hkv, T, D) in the kernel phase
+# llama-3-8b and starcoder2-7b (LayerNorm with a bias, every bias, the
+# gateless MLP) fully fine-tuned in this process (train_opt8_phase) at full
+# width and depth: int8 moments (A8), the chunked loss, TRAIN_OPT8's rows of
+# 2048 tokens in one micro-batch and steps; K1-K3 at their micro-batches
+# (B, H, Hkv, T, D; starcoder2-7b's G = 9) in the kernel phase
 LLAMA_8B = "llama-3-8b"
-TRAIN_8B = (8, 4)
+STARCODER2 = "starcoder2-7b"
+TRAIN_OPT8 = {LLAMA_8B: (8, 4), STARCODER2: (8, 4)}  # model → (rows, steps)
 D128_TRAIN_SHAPE = (8, 32, 8, 2048, 128)
+D128_G9_TRAIN_SHAPE = (8, 36, 4, 2048, 128)
 D128 = (GLM, OLMO, *FAMILY_TF, MIXTRAL, QWEN_MOE, LLAMA4, COHERE2, LLAMA_8B)  # the models whose paths run the D = 128 forms
 # std of the seeded values drawn in the dense families' comparison over
 # init_params' zero biases and around its identity norms (a norm's scale
@@ -549,7 +575,15 @@ TRAIN_RUNS = {
     "gemma3_lora": (GEMMA3, "lora", 1, 5),
     "gemma2_lora": (GEMMA2, "lora", 1, 5),
     "gemma3_1b_full": (GEMMA3_1B, "full", 2, 5),
+    # gpt-oss-20b at full width and depth (24 layers, 41.8 GB of bf16
+    # weights): every layer's sinks take the masked attention, as JAX trains
+    # them, so no K1-K3 launch; its [B, 64, 2048, 2048] f32 scores set the
+    # micro-batch: at --grad-accum 2 a layer's backward ran out of the
+    # card's memory (66.4 GiB allocated and 8.4 reserved at a 4 GiB request,
+    # NVIDIA H100 80GB HBM3)
+    "gptoss_lora": (GPT_OSS, "lora", 4, 3),
 }
+DIGEST_CHUNK = 1 << 26  # elements a leaf's digest reads at once (tree_digest)
 # the llama full run trains with int8 moments (--opt-bits 8: A8 on every
 # quantized leaf), checkpoints every 3 steps into <out>/ckpt and evaluates
 # EVAL_ROWS seeded rows of 2049 tokens (EVAL_PATH, written by the script)
@@ -577,7 +611,24 @@ BWD_D256_SHAPE = (4, 8, 4, 2048, 256)
 # f32's, gemma-3-4b's 0.020, and deepseek-v2-lite's 1.2e-4 (kernel) and
 # 3e-5 (plain)
 GRAD_PARITY = {MODEL: (None, 2e-3), GEMMA3: (6, 6e-2), GEMMA2: (4, 2e-3), GEMMA3_1B: (6, 2e-3),
-               DEEPSEEK: (DEEPSEEK_TF_LAYERS, 2e-3)}
+               DEEPSEEK: (DEEPSEEK_TF_LAYERS, 2e-3),
+               # the families the trainer took on with ROADMAP A5.7-A5.9, at
+               # full width and 4 layers (family_tf_params' biases and norms;
+               # gpt-oss-20b's two sliding and two global layers with nonzero
+               # sinks and biases: gpt_oss_tf_params). Read on an NVIDIA H100
+               # 80GB HBM3 at 700 W:
+               # 1.8e-4 to 8.0e-4 on the dense families, gpt-oss-20b's 1.65e-3
+               # (its kernel path is the plain one: the masked attention),
+               # llama-4-scout's LoRA 1.96e-3 (kernel) and 1.08e-3 (plain)
+               **{name: (FAMILY_TF_LAYERS, 2e-3) for name in (
+                   "qwen-2.5-7b", GLM, OLMO, "command-r-35b", "minitron-4b", STARCODER2)},
+               GPT_OSS: (GPT_OSS_TF_LAYERS, 5e-3), LLAMA4: (FAMILY_TF_LAYERS, 6e-3)}
+# the models whose parity is of the LoRA gradients: llama-4-scout's f32
+# tree with its gradients does not fit the card at 4 layers (~35 GB of f32
+# weights and as many again in gradients), so its adapters' gradients are
+# held, the base weights' f32 path reading the expert stacks through
+# F32Experts
+GRAD_PARITY_LORA = (LLAMA4,)
 SPEC_ROWS = 5  # rows a query head verifies: the server's --spec-draft 4, plus one
 # the server runs (mode → model, flags): the serial path of the first
 # slice, without the start-up warmup (its first request pays the card's
@@ -1981,17 +2032,20 @@ def adam8_kernel_phase() -> dict:
     return {"adam8": {**shapes[0], "shapes": shapes}}
 
 
-def d128_train_kernel_phase() -> dict:
-    """K1, K2 and K3 at llama-3-8b's training micro-batch
+def d128_train_kernel_phase(model: str = LLAMA_8B, train_shape: tuple = D128_TRAIN_SHAPE,
+                            suffix: str = "") -> dict:
+    """K1, K2 and K3 at ``model``'s training micro-batch: llama-3-8b's
     (D128_TRAIN_SHAPE: q/dO [8,32,2048,128] over k/v [8,8,2048,128],
-    causal), the shapes ``train_8b_phase`` gives them: o, lse, dq, dk and
-    dv held to the plain versions by both rules (:func:`fwd_bwd_check`),
-    K2/K3 reruns bit-identical, each kernel timed beside its bound, the
-    plain version and SDPA's ``is_causal`` forward or backward (the
-    backend named). → K1's as ``train_shape`` of the ``flash_fwd_d128``
-    row, and the rows ``flash_bwd_dq_d128``, ``flash_bwd_dkv_d128``."""
-    c = llama.CONFIGS[LLAMA_8B]
-    b, h, hkv, t, d = D128_TRAIN_SHAPE
+    causal), the shapes ``train_opt8_phase`` gives them, or starcoder2-7b's
+    at G = 9 (D128_G9_TRAIN_SHAPE, its fine-tune's; ``suffix`` "_g9"): o,
+    lse, dq, dk and dv held to the plain versions by both rules
+    (:func:`fwd_bwd_check`), K2/K3 reruns bit-identical, each kernel timed
+    beside its bound, the plain version and SDPA's ``is_causal`` forward
+    or backward (the backend named). → K1's as ``train_shape<suffix>`` of
+    the ``flash_fwd_d128`` row, and the rows ``flash_bwd_dq_d128<suffix>``,
+    ``flash_bwd_dkv_d128<suffix>``."""
+    c = llama.CONFIGS[model]
+    b, h, hkv, t, d = train_shape
     kw = dict(scale=c.attention_scale)
     g = torch.Generator(device="cuda").manual_seed(21)
     q, do = (torch.randn(b, h, t, d, generator=g, device="cuda").bfloat16() for _ in range(2))
@@ -2025,11 +2079,11 @@ def d128_train_kernel_phase() -> dict:
                "tile_rel_rms": r["flash_fwd_tiles"] if fwd else r[name][1]}
         rows[name] = row
         log(f"kernel {name} d128 q/dO [{b},{h},{t},{d}] k/v [{b},{hkv},{t},{d}] causal "
-            f"({LLAMA_8B}'s training micro-batch): " + json.dumps(row))
+            f"({model}'s training micro-batch): " + json.dumps(row))
     del q, k, v, do, r, o, lse, delta
     free_card()
-    return {"flash_fwd_d128": {"train_shape": rows["flash_fwd"]},
-            "flash_bwd_dq_d128": rows["flash_bwd_dq"], "flash_bwd_dkv_d128": rows["flash_bwd_dkv"]}
+    return {"flash_fwd_d128": {f"train_shape{suffix}": rows["flash_fwd"]},
+            f"flash_bwd_dq_d128{suffix}": rows["flash_bwd_dq"], f"flash_bwd_dkv_d128{suffix}": rows["flash_bwd_dkv"]}
 
 
 def embed_kernel_phase(rows: dict) -> None:
@@ -3385,7 +3439,7 @@ def bench_phase() -> dict:
     return {"runs": runs, "launches": launches, "default": default}
 
 
-# the multi-replica paths (ROADMAP A4.2): the session bench and the soak.
+# the multi-replica paths (ROADMAP A4.2): the session bench and the soaks.
 # The soak's ASCII bias (128,128 entries, a 1.94 MB body) costs each request
 # 0.27-0.39 s of the one event loop that the driver, the router and the
 # replicas share (the client's encoding, the router's and the server's JSON
@@ -3393,14 +3447,30 @@ def bench_phase() -> dict:
 # section 5). At the 3 rps of the JAX package's chaos soaks
 # (tests/chaos/test_chaos_loadgen.py, test_chaos_boot.py), whose small
 # vocabulary makes the bias cheap, that loop saturates on the card, its
-# queue grows and goodput fell to 0.09-0.14; so the soak here runs at 1.5 rps,
-# where seed 7 draws 33 events (seed 0 draws 60, and those saturate it too:
-# ROADMAP B16, open). The cold replica spawns at
-# 20 % of the schedule, not the 45 % default: its warmup's captures hold the
-# replicas' device lock for 5-17 s, and at 45 % it joined after the last
-# request
+# queue grows and goodput fell to 0.09-0.14; so the soaks here run at 1.5
+# rps, where seed 7 draws 33 events (ROADMAP B16, open). As in the JAX
+# package's acceptance, the kill and the scale-up run in soaks of their own,
+# each at that acceptance's fractions: a cold replica's warmup captures hold
+# the replicas' device lock for 5-17 s, and booted beside the drain and the
+# kill of one 30 s soak it left a backlog that failed "the tail recovered" in
+# two soaks of six on an H100 (PERF.md section 6). The chaos soak keeps three
+# replicas, so that two serve after the kill, as in that soak once the
+# scale-up replica had joined: with two, the one survivor failed the tail in
+# two soaks of three. At 33 events the planned kill found the doomed replica
+# idle in two more of the six (no resume or failover), so the kill waits up
+# to SOAK_KILL_WAIT_S for it to hold a request
 SESSION_ARGS = dict(model=MODEL, replicas=2, sessions=8, turns=4, gen_len=32, prefill_chunk=256)
-SOAK_SEED, SOAK_DURATION_S, SOAK_RATE_RPS, SOAK_SCALE_UP_FRAC = 7, 30.0, 1.5, 0.2
+SOAK_SEED, SOAK_DURATION_S, SOAK_RATE_RPS, SOAK_KILL_WAIT_S = 7, 30.0, 1.5, 3.0
+# the server's --prefill-chunk default, as the bench and the session bench
+# run (SoakConfig's 64 is the JAX soak's, for llama-tiny on the CPU): at 64 a
+# 1,000-token turn prefills in 16 serial chunks, each a turn of the shared
+# device lock, and prefill was the largest phase of the kill window's worst
+# TTFTs (0.65-1.19 s of 1.04-1.58 s)
+SOAK_PREFILL_CHUNK = 256
+# tests/chaos/test_chaos_loadgen.py's fractions, and test_chaos_boot.py's
+SOAK_CHAOS = dict(replicas=3, chaos=True, drain_start_frac=0.20, drain_end_frac=0.35, kill_frac=0.55,
+                  kill_wait_s=SOAK_KILL_WAIT_S)
+SOAK_BOOT = dict(replicas=2, chaos=False, scale_up=True, scale_up_frac=0.1, scale_up_window_s=10.0)
 
 
 def _launch_check(what: str, launches: dict) -> None:
@@ -3471,35 +3541,41 @@ def bias_host_ms(c, iters: int = 5) -> dict:
     return out
 
 
-def soak_phase(card: str) -> dict:
+def soak_phase(card: str, kind: str) -> dict:
     """``run_soak`` on the card: ``default_spec(SOAK_DURATION_S,
     SOAK_RATE_RPS)`` at SOAK_SEED through the port's router over two
-    replicas of llama-3.2-1b (one tree, one device lock) with QoS, the
-    drain flip, the kill, and a cold scale-up replica. → {"launches",
-    "report"}."""
+    replicas of llama-3.2-1b (one tree, one device lock) with QoS. The
+    ``chaos`` soak (SOAK_CHAOS) flips a drain and kills a replica,
+    mid-stream; the ``boot`` soak (SOAK_BOOT) builds a cold scale-up
+    replica on the card under its own boot recorder. Each is held to its
+    JAX acceptance test's checks (tests/chaos/test_chaos_loadgen.py,
+    test_chaos_boot.py). → {"launches", "report"}."""
     from dstack_tpu_torch.loadgen import compile_schedule, default_spec
     from dstack_tpu_torch.loadgen.soak import SoakConfig, run_soak
 
-    c = llama.CONFIGS[MODEL]
-    bias_ms = bias_host_ms(c)
-    log(f"[soak] host ms a request spends on the ASCII bias ({card}'s host): {json.dumps(bias_ms)}")
+    what = f"soak_{kind}"
+    out = {}
+    if kind == "chaos":
+        out["bias_host_ms"] = bias_ms = bias_host_ms(llama.CONFIGS[MODEL])
+        log(f"[{what}] host ms a request spends on the ASCII bias ({card}'s host): {json.dumps(bias_ms)}")
     schedule = compile_schedule(default_spec(duration_s=SOAK_DURATION_S, rate_rps=SOAK_RATE_RPS), SOAK_SEED)
-    cfg = SoakConfig(replicas=2, model=MODEL, chaos=True, scale_up=True, scale_up_frac=SOAK_SCALE_UP_FRAC,
-                     output=None, device=DEVICE)
+    cfg = SoakConfig(model=MODEL, prefill_chunk=SOAK_PREFILL_CHUNK, output=None, device=DEVICE,
+                     **(SOAK_CHAOS if kind == "chaos" else SOAK_BOOT))
     reset_counts()
     t0 = time.perf_counter()
     rep = run_soak(schedule, cfg)
     launches = read_counts()
     seconds = time.perf_counter() - t0
     boot = rep["boot"] or {}
-    log(f"[soak] {card}: " + json.dumps({
-        "seconds": round(seconds, 1), "events": rep["events"], "goodput": rep["value"],
+    log(f"[{what}] {card}: " + json.dumps({
+        "seconds": round(seconds, 1), "events": rep["events"], "goodput": rep["value"], "chaos": rep["chaos"],
         "classes": {name: {k: cls.get(k) for k in ("requests", "goodput_ratio", "ttft_ms_p50", "ttft_ms_p95",
                                                     "tpot_ms_p50", "ttft_slo_ms", "tpot_slo_ms")}
                     for name, cls in rep["classes"].items()},
         "outcomes": rep["overall"]["outcomes"], "client_5xx": rep["client_5xx"], "failures": rep["failures"],
-        "router": rep["router"], "windows": {k: {m: v.get(m) for m in ("requests", "goodput_ratio",
+        "router": rep["router"], "windows": {k: {m: v.get(m) for m in ("start", "end", "requests", "goodput_ratio",
                                                                          "ttft_ms_p95", "recovered",
+                                                                         "baseline_goodput_ratio",
                                                                          "tail_goodput_ratio")}
                                              for k, v in rep["windows"].items()},
         "sheds": rep["overall"]["sheds"], "open_loop": rep["open_loop"],
@@ -3509,26 +3585,44 @@ def soak_phase(card: str) -> dict:
                                                               "postmortems", "peak_memory_bytes")},
         "launches": {k: launches[k] for k in ("flash_fwd", "bf16_decode", "bf16_verify")},
         "backend": rep["backend"], "device": rep.get("device"), "power_limit": rep.get("power_limit")}))
-    router = rep["router"]
     checks = {
         "no client 5xx": rep["client_5xx"] == 0,
         "no failures": rep["failures"] == 0,
         "every event fired": rep["overall"]["requests"] == len(schedule.events),
-        "a breaker opened": router["dtpu_router_breaker_opens_total"] >= 1,
-        "a resume or a failover": router["dtpu_router_stream_resumes_total"]
-        + router["dtpu_router_failovers_total"] >= 1,
-        "the tail recovered": rep["windows"]["_recovery"]["recovered"] is True,
         "honest sheds": rep["overall"]["sheds"]["honest"] is True,
         "the compiled schedule's digest": rep["schedule_digest"] == schedule.digest(),
-        "the scale-up replica booted and served": bool(boot.get("warm")) and boot.get("ttfst_s") is not None,
         "on the card": rep["backend"] == "cuda",
     }
+    if kind == "chaos":
+        router, kill = rep["router"], rep["windows"]["kill"]
+        checks.update({
+            "a breaker opened": router["dtpu_router_breaker_opens_total"] >= 1,
+            "a resume or a failover": router["dtpu_router_stream_resumes_total"]
+            + router["dtpu_router_failovers_total"] >= 1,
+            "the kill window served": kill["requests"] >= 1 and (kill["goodput_ratio"] or 0.0) >= 0.25,
+            "the tail recovered": rep["windows"]["_recovery"]["recovered"] is True,
+        })
+    else:
+        stages, marks, up = boot.get("stages") or {}, boot.get("marks") or {}, rep["windows"]["scale_up"]
+        checks.update({
+            "every boot stage": all(stages.get(n, 0.0) > 0.0 for n in (
+                "weights_load", "engine_init", "warmup_compile", "warm_prefix_copies")),
+            "every boot mark, in order": all(marks.get(n) is not None for n in (
+                "listener_up", "first_probe", "first_served_token"))
+            and marks["listener_up"] <= marks["first_probe"] <= marks["first_served_token"],
+            "the stages within TTFST": boot.get("ttfst_s") is not None
+            and sum(stages.values()) <= boot["ttfst_s"] + 1e-6,
+            "the scale-up replica booted and served": bool(boot.get("warm")) and boot.get("ttfst_s") is not None
+            and boot.get("manifest_variants", 0) >= 1,
+            "the join window served": up["requests"] >= 1 and up["goodput_ratio"] is not None,
+            "goodput held": (rep["overall"]["goodput_ratio"] or 0.0) >= 0.5,
+        })
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"[soak] failed: {failed}")
-    _launch_check("soak", launches)
+        raise AssertionError(f"[{what}] failed: {failed}")
+    _launch_check(what, launches)
     free_card()
-    return {"launches": launches, "report": rep, "bias_host_ms": bias_ms}
+    return {**out, "launches": launches, "report": rep}
 
 
 def w8_bench_phase() -> dict:
@@ -4118,7 +4212,9 @@ class F32Experts(torch.Tensor):
     arithmetic as on an f32 copy), and indexing keeps the wrapper. The
     teacher-forced comparison holds deepseek-v3's f32 path so: the f32
     copy of its 4-layer stack (45 GB of routed experts) would not fit the
-    card beside the bf16 weights."""
+    card beside the bf16 weights; so does llama-4-scout's gradient parity
+    (the training forward unbinds the stack into layers, which keep the
+    wrapper too)."""
 
     @staticmethod
     def __new__(cls, t):
@@ -4133,6 +4229,8 @@ class F32Experts(torch.Tensor):
                               for e in range(0, w.shape[0], EXPERT_SLICE)])
         with torch._C.DisableTorchFunctionSubclass():
             out = func(*args, **kwargs)
+        if func in (torch.Tensor.unbind, torch.unbind):  # the training forward's layers
+            return tuple(cls(o) for o in out)
         return cls(out) if func is torch.Tensor.__getitem__ else out
 
 
@@ -4305,19 +4403,40 @@ def _quantized_leaves(c) -> int:
     return sum(opt8._is_quantized(tuple(shape)) for shape in train_step.tree_leaves(llama.param_shapes(c)))
 
 
+def tree_digest(tree) -> list:
+    """Each leaf's bits as integers, summed plainly and weighted by
+    position (int64, wrapping), DIGEST_CHUNK elements at a time on the
+    leaf's device: a leaf whose digest moved was written."""
+    out = []
+    for leaf in train_step.tree_leaves(tree):
+        bits = leaf.detach().reshape(-1).view(torch.int16 if leaf.element_size() == 2 else torch.int32)
+        plain = weighted = 0
+        for i in range(0, bits.numel(), DIGEST_CHUNK):
+            part = bits[i:i + DIGEST_CHUNK].long()
+            pos = torch.arange(i, i + part.numel(), device=part.device) % 65521 + 1
+            plain += int(part.sum())
+            weighted += int((part * pos).sum())
+        out.append((plain, weighted))
+    return out
+
+
 def _finetune(run: str, resume: bool = False) -> dict:
     """One run of TRAIN_RUNS through the fine-tune driver's entry point
     (``python -m dstack_tpu_torch.train.finetune``'s ``main``, called in
     this process with the command line's arguments) at batch 8 x 2048 →
-    its summary. The driver sets its launch counts to 0 before its first
-    step, and each step of ``--grad-accum`` micro-batches launches
-    K1, K2 and K3 n_layers times a micro-batch (K1's residuals are kept
-    across remat), plus K1 n_layers times an eval batch; an opt8 run (the
-    OPT8_RUN, with OPT8_FLAGS: a checkpoint and an eval every 3 steps)
-    launches A8 once a quantized leaf a step, the others never. With
-    ``resume`` the OPT8_RUN runs again with ``--resume`` from its
-    RESUME_FROM checkpoint (the later ones removed first) into its own
-    output directory."""
+    its summary. The driver sets its launch counts to 0
+    before its first step, and each step of ``--grad-accum`` micro-batches
+    launches K1, K2 and K3 once a flash layer a micro-batch (K1's
+    residuals are kept across remat; ``llama.masked_attention``: gpt-oss's
+    sinks and a chunk mask past the first chunk launch none), plus K1
+    n_layers times an eval batch; an opt8 run (the OPT8_RUN, with
+    OPT8_FLAGS: a checkpoint and an eval every 3 steps) launches A8 once a
+    quantized leaf a step, the others never. A LoRA run's base weights must come out
+    bitwise as ``init_params`` drew them (:func:`tree_digest` before the
+    first step and after the run) and every adapter's B factor, drawn 0,
+    must have moved. With ``resume`` the OPT8_RUN runs again with
+    ``--resume`` from its RESUME_FROM checkpoint (the later ones removed
+    first) into its own output directory."""
     model, mode, accum, steps = TRAIN_RUNS[run]
     name = RESUME_RUN if resume else run
     out = ROOT / "build" / f"chip_smoke_train_{name}"
@@ -4344,6 +4463,15 @@ def _finetune(run: str, resume: bool = False) -> dict:
             np.save(EVAL_PATH, np.random.default_rng(7).integers(0, c0.vocab_size, size=(EVAL_ROWS, 2049))
                     .astype(np.int32))
     t0 = time.perf_counter()
+    # a LoRA run's base weights, digested as the driver draws them
+    base, draw = [], llama.init_params
+    if mode == "lora":
+        def init_params(*args, **kw):
+            params = draw(*args, **kw)
+            base.append((params, tree_digest(params)))
+            return params
+
+        llama.init_params = init_params
     # the driver's entry point in this process (a process of its own would
     # add its start-up, ~10 s a run), its output into the run's log
     sigterm = signal.getsignal(signal.SIGTERM)
@@ -4359,15 +4487,30 @@ def _finetune(run: str, resume: bool = False) -> dict:
             rc = "an exception"
         finally:
             signal.signal(signal.SIGTERM, sigterm)
+            llama.init_params = draw
+    base_moved = None
+    if base:
+        (params, digest), = base
+        base_moved = [i for i, (a, b) in enumerate(zip(digest, tree_digest(params))) if a != b]
+        del params, base
     free_card()
     text = log_path.read_text()
     if rc != 0:
         raise RuntimeError(f"finetune {name} exited {rc}:\n{text[-4000:]}")
+    if base_moved:
+        raise AssertionError(f"finetune {name}: LoRA wrote base leaves {base_moved} (sorted-key order)")
+    if mode == "lora":
+        with np.load(out / "lora_adapters.npz") as f:
+            still = [k for k in f.files if k.endswith("_lora_b") and not f[k].any()]
+        if still:
+            raise AssertionError(f"finetune {name}: adapters {still} did not move from 0")
     for line in text.splitlines():
         if line.startswith(("step ", "eval[", "resumed ", "checkpoint ")):
             log(f"  finetune {name}: {line}")
     summary = json.loads(text.strip().splitlines()[-1])
     summary["grad_accum"] = accum
+    if mode == "lora":
+        summary["base_bitwise_unchanged"] = True
     log(f"finetune {name} ({time.perf_counter() - t0:.1f} s with start-up): {json.dumps(summary)}")
     c = llama.CONFIGS[model]
     ln_v = math.log(c.vocab_size)
@@ -4384,8 +4527,9 @@ def _finetune(run: str, resume: bool = False) -> dict:
         if not all(math.isfinite(e["loss"]) for e in summary["eval"]):
             raise AssertionError(f"finetune {name}: eval losses {summary['eval']}")
     eval_batches = evals * min(EVAL_BATCHES, EVAL_ROWS // 8)
-    want = {"flash_fwd": c.n_layers * (micro + eval_batches), "flash_bwd_dq": c.n_layers * micro,
-            "flash_bwd_dkv": c.n_layers * micro,
+    flash_layers = sum(not llama.masked_attention(c, 2048, nope) for nope in llama.layer_nope(c))
+    want = {"flash_fwd": flash_layers * micro + c.n_layers * eval_batches, "flash_bwd_dq": flash_layers * micro,
+            "flash_bwd_dkv": flash_layers * micro,
             "adam8": _quantized_leaves(c) * (steps - start) if opt8_run else 0}
     if summary["launches"] != want:
         raise AssertionError(f"finetune {name}: launches {summary['launches']} != {want}")
@@ -4611,26 +4755,30 @@ def _tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in train_step.tree_leaves(tree) if isinstance(t, torch.Tensor))
 
 
-def train_8b_phase() -> dict:
-    """llama-3-8b fully fine-tuned in this process at full width and depth
-    (32 layers, 8.03 B parameters), random weights from seed 0, bf16,
-    through ``init_train_state`` and ``make_train_step`` with
-    ``default_optimizer(opt_bits=8)``, as ``finetune --full --opt-bits 8``
-    builds them: TRAIN_8B's rows of 2048 random tokens in one micro-batch,
-    whose f32 logits make the step's default loss the chunked one
-    (``loss_impl_for``), for its steps. Running out of the card's memory
-    fails the phase. The counts are set to 0 just before the steps and
-    read just after: per step K1, K2 and K3 32 times each and A8 once a
-    quantized leaf, and no other kernel. Every loss finite, the first
-    within 1.0 of ln(vocab). → the step seconds (the median after the
-    first, which carries the start-up), tokens/s, MFU against the bf16
-    peak, ``max_memory_allocated`` beside the bytes of the parameters and
-    the optimizer state."""
-    rows, steps = TRAIN_8B
-    c = llama.CONFIGS[LLAMA_8B]
+def train_opt8_phase(model: str = LLAMA_8B) -> dict:
+    """``model`` fully fine-tuned in this process at full width and depth
+    (llama-3-8b: 32 layers, 8.03 B parameters; starcoder2-7b: 32 layers,
+    7.17 B, with LayerNorm's bias, every bias and the gateless MLP),
+    random weights from seed 0, bf16, through ``init_train_state`` and
+    ``make_train_step`` with ``default_optimizer(opt_bits=8)``, as
+    ``finetune --full --opt-bits 8`` builds them (in this process, not
+    through the driver, whose ``model_weights.npz`` would write a 7 B
+    model's 28.7 GB of f32 to the machine's disk): TRAIN_OPT8's rows of
+    2048 random tokens in one micro-batch, whose f32 logits make the
+    step's default loss the chunked one (``loss_impl_for``), for its
+    steps. Running out of the card's memory fails the phase. The counts
+    are set to 0 just before the steps and read just after: per step K1,
+    K2 and K3 once a layer each and A8 once a quantized leaf, and no
+    other kernel. Every loss finite, the first within 1.0 of ln(vocab).
+    → the step seconds (the median after the first, which carries the
+    start-up), tokens/s, MFU against the bf16 peak,
+    ``max_memory_allocated`` beside the bytes of the parameters and the
+    optimizer state."""
+    rows, steps = TRAIN_OPT8[model]
+    c = llama.CONFIGS[model]
     loss_impl = train_step.loss_impl_for(rows, 2048, c.vocab_size)
     if loss_impl != "chunked":
-        raise AssertionError(f"{LLAMA_8B} training: the default loss at {rows} x 2048 is {loss_impl!r}")
+        raise AssertionError(f"{model} training: the default loss at {rows} x 2048 is {loss_impl!r}")
     opt = train_step.default_optimizer(lr=2e-4, decay_steps=steps, opt_bits=8)
     t0 = time.perf_counter()
     state = train_step.init_train_state(c, opt, seed=0, device="cuda")
@@ -4661,7 +4809,7 @@ def train_8b_phase() -> dict:
     med = sorted(times[1:])[len(times[1:]) // 2]
     tps = rows * 2048 / med
     report = {
-        "model": LLAMA_8B, "layers": c.n_layers, "params": c.num_params(), "batch": [rows, 2048],
+        "model": model, "layers": c.n_layers, "params": c.num_params(), "batch": [rows, 2048],
         "grad_accum": 1, "loss_impl": loss_impl, "opt_bits": 8, "steps": steps, "init_s": init_s,
         "first_step_s": times[0], "median_step_s": med, "step_s": times, "tokens_per_s": tps,
         "mfu": train_step.flops_per_token(c, 2048) * tps / PEAK_BF16_FLOPS,
@@ -4671,14 +4819,14 @@ def train_8b_phase() -> dict:
         "moment_bytes": _tree_bytes({k: v for k, v in state["opt_state"].items() if k != "count"}),
         "quantized_leaves": quantized, "ce": ce, "launches": launches,
     }
-    log(f"{LLAMA_8B} full fine-tune (opt8, {loss_impl} loss, {rows} x 2048, one micro-batch): " + json.dumps(report))
+    log(f"{model} full fine-tune (opt8, {loss_impl} loss, {rows} x 2048, one micro-batch): " + json.dumps(report))
     ln_v = math.log(c.vocab_size)
     if not all(math.isfinite(x) for x in ce) or abs(ce[0] - ln_v) > 1.0:
-        raise AssertionError(f"{LLAMA_8B} training: losses {ce} vs ln V = {ln_v:.3f}")
+        raise AssertionError(f"{model} training: losses {ce} vs ln V = {ln_v:.3f}")
     want = {"flash_fwd": c.n_layers * steps, "flash_bwd_dq": c.n_layers * steps,
             "flash_bwd_dkv": c.n_layers * steps, "adam8": quantized * steps}
     if {k: n for k, n in launches.items() if n} != want:
-        raise AssertionError(f"{LLAMA_8B} training: launches {launches} != {want}")
+        raise AssertionError(f"{model} training: launches {launches} != {want}")
     del state, step
     free_card()
     return report
@@ -4739,12 +4887,28 @@ def grad_parity_phase(name: str = MODEL) -> dict:
     gemma-2-2b at 4 (2 sliding, 2 global: softcap 50 and the logit cap 30
     in the loss), full width, norms at identity (``gemma_tf_params``);
     deepseek-v2-lite at full width and 4 layers (``deepseek_tf_params``:
-    MLA at D = 192, the MoE and its router aux loss in the loss), every
-    path routing with the f32 path's expert choices (``PinnedRouting``)
-    and without remat (under remat the backward's recompute calls the
-    router again, in reverse layer order). The two bf16 losses agree
-    within TOL, and each lies within the model's GRAD_PARITY limit of the
-    f32 loss."""
+    MLA at D = 192, the MoE and its router aux loss in the loss); the dense
+    families at full width and 4 layers with their biases and norms drawn
+    (``family_tf_params``: qwen-2.5-7b G = 7, glm-4-9b G = 16, olmo-2-7b and
+    command-r-35b G = 1, minitron-4b G = 3, starcoder2-7b G = 9, K1-K3 at D
+    = 128 on every layer); gpt-oss-20b at 4 (``gpt_oss_tf_params``: two
+    sliding and two global layers, nonzero sinks and biases; the masked
+    attention everywhere, so its kernel path runs no kernel); and
+    llama-4-scout at 4 (layers 0-2 rope, layer 3 NoPE, all in the first
+    chunk at T = 2048: K1-K3 on each), whose LoRA gradients are held
+    (GRAD_PARITY_LORA: adapters with B drawn nonzero, so A gets a
+    gradient), its f32 path reading the bf16 expert stacks through
+    :class:`F32Experts`. Every MoE path routes with the f32 path's expert
+    choices (``PinnedRouting``) and without remat (under remat the
+    backward's recompute calls the router again, in reverse layer order).
+    The paths run in turn: the f32 tree is made for its path and freed
+    after it, so only its gradients stay beside the bf16 paths'; on a full
+    fine-tune's paths the bf16 tree is freed while the f32 path runs and
+    made again from the f32 copy after it (the same bits: the copy is
+    exact), as command-r-35b's f32 path (its tied 256k x 8192 embedding's
+    gradients) does not fit beside it. The two bf16 losses agree within
+    TOL, and each lies within the model's GRAD_PARITY limit of the f32
+    loss."""
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 path in full f32
     torch.backends.cudnn.allow_tf32 = False
     n_layers, loss_tol = GRAD_PARITY[name]
@@ -4753,23 +4917,48 @@ def grad_parity_phase(name: str = MODEL) -> dict:
         params = llama.init_params(c, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     elif name == DEEPSEEK:
         c, params = deepseek_tf_params()
-        c = dataclasses.replace(c, remat=False)
-    else:
+    elif name == GPT_OSS:
+        c, params = gpt_oss_tf_params()
+    elif name in D256:
         c, params = gemma_tf_params(name, n_layers)
+    else:
+        c, params = family_tf_params(name, n_layers)
+    if c.n_experts:
+        c = dataclasses.replace(c, remat=False)
     c32 = dataclasses.replace(c, dtype=torch.float32)
-    params32 = train_step.tree_map(lambda w: w.float(), params)
     g = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, c.vocab_size, (1, 2048), generator=g, device="cuda")
     mask = torch.ones_like(tokens)
     mask[:, -1] = 0
     batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1), "mask": mask}
+    lora_conf = lora = None
+    if name in GRAD_PARITY_LORA:
+        lora_conf = train_lora.LoRAConfig()
+        lora = train_lora.init_lora_params(c, lora_conf, g, device="cuda")
+        for key, leaf in lora["layers"].items():
+            if key.endswith("_lora_b"):
+                leaf.copy_(torch.randn(leaf.shape, generator=g, device="cuda") * 0.02)
     # f32 first: on a MoE model it routes, and the bf16 paths take its choices
-    paths = {"f32": (params32, c32, "plain"), "kernel": (params, c, None), "plain": (params, c, "plain")}
+    paths = {"f32": (c32, "plain"), "kernel": (c, None), "plain": (c, "plain")}
     loss, grads = {}, {}
+    tree = {"params": params}  # the bf16 tree, freed and made again around a full f32 path
+    dtypes = train_step.tree_map(lambda w: w.dtype, params)
+    del params
 
     def run(path, spec):
-        p, cfg, impl = spec
-        value, grads[path] = train_step.value_and_grad(train_step.full_loss, p, batch, cfg, impl)
+        cfg, impl = spec
+        f32 = path == "f32"
+        if lora is None:
+            p = train_step.tree_map(lambda w: w.float(), tree.pop("params")) if f32 else tree["params"]
+            free_card()
+            value, grads[path] = train_step.value_and_grad(train_step.full_loss, p, batch, cfg, impl)
+            if f32:
+                tree["params"] = train_step.tree_map(lambda w, d: w.to(d), p, dtypes)
+        else:
+            base = f32_params(tree["params"]) if f32 else tree["params"]
+            wrt = train_step.tree_map(lambda w: w.float(), lora) if f32 else lora
+            value, grads[path] = train_step.value_and_grad(train_lora.lora_loss, wrt, batch, base, cfg,
+                                                           lora_conf, impl)
         loss[path] = float(value)
 
     PinnedRouting(moe.router).run(paths, run)
@@ -4802,9 +4991,10 @@ def grad_parity_phase(name: str = MODEL) -> dict:
         if not k_err <= KERNEL_RMS_MARGIN * p_err:
             raise AssertionError(f"gradient parity {name}: {leaf} kernel rel RMS {k_err:.4g} > "
                                  f"{KERNEL_RMS_MARGIN} x plain {p_err:.4g}")
-    report = {"model": name, "layers": c.n_layers, "loss": loss, "rel_rms_vs_f32": leaves}
+    report = {"model": name, "layers": c.n_layers, "lora": lora is not None, "loss": loss,
+              "rel_rms_vs_f32": leaves}
     log(f"gradient parity {name} (rel RMS vs the f32 path, per leaf): " + json.dumps(report))
-    del params, params32, grads
+    del tree, lora, grads
     free_card()
     return report
 
@@ -4917,7 +5107,9 @@ def _main(card: str, t_all: float) -> int:
                        ("mla", mla_kernel_phase),
                        ("mla_h128", lambda: mla_kernel_phase(DEEPSEEK_V3, MLA_V3_SHAPES, "flash_fwd_d576_h128")),
                        ("mla_train", mla_train_kernel_phase), ("w8", w8_kernel_phase),
-                       ("adam8", adam8_kernel_phase), ("d128_train", d128_train_kernel_phase)), rows)
+                       ("adam8", adam8_kernel_phase), ("d128_train", d128_train_kernel_phase),
+                       ("d128_train_g9", lambda: d128_train_kernel_phase(STARCODER2, D128_G9_TRAIN_SHAPE, "_g9"))),
+                      rows)
     free_card()  # the servers need the card's memory
     # the Gemma parts' flex_attention yardsticks compile in helper
     # processes while the servers run; the parts run after the servers
@@ -4939,8 +5131,10 @@ def _main(card: str, t_all: float) -> int:
     free_card()
     with phase("sessions"):
         sessions = sessions_phase(card)
-    with phase("soak"):
-        soak = soak_phase(card)
+    soaks = {}
+    for kind in ("chaos", "boot"):
+        with phase(f"soak_{kind}"):
+            soaks[kind] = soak_phase(card, kind)
     with phase("graphs"):
         graphs = graph_phase()
     with phase("family_engines"):
@@ -4987,7 +5181,9 @@ def _main(card: str, t_all: float) -> int:
     with phase("train_deepseek"):
         deepseek_train = deepseek_train_phase()
     with phase("train_8b_opt8"):
-        train_8b = train_8b_phase()
+        train_8b = train_opt8_phase()
+    with phase("train_starcoder2_opt8"):
+        train_sc2 = train_opt8_phase(STARCODER2)
     with phase("grad_parity"):
         for name in GRAD_PARITY:
             grad_parity_phase(name)
@@ -4998,7 +5194,7 @@ def _main(card: str, t_all: float) -> int:
         "serve_weights": (MODEL, weights_server["launches"]),
         **{f"bench_{name}": (MODEL, counts) for name, counts in bench["launches"].items()},
         "sessions": (MODEL, sessions["launches"]),
-        "soak": (MODEL, soak["launches"]),
+        **{f"soak_{kind}": (MODEL, soak["launches"]) for kind, soak in soaks.items()},
         **{f"graph_{key}": (key.rsplit("_", 1)[0], report["launches"]) for key, report in graphs.items()},
         **{f"family_engine_{name}": (name, report["launches"]) for name, report in family_engines.items()},
         **{f"teacher_forced_{key}": (key.rsplit("_", 1)[0], report["launches"])
@@ -5007,6 +5203,7 @@ def _main(card: str, t_all: float) -> int:
            for run, summary in train.items()},
         "train_deepseek": (DEEPSEEK, deepseek_train["launches"]),
         "train_8b_opt8": (LLAMA_8B, train_8b["launches"]),
+        "train_starcoder2_opt8": (STARCODER2, train_sc2["launches"]),
         "bench_w8_70b": (W8_70B, w8_bench["launches"]),
     }
     k1 = ("dstack_tpu_torch/csrc/flash_fwd.cu", "dstack_tpu/ops/flash.py:190", "flash_fwd")
@@ -5035,6 +5232,9 @@ def _main(card: str, t_all: float) -> int:
         "flash_bwd_dkv_d256": (*k3, D256),
         "flash_bwd_dq_d128": (*k2, (LLAMA_8B,)),  # llama-3-8b's training: K2/K3 at D = 128
         "flash_bwd_dkv_d128": (*k3, (LLAMA_8B,)),
+        # the dense families' training at G = 9 (starcoder2-7b's fine-tune)
+        "flash_bwd_dq_d128_g9": (*k2, (STARCODER2,)),
+        "flash_bwd_dkv_d128_g9": (*k3, (STARCODER2,)),
         **{name: (*k4, form, d64) for name, form in (
             ("flash_decode", "bf16_decode"),
             ("flash_decode_verify", "bf16_verify"),
@@ -5062,8 +5262,9 @@ def _main(card: str, t_all: float) -> int:
         "w8_proj": (*w8, "w8_proj", (MODEL, W8_TF, MIXTRAL, W8_70B)),
         "w8_head": (*w8, "w8_head", (MIXTRAL, W8_70B)),
         "w8_experts": (*w8, "w8_experts", (MIXTRAL,)),
-        # A8 on the opt8 runs: llama-3.2-1b's fine-tune and its resume, llama-3-8b's
-        "adam8": (*a8, (MODEL, LLAMA_8B)),
+        # A8 on the opt8 runs: llama-3.2-1b's fine-tune and its resume,
+        # llama-3-8b's and starcoder2-7b's
+        "adam8": (*a8, (MODEL, LLAMA_8B, STARCODER2)),
     }
     kernels = []
     for name, (src, rep, count, models) in meta.items():
@@ -5076,6 +5277,7 @@ def _main(card: str, t_all: float) -> int:
             **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms")},
             **{k: rows[name][k] for k in ("tile_rel_rms", "training_shape", "trainer_shape", "trainer_shapes",
+                                          "train_shape_g9",
                                           "nsplit", "rows_per_block", "library_note", "window_0",
                                           "softcap_50", "shapes", "timing_floor_ms", "embeddings", "g1", "g5",
                                           "E", "M", "K", "N", "plan", "bf16_matmul_ms",
@@ -5099,7 +5301,12 @@ def _main(card: str, t_all: float) -> int:
                                                      "eval", "launches")},
         "resume": {k: train[RESUME_RUN][k] for k in ("start_step", "median_step_s", "eval", "launches")},
         LLAMA_8B: {k: train_8b[k] for k in ("batch", "median_step_s", "tokens_per_s", "mfu", "peak_memory_bytes",
-                                           "param_bytes", "moment_bytes")}}))
+                                           "param_bytes", "moment_bytes")},
+        "gptoss_lora": {k: train["gptoss_lora"][k] for k in (
+            "grad_accum", "median_step_s", "tokens_per_s", "mfu", "peak_memory_bytes", "first_loss", "last_loss",
+            "launches")},
+        STARCODER2: {k: train_sc2[k] for k in ("batch", "median_step_s", "tokens_per_s", "mfu", "peak_memory_bytes",
+                                              "param_bytes", "moment_bytes", "launches")}}))
     log(f"phase seconds: {json.dumps(PHASE_S)}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": kernels}))

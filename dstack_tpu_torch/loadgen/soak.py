@@ -90,6 +90,12 @@ class SoakConfig:
     drain_end_frac: float = 0.40
     kill_frac: float = 0.60
     kill_window_s: float = 8.0  # scored amplification window after kill
+    # the kill lands mid-stream: at kill_frac, wait up to this long for
+    # the doomed replica to hold a request (queued, prefilling or
+    # decoding) before it dies, so that a thin schedule cannot leave the
+    # kill nothing to sever; the kill window starts at the actual kill.
+    # 0 kills at kill_frac whatever the replica holds (the JAX soak's)
+    kill_wait_s: float = 0.0
     # extra fault rules merged into the plan AT kill time (rule
     # counters restart with the new plan, so nth counts from the kill)
     # — the SLO chaos acceptance injects bounded serve.engine.step
@@ -302,8 +308,27 @@ async def _slo_loop(engine, pool, scope: str, interval: float):
         await asyncio.sleep(interval)
 
 
+def _serving(replica: _Replica) -> bool:
+    """Whether the replica holds a request: queued, prefilling or
+    decoding."""
+    sched = replica.app["scheduler"]
+    return bool(sched.by_slot or sched.by_prefill or not sched.pending.empty())
+
+
+async def _await_serving(
+    replica: _Replica, wait_s: float, poll_s: float = 0.01
+) -> float:
+    """Wait up to ``wait_s`` for ``replica`` to hold a request → the
+    seconds waited."""
+    t0 = time.monotonic()
+    while not _serving(replica) and time.monotonic() - t0 < wait_s:
+        await asyncio.sleep(poll_s)
+    return time.monotonic() - t0
+
+
 async def _kill_replica(
-    replica: _Replica, seed: int, at: float, extra_rules=None
+    replica: _Replica, seed: int, at: float, extra_rules=None,
+    wait_s: float = 0.0, state: Optional[dict] = None,
 ):
     """The mid-soak death: merge a ``serve.stream`` connect-error rule
     for this replica into the active fault plan (the deterministic
@@ -312,10 +337,16 @@ async def _kill_replica(
     force-close its established connections (a dead process holds no
     keep-alive sockets — without this, pooled router and probe
     connections would keep reaching the 'corpse' and the breaker
-    would never learn it died)."""
+    would never learn it died). With ``wait_s`` the death waits up to
+    that long for the replica to hold a request; ``state["at"]`` is the
+    kill's actual time on the ``at`` clock."""
     from dstack_tpu_torch import faults
 
     await asyncio.sleep(at)
+    if wait_s > 0:
+        at += await _await_serving(replica, wait_s)
+    if state is not None:
+        state["at"] = at
     rules = []
     prior = faults.current_plan()
     if prior is not None:
@@ -599,6 +630,7 @@ async def _soak_async(
             r.engine.mark_flight_warm()
 
         windows: List[EventWindow] = []
+        kill_state: dict = {}
         if cfg.chaos:
             d0 = spec.duration_s * cfg.drain_start_frac
             d1 = spec.duration_s * cfg.drain_end_frac
@@ -613,6 +645,7 @@ async def _soak_async(
                 _kill_replica(
                     replicas[kill_ix], seed, kill_at,
                     extra_rules=cfg.kill_extra_rules,
+                    wait_s=cfg.kill_wait_s, state=kill_state,
                 )
             ))
             windows = [
@@ -675,6 +708,14 @@ async def _soak_async(
         soak_t0 = time.monotonic()
         wall_t0 = time.time()  # flight events carry wall-clock stamps
         records = await driver.run(schedule.events)
+        if "at" in kill_state:  # the kill window from the actual kill
+            k = kill_state["at"]
+            windows = [
+                EventWindow(
+                    "kill", k, min(spec.duration_s, k + cfg.kill_window_s)
+                ) if w.name == "kill" else w
+                for w in windows
+            ]
         router_delta = {
             k: int(v - r0[k])
             for k, v in _snapshot(

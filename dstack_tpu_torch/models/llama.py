@@ -33,10 +33,7 @@ LayerNorm q/k norms and logit scale, OLMo-2's post-norm-only layers and
 flat q/k norms, Nemotron and StarCoder2's gateless MLP (with StarCoder2's
 MLP biases) and relu², GLM's interleaved partial rope and Nemotron's
 rotate-half one (:func:`rotate`), and Granite's embedding, residual
-and attention multipliers. Serving runs every delta; :func:`forward`
-(training) runs the dense Llama and Gemma families, Qwen3 and Mistral,
-and refuses gpt-oss and the other dense-family deltas under autograd
-(:func:`check_trainable`). Llama4's deltas (NoPE layers, chunked
+and attention multipliers. Llama4's deltas (NoPE layers, chunked
 attention, the sigmoid-input router) are here too (llama.py:78-99,
 956-982, 1224-1235): every ``nope_pattern``-th layer skips rope and
 scales its queries by a position-dependent temperature
@@ -44,8 +41,8 @@ scales its queries by a position-dependent temperature
 weightless L2 q/k norm after rope (:func:`l2_norm`) and attend within
 ``attention_chunk_size`` blocks, and the router gates the expert input
 with sigmoid(top-k logit). Cohere2's NoPE layers are its global layers
-(:func:`check_layer_layout`). They run with autograd off and are
-refused under autograd (ROADMAP A5.9).
+(:func:`check_layer_layout`). Serving and :func:`forward` (training)
+run every delta, as JAX's ``forward`` trains every family.
 
 :func:`forward` is the whole-sequence forward the trainer differentiates
 (counterpart of ``forward``, dstack_tpu/models/llama.py:1431): attention
@@ -54,7 +51,9 @@ LoRA bypass in every projection, and, with ``config.remat``, each layer
 recomputed in the backward but for its flash call: q, k, v, o and lse
 are kept across the remat boundary, as JAX's ``flash_residuals`` are
 (llama.py:1494-1504), so K1 runs once a layer and micro-batch
-(:func:`_layer_remat`).
+(:func:`_layer_remat`). A layer whose attention is the masked one (sinks
+in training, a Llama4 chunk mask past the first chunk) recomputes it in
+the backward instead, as JAX keeps no residual of ``_xla_attention``.
 """
 
 import math
@@ -1287,15 +1286,26 @@ def _attn_qkv(
 
 
 def _attend(q, k, v, layer: dict, c: LlamaConfig, window: int, impl: Optional[str], nope: bool = False):
-    """Causal attention with the window, the attention softcap and, on a
-    Llama4 rope layer, the ``attention_chunk_size`` blocks: the flash
-    call (``FlashAttention``: K1, and K2/K3 in the backward), which keeps
-    q, k, v, o and lse for its backward."""
-    # gpt-oss's sinks reach here only with autograd off (check_trainable):
-    # K1 with the exact σ(lse - sink) rescale, as a serving chunk runs them
+    """Causal attention with the window, the attention softcap, gpt-oss's
+    sinks and, on a Llama4 rope layer, the ``attention_chunk_size``
+    blocks: the flash call (``FlashAttention``: K1, and K2/K3 in the
+    backward), which keeps q, k, v, o and lse for its backward, or the
+    masked attention (:func:`masked_attention`). With autograd off the
+    sinks ride K1 with the exact σ(lse - sink) rescale, as a serving
+    chunk runs them; under autograd they take the masked attention, as
+    JAX trains them on ``_xla_attention`` (llama.py:1262-1266)."""
     return attention(q, k, v, causal=True, scale=c.attention_scale, window=window,
                      softcap=c.attn_softcap, chunk=0 if nope else c.attention_chunk_size, impl=impl,
-                     sinks=layer["sinks"] if c.attn_sinks else None, sinks_forward_only=True)
+                     sinks=layer["sinks"] if c.attn_sinks else None,
+                     sinks_forward_only=not torch.is_grad_enabled())
+
+
+def masked_attention(c: LlamaConfig, t: int, nope: bool = False) -> bool:
+    """Whether a training layer of T = ``t`` tokens attends on the masked
+    attention rather than the flash call: under gpt-oss's sinks, and on a
+    Llama4 rope layer whose queries pass the first chunk (``attention``'s
+    dispatch with autograd on)."""
+    return c.attn_sinks or bool(not nope and c.attention_chunk_size and t > c.attention_chunk_size)
 
 
 def _attn_post(o: torch.Tensor, layer: dict, c: LlamaConfig) -> torch.Tensor:
@@ -1307,50 +1317,6 @@ def _attn_post(o: torch.Tensor, layer: dict, c: LlamaConfig) -> torch.Tensor:
     if c.mla:
         o = o[..., : c.v_head_dim]
     return _attn_out(o.transpose(1, 2).reshape(b, t, c.o_dim), layer, c)
-
-
-def check_trainable(config: LlamaConfig) -> None:
-    """Raise ``NotImplementedError`` for a config :func:`forward` cannot
-    train: the gpt-oss deltas (sinks, expert biases, the clamped GLU, the
-    top-k-softmax router, which JAX trains on its masked XLA attention),
-    naming ROADMAP A5.7; and the other dense families' deltas (q/k/v and
-    output biases, the LayerNorm flavours, the parallel block, post-norm
-    only layers and flat q/k norms, the gateless MLP and relu², partial or
-    interleaved rope, Granite's multipliers, the logit scale), naming
-    A5.8; and Llama4's (the sigmoid-input router, NoPE layers and their
-    temperature, the L2 q/k norm, chunk masks), naming A5.9. All run only
-    with autograd off (serving, embeddings). The dense Llama and Gemma
-    families, Qwen3, Mistral, the softmax-routed MoE (Mixtral, Qwen3-MoE),
-    DeepSeek's MLA and its MoE train."""
-    c = config
-    if c.attn_sinks or c.moe_bias or c.moe_act != "silu" or c.router_topk_softmax:
-        raise NotImplementedError(
-            "the gpt-oss deltas (sinks, biases, the clamped GLU) are served but not "
-            "trained yet: gpt-oss training is ROADMAP A5.7"
-        )
-    deltas = [name for name, on in (
-        ("q/k/v biases", c.qkv_bias), ("output and MLP biases", c.proj_bias),
-        (f"{c.norm_type} norms", c.norm_type != "rms"), ("the parallel block", c.parallel_block),
-        ("post-norm-only layers", not c.pre_norm), ("flat q/k norms", c.qk_norm_flat),
-        ("the gateless MLP", c.mlp_gateless), (f"{c.hidden_act} activation", c.hidden_act == "relu2"),
-        ("partial rope", c.partial_rotary != 1.0), ("interleaved rope", c.rope_interleaved and not c.mla),
-        ("Granite's multipliers", bool(c.embed_multiplier or c.residual_multiplier)),
-        ("the logit scale", bool(c.logit_scale)),
-    ) if on]
-    llama4 = [name for name, on in (
-        ("the sigmoid-input router", c.router_sigmoid_input), ("NoPE layers", bool(c.nope_pattern)),
-        ("the NoPE temperature", bool(c.attn_temp_scale)), ("the L2 q/k norm", c.qk_l2_norm),
-        ("chunk masks", bool(c.attention_chunk_size)),
-    ) if on]
-    refusals = []
-    if deltas:
-        refusals.append(f"the dense-family deltas ({', '.join(deltas)}) are served but not trained yet: "
-                        "dense-family training is ROADMAP A5.8")
-    if llama4:
-        refusals.append(f"the Llama4 deltas ({', '.join(llama4)}) are served but not trained yet: "
-                        "Llama4 training is ROADMAP A5.9")
-    if refusals:
-        raise NotImplementedError("; ".join(refusals))
 
 
 def _layer(x, layer, c, ropes, window, impl, nope=False, positions=None):
@@ -1369,6 +1335,11 @@ def _layer_out(x, o, layer, c):
     return _residual(x, _attn_post(o, layer, c), layer, c, aux=True)
 
 
+def _attend_out(x, q, k, v, layer, c, window, impl, nope):
+    """The layer from its q, k and v: the attention, then :func:`_layer_out`."""
+    return _layer_out(x, _attend(q, k, v, layer, c, window, impl, nope), layer, c)
+
+
 def _layer_remat(x, layer, c, ropes, window, impl, nope=False, positions=None):
     """:func:`_layer` under remat, differing from it only by the two
     checkpoint calls: the flash residuals are saved, as JAX's
@@ -1377,8 +1348,14 @@ def _layer_remat(x, layer, c, ropes, window, impl, nope=False, positions=None):
     run under ``torch.utils.checkpoint`` and are recomputed in the
     backward, while the flash call between them keeps q, k, v, o and lse.
     So K1 runs once a layer and micro-batch, and the layer keeps its
-    input, q, k, v, o and lse for the backward."""
+    input, q, k, v, o and lse for the backward. The masked attention
+    (:func:`masked_attention`) has no residuals to keep: it runs inside
+    the second checkpoint, so its [B, H, T, T] scores are recomputed in
+    the backward, as JAX recomputes ``_xla_attention``, and the layer
+    keeps its input, q, k and v."""
     q, k, v = checkpoint(_attn_qkv, x, layer, c, ropes, window, nope, positions, use_reentrant=False)
+    if masked_attention(c, x.shape[1], nope):
+        return checkpoint(_attend_out, x, q, k, v, layer, c, window, impl, nope, use_reentrant=False)
     o = _attend(q, k, v, layer, c, window, impl, nope)
     return checkpoint(_layer_out, x, o, layer, c, use_reentrant=False)
 
@@ -1410,10 +1387,11 @@ def forward(
     its non-absorbed form (:func:`mla_qkv`, K1-K3 at D = 192), the MoE
     with its shared expert and router aux losses, and the dense prelude
     (``params["dense_layers"]``, run before the MoE stack as JAX scans it,
-    llama.py:1503-1512). A gpt-oss config runs with autograd off (its
-    sinks through K1 and ``sink_postscale``, as a serving chunk runs them,
-    where JAX takes ``_xla_attention``: the same function) and raises
-    under autograd (:func:`check_trainable`).
+    llama.py:1503-1512). So do gpt-oss's (sinks, biases, the clamped GLU,
+    the top-k-softmax router), the other dense families' and Llama4's: with
+    autograd off the sinks ride K1 and ``sink_postscale``, as a serving
+    chunk runs them, and under autograd the masked attention, as JAX
+    trains them on ``_xla_attention`` (the same function).
 
     ``lora`` is an adapter tree from ``train/lora.py`` (stacked per-layer
     factors beside the base weights). The stacked ``[L, ...]`` leaves are
@@ -1424,8 +1402,6 @@ def forward(
     backward, but not its flash call, whose q, k, v, o and logsumexp are
     kept (JAX's ``flash_residuals``), so K1 runs once a layer."""
     c = config
-    if torch.is_grad_enabled():
-        check_trainable(c)
     x = _embed_lookup(params, tokens, c)
     pos = positions if positions is not None else torch.arange(tokens.shape[1], device=tokens.device)
     ropes = dual_rope_freqs(c, pos)

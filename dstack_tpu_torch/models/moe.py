@@ -182,9 +182,13 @@ def router(
 
 def _oai_glu(g: torch.Tensor, u: torch.Tensor, limit: float) -> torch.Tensor:
     """gpt-oss clamped GLU: (up + 1) * gate * sigmoid(1.702 * gate), gate
-    clamped above and up on both sides (moe.py:221-226)."""
-    g = g.clamp(max=limit)
-    u = u.clamp(-limit, limit)
+    clamped above and up on both sides (moe.py:221-226). The clamps are
+    ``minimum``/``maximum`` against the limit, as JAX's ``jnp.minimum`` and
+    ``jnp.clip`` are: at a value exactly at the limit (common in bf16) half
+    the gradient passes, where ``torch.clamp`` would pass all of it."""
+    lim = torch.full((), limit, dtype=g.dtype, device=g.device)
+    g = torch.minimum(g, lim)
+    u = torch.minimum(torch.maximum(u, -lim), lim)
     return (u + 1.0) * (g * torch.sigmoid(1.702 * g))
 
 

@@ -26,9 +26,12 @@ either package tiles a chunk mask.
 Sinks (gpt-oss) join the softmax denominator only, so a sink-less flash
 pass rescaled by σ(lse - sink) is exact (:func:`sink_postscale`). The
 logsumexp has no derivative here, so only callers that never
-differentiate (``sinks_forward_only``: serving prefill) ride K1 with an
-int offset; every other sinks call takes the masked plain attention with
-:func:`sink_softmax`, on every device, as JAX takes ``_xla_attention``.
+differentiate (``sinks_forward_only``: serving prefill, the forward with
+autograd off) ride K1 with an int offset, and such a call raises where a
+tensor needs a gradient (K1's entry is no autograd function: q, k and v
+would get none); every other sinks call takes the masked plain attention
+with :func:`sink_softmax`, on every device, as JAX takes
+``_xla_attention`` (training included).
 """
 
 from typing import Optional
@@ -77,6 +80,9 @@ def attention(
     if chunk:
         return flash_attention_plain(q, k, v, sinks=sinks, chunk=chunk, **kw)[0]
     if sinks is not None and sinks_forward_only and not vector_offset:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, sinks)):
+            raise ValueError("attention: sinks_forward_only under autograd: K1 with the sink "
+                             "rescale has no backward; pass sinks_forward_only=False to train")
         fwd = flash_attention_plain if impl == "plain" else flash_attention_with_lse
         o, lse = fwd(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
         return sink_postscale(o, lse, sinks)

@@ -78,6 +78,7 @@ statuses:
 
 import argparse
 import asyncio
+import collections
 import dataclasses
 import functools
 import json
@@ -89,6 +90,7 @@ import uuid
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 from aiohttp import web
 
@@ -677,6 +679,17 @@ def _format_chat_logprobs(req, tokenizer, top_n: int, text: str) -> dict:
     return {"content": _chat_logprob_entries(req, tokenizer, top_n, 0, n)}
 
 
+def _logit_bias(lb: dict) -> dict:
+    """A ``logit_bias`` object as {token id: bias in [-100, 100]}: JAX's
+    ``{int(k): max(-100.0, min(100.0, float(v)))}`` (a NaN clamps to
+    100.0, a later key of one id wins), its values clamped in one array
+    op. Entry by entry, the soak's 128,128-entry ASCII bias held the
+    event loop ~100 ms a request on the H100 machine's host (ROADMAP B16)."""
+    v = np.fromiter(map(float, lb.values()), dtype=np.float64, count=len(lb))
+    v = np.where(np.isnan(v), 100.0, np.clip(v, -100.0, 100.0))
+    return dict(zip(map(int, lb), v.tolist()))
+
+
 def _gen_params(payload: dict, tokenizer) -> GenParams:
     stop = payload.get("stop")
     if isinstance(stop, str):
@@ -696,8 +709,7 @@ def _gen_params(payload: dict, tokenizer) -> GenParams:
         frequency_penalty=float(payload.get("frequency_penalty") or 0.0),
         min_p=float(payload.get("min_p") or 0.0),
         logit_bias=(
-            {int(k): max(-100.0, min(100.0, float(v)))
-             for k, v in payload["logit_bias"].items()}
+            _logit_bias(payload["logit_bias"])
             if isinstance(payload.get("logit_bias"), dict) and payload["logit_bias"]
             else None
         ),
@@ -724,12 +736,16 @@ def _bad_sampling_params(payload: dict) -> Optional[str]:
     if lb is not None:
         if not isinstance(lb, dict):
             return "'logit_bias' must be an object of {token_id: bias}"
-        for k, v in lb.items():
-            try:
-                int(k)
-                float(v)
-            except (TypeError, ValueError):
-                return f"'logit_bias' entry {k!r} is not numeric"
+        try:  # every entry at C speed; the loop below only names the bad one
+            collections.deque(map(int, lb), maxlen=0)
+            collections.deque(map(float, lb.values()), maxlen=0)
+        except (TypeError, ValueError):
+            for k, v in lb.items():
+                try:
+                    int(k)
+                    float(v)
+                except (TypeError, ValueError):
+                    return f"'logit_bias' entry {k!r} is not numeric"
     return None
 
 

@@ -4,21 +4,20 @@
 Counterpart of ``python -m dstack_tpu.train.finetune`` on one GPU: the
 same model names, defaults (llama-3.2-1b, ``--seq-len 2048 --batch 8``,
 LoRA on wq/wk/wv/wo unless ``--full``) and outputs
-(``model_weights.npz`` or ``lora_adapters.npz`` under ``--out``). The
-dense Llama and the Gemma family train (``--model gemma-3-4b``,
-``gemma-2-2b``, ``gemma-3-1b``, ``gemma-2b``: head_dim 256), and so does
-DeepSeek in full (``--model deepseek-v2-lite --full`` or ``mla-tiny``:
-MLA at head_dim 192, the MoE with its router aux loss; LoRA refuses MLA,
-as JAX's does), and so do qwen-3-8b, mistral-7b, llama-3.2-3b and
-llama-3-70b (no delta the trainer lacks); gpt-oss does not yet (ROADMAP
-A5.7), nor the other dense families' new deltas (A5.8). Every step runs the
-flash kernels: K1 forward (once a layer: its residuals are kept across
-remat), K2/K3 backward; with ``--opt-bits 8`` the moments are int8 and
-each quantized leaf's update is one launch of A8 (``ops/adam8.py``).
+(``model_weights.npz`` or ``lora_adapters.npz`` under ``--out``). Every
+family of ``CONFIGS`` trains, as in JAX: the dense Llama, the Gemma family
+at head_dim 256, the dense families' deltas (qwen-2.5-7b, starcoder2-7b,
+minitron-4b, command-r-35b, olmo-2-7b, glm-4-9b, ...), the MoE families,
+Llama4, gpt-oss and DeepSeek (MLA at head_dim 192, the MoE with its
+router aux loss; LoRA refuses MLA, as JAX's does, so ``--full``). The
+flash layers run the kernels: K1 forward (once a layer: its residuals are
+kept across remat), K2/K3 backward; gpt-oss's sinks and a Llama4 chunk
+mask past the first chunk take the masked attention, as JAX trains them,
+and launch none. With ``--opt-bits 8`` the moments are int8 and each
+quantized leaf's update is one launch of A8 (``ops/adam8.py``).
 Weights are random from
 ``--seed``, or a ``save_pretrained`` checkpoint with ``--hf-model DIR``
-(the model types ``models/convert_hf.py`` reads; a family whose deltas
-the trainer lacks is refused as its ``--model`` is; the run is named after
+(the model types ``models/convert_hf.py`` reads; the run is named after
 the directory); data is a synthetic token
 stream unless ``--data`` names a corpus: pre-tokenized ``.npy``/``.bin``,
 or ``.jsonl``/``.txt`` tokenized by the HF tokenizer at
@@ -126,8 +125,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt-every", type=int, default=50, help="steps between saves")
     p.add_argument("--resume", action="store_true", help="resume from the latest checkpoint in --ckpt-dir")
     p.add_argument("--hf-model", default=None,
-                   help="HF save_pretrained dir (llama/gemma/gemma2/gemma3): fine-tune from "
-                        "those weights; overrides --model")
+                   help="HF save_pretrained dir (any model type models/convert_hf.py reads): "
+                        "fine-tune from those weights; overrides --model")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler Chrome trace of 3 steady-state steps here")
     p.add_argument(
@@ -192,10 +191,6 @@ def main(argv=None) -> int:
         args.model = Path(args.hf_model).resolve().name
     else:
         config = llama.CONFIGS[args.model]
-    try:
-        llama.check_trainable(config)
-    except NotImplementedError as e:
-        p.error(f"not ported yet: --model {args.model}: {e}")
     if not args.full:
         try:
             lora_mod.check_lora(config)

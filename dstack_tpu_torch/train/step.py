@@ -61,9 +61,18 @@ def _unflatten(tree, leaves):
     return fill(tree)
 
 
+# elements of a leaf that global_norm squares in f32 at once: past it a
+# leaf is summed a chunk at a time, so its f32 copy never exists whole
+# (starcoder2-7b's stacked w_up is 10.9 GB in f32)
+NORM_CHUNK = 1 << 28
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (0-dim tensor)."""
-    return torch.sqrt(sum(leaf.float().pow(2).sum() for leaf in tree_leaves(tree)))
+    def squares(leaf):
+        return sum(part.float().pow(2).sum() for part in leaf.reshape(-1).split(NORM_CHUNK))
+
+    return torch.sqrt(sum(squares(leaf) for leaf in tree_leaves(tree)))
 
 
 # ---------------------------------------------------------------------------

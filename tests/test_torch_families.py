@@ -278,16 +278,22 @@ def test_forward_matches_jax(setup):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=ATOL)
 
 
-def test_training_refuses_the_new_deltas(family):
-    """Under autograd ``check_trainable`` names the dense-family training
-    item (qwen3 and mistral carry no new delta and train)."""
-    _, tc = _configs(family)
-    if family in ("qwen3", "mistral"):
-        tllama.check_trainable(tc)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A5.8") as e:
-        tllama.check_trainable(tc)
-    assert "A5.7" not in str(e.value)
+def test_training_refuses_the_new_deltas(setup):
+    """Every family trains (the name is from before the dense-family
+    deltas trained): under remat, the trainer's default, the full
+    fine-tune's loss and every gradient within 1e-4 of JAX's remat step
+    (tests/test_torch_family_train.py holds them without remat, and the
+    LoRA gradients)."""
+    from dstack_tpu_torch.train import step as tstep
+    from tests.test_torch_family_train import _batch, _close_tree, _jb, _tb, jax_full_loss
+
+    jcfg, tcfg, jp, tp = setup
+    jcfg, tcfg = dataclasses.replace(jcfg, remat=True), dataclasses.replace(tcfg, remat=True)
+    batch = _batch(tcfg.vocab_size, t=40)
+    jl, jg = jax.jit(jax.value_and_grad(jax_full_loss(jcfg)))(jp, _jb(batch))
+    tl, tg = tstep.value_and_grad(tstep.full_loss, tp, _tb(batch), tcfg)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=ATOL)
+    _close_tree(tg, jg)
 
 
 # ---------------------------------------------------------------------------

@@ -187,8 +187,18 @@ class TestParams:
         assert 0.015 < float(p["layers"]["w_gate"].float().std()) < 0.025
 
     def test_the_training_forward_refuses_gpt_oss(self, weights):
-        with pytest.raises(NotImplementedError, match="gpt-oss"):
-            tllama.forward(weights[1], torch.zeros(1, 4, dtype=torch.long), TC)
+        """The training forward's gradients match JAX's (the name is from
+        before gpt-oss trained): the full fine-tune's loss, CE + the
+        router aux loss, and every leaf's gradient within 1e-4, over 64
+        tokens, so the even layers' window of 32 bites."""
+        from dstack_tpu_torch.train import step as tstep
+        from tests.test_torch_family_train import _batch, _close_tree, _jb, _tb, jax_full_loss
+
+        batch = _batch(JC.vocab_size, b=2, t=64)
+        jl, jg = jax.jit(jax.value_and_grad(jax_full_loss(JC)))(weights[0], _jb(batch))
+        tl, tg = tstep.value_and_grad(tstep.full_loss, weights[1], _tb(batch), TC)
+        np.testing.assert_allclose(float(tl), float(jl), rtol=ATOL)
+        _close_tree(tg, jg)
 
 
 # ---------------------------------------------------------------------------

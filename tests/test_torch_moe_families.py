@@ -313,7 +313,7 @@ class TestChunkMask:
 
 
 # ---------------------------------------------------------------------------
-# the whole-sequence forward and check_trainable
+# the whole-sequence forward and training
 # ---------------------------------------------------------------------------
 
 
@@ -341,25 +341,48 @@ def test_llama4_deltas_change_the_logits():
             assert not torch.allclose(base, tllama.forward(tp, tokens, dataclasses.replace(tc, **change)), atol=1e-3)
 
 
-@pytest.mark.parametrize("name,trains", [("mixtral-8x7b", True), ("moe-tiny", True), ("qwen-3-30b-a3b", True),
-                                         ("deepseek-v3", True), ("llama-4-scout", False)])
-def test_check_trainable(name, trains):
-    c = tllama.CONFIGS[name]
-    if trains:
-        tllama.check_trainable(c)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A5.9") as e:
-        tllama.check_trainable(c)
-    assert "ROADMAP A5.8" in str(e.value)  # Llama4's interleaved rope, a dense-family delta
-    for delta in ("sigmoid-input router", "NoPE layers", "temperature", "L2 q/k norm", "chunk masks"):
-        assert delta in str(e.value)
+def _grads_match_jax(jc, tc, jp, tp, t: int = 40) -> None:
+    """The full fine-tune's loss and every gradient under remat (the
+    trainer's default) within 1e-4 of JAX's."""
+    from dstack_tpu_torch.train import step as tstep
+    from tests.test_torch_family_train import _batch, _close_tree, _jb, _tb, jax_full_loss
+
+    jc, tc = dataclasses.replace(jc, remat=True), dataclasses.replace(tc, remat=True)
+    batch = _batch(tc.vocab_size, t=t)
+    jl, jg = jax.jit(jax.value_and_grad(jax_full_loss(jc)))(jp, _jb(batch))
+    tl, tg = tstep.value_and_grad(tstep.full_loss, tp, _tb(batch), tc)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=ATOL)
+    _close_tree(tg, jg)
+
+
+# each case keeps the id it had when the trainer refused Llama4 (False)
+@pytest.mark.parametrize("family", ["mixtral", "moe_tiny", "qwen3_moe", "v3", "llama4"],
+                         ids=["mixtral-8x7b-True", "moe-tiny-True", "qwen-3-30b-a3b-True", "deepseek-v3-True",
+                              "llama-4-scout-False"])
+def test_check_trainable(family):
+    """Every MoE family trains: each tiny config's loss (CE + the router
+    aux loss) and gradients against JAX's, Llama4's chunk mask past the
+    first chunk (16 of 40 tokens) on the masked attention."""
+    jc, tc = _configs(family)
+    tr = _tree(family)
+    _grads_match_jax(jc, tc, jax.tree.map(jnp.asarray, tr), tllama.params_from_jax(tr, tc, device="cpu"))
 
 
 @pytest.mark.parametrize("change", [dict(router_sigmoid_input=True), dict(nope_pattern=2),
                                     dict(qk_l2_norm=True), dict(attention_chunk_size=16)])
 def test_each_llama4_delta_is_refused_alone(change):
-    with pytest.raises(NotImplementedError, match="ROADMAP A5.9"):
-        tllama.check_trainable(dataclasses.replace(tllama.LLAMA_TINY, **change))
+    """Each Llama4 delta trains alone (the name is from before they
+    trained): on the tiny Llama (the router on moe-tiny), the loss and
+    every gradient against JAX's, the chunk of 16 over 40 tokens."""
+    base = "moe-tiny" if "router_sigmoid_input" in change else "llama-tiny"
+    kw = dict(change, attn_temp_scale=0.1, attn_temp_floor=8.0) if "nope_pattern" in change else change
+    jc = dataclasses.replace(jllama.CONFIGS[base], **kw)
+    tc = dataclasses.replace(tllama.CONFIGS[base], **kw)
+    rng = np.random.default_rng(3)
+    tr = jax.tree.map(np.asarray, jllama.init_params(jc, jax.random.key(0)))
+    tr["layers"] = {n: (rng.standard_normal(a.shape) * 0.3).astype(np.float32) if n == "w_router" else a
+                    for n, a in tr["layers"].items()}
+    _grads_match_jax(jc, tc, jax.tree.map(jnp.asarray, tr), tllama.params_from_jax(tr, tc, device="cpu"))
 
 
 # ---------------------------------------------------------------------------

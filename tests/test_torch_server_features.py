@@ -594,8 +594,10 @@ class TestEmbeddings:
     def test_forward_runs_gpt_oss_without_autograd_only(self):
         """The repair: ``forward`` serves gpt-oss (sinks through K1 and
         ``sink_postscale``, biases, the clamped GLU, the top-k-softmax
-        router) with autograd off, matching JAX's forward within 1e-4,
-        and still refuses it under autograd."""
+        router) with autograd off, matching JAX's forward within 1e-4;
+        under autograd (the name is from before it trained) the sinks take
+        the masked attention, as JAX's training forward does, and match
+        it too."""
         jc, tc, perturb = EMBED_MODELS["gpt_oss"]
         jp, tp = _tiny_params(jc, tc, perturb)
         tokens = np.random.default_rng(0).integers(0, 512, (2, 40)).astype(np.int32)
@@ -603,8 +605,10 @@ class TestEmbeddings:
         with torch.no_grad():
             got = tllama.forward(tp, torch.from_numpy(tokens).long(), tc)
         np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
-        with pytest.raises(NotImplementedError, match="A5.7"):
-            tllama.forward(tp, torch.from_numpy(tokens).long(), tc)
+        live = {**tp, "layers": {**tp["layers"], "sinks": tp["layers"]["sinks"].clone().requires_grad_()}}
+        got = tllama.forward(live, torch.from_numpy(tokens).long(), tc)
+        assert got.requires_grad
+        np.testing.assert_allclose(got.detach().numpy(), want, atol=ATOL, rtol=0)
 
 
 # ---------------------------------------------------------------------------

@@ -182,3 +182,48 @@ def test_fast_burn_fires_in_kill_window_and_closes_the_loop(params, monkeypatch)
                      if tr["state"] == "firing" and tr["objective"].split(":")[0] in ("ttft", "tpot")]
     assert latency_fired == []
     assert report["overall"]["sheds"]["honest"] is True
+
+
+def _fake_replica(busy_after_s=None):
+    """A replica stub for the kill's wait: its scheduler holds a request
+    from ``busy_after_s`` seconds on (never where None)."""
+    import time
+    from types import SimpleNamespace
+
+    from dstack_tpu_torch import qos
+
+    class _Sched:
+        def __init__(self):
+            self.t0 = time.monotonic()
+            self.by_prefill, self.pending = {}, qos.PriorityPending()
+
+        @property
+        def by_slot(self):
+            busy = busy_after_s is not None and time.monotonic() - self.t0 >= busy_after_s
+            return {0: object()} if busy else {}
+
+    async def _stop():
+        return None
+
+    return SimpleNamespace(rid="r0", app={"scheduler": _Sched()}, site=SimpleNamespace(stop=_stop),
+                           runner=SimpleNamespace(server=None), killed=False)
+
+
+@pytest.mark.parametrize("busy_after_s, wait_s, lo, hi", [
+    (None, 0.0, 0.0, 0.05),   # no wait: the kill at its planned time (the JAX soak's)
+    (0.0, 1.0, 0.0, 0.05),    # already serving: no wait
+    (0.2, 1.0, 0.2, 0.6),     # the kill waits for the first request
+    (None, 0.3, 0.3, 0.7),    # never serving: the kill after the whole wait
+])
+def test_the_kill_waits_for_its_replica_to_serve(busy_after_s, wait_s, lo, hi):
+    import asyncio
+
+    from dstack_tpu_torch.loadgen import soak
+
+    replica, state = _fake_replica(busy_after_s), {}
+    asyncio.run(soak._kill_replica(replica, seed=7, at=0.0, wait_s=wait_s, state=state))
+    assert replica.killed is True
+    assert lo <= state["at"] <= hi, state
+    rules = faults.current_plan().rules
+    assert [r.raw["ctx"] for r in rules] == [{"replica": "r0"}]
+    assert soak._serving(replica) is (busy_after_s is not None and state["at"] >= busy_after_s)
