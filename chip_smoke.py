@@ -11,7 +11,8 @@ Two exceptions to the order, to keep the run well inside its time
 limit: phase 2's D = 256 (Gemma) parts and the embeddings' shapes run
 after phase 3's servers, while two helper processes (``warm_flex``)
 compile their ``flex_attention`` yardsticks into Inductor's cache in
-the checkout as the servers run, so the timed calls load them; and each
+the checkout as the servers run, so the timed calls load them (a third
+compiles the ring rows' beside the ``parallel`` phase's ranks); and each
 server of phase 3 starts with the one before it (SERVER_MODES' order
 keeps any two within 69 GB of the card), as the ``--weights`` server
 starts during the export round trip.
@@ -319,7 +320,8 @@ starts during the export round trip.
 4. Training path phase: the fine-tune driver's entry point
    (``python -m dstack_tpu_torch.train.finetune``'s ``main``, called in
    this process with the command line's arguments) at ``--batch 8
-   --seq-len 2048`` (full width and depth, random weights from seed 0),
+   --seq-len 2048`` (full width, random weights from seed 0; full depth
+   but where TRAIN_RUNS cuts it),
    each run's launch counts set to 0 by the driver (TRAIN_RUNS): llama-3.2-1b ``--full --opt-bits 8`` for 6 steps (int8
    moments through A8, a checkpoint every 3 steps, a seeded held-out
    ``.npy`` evaluated every 3 steps and at the end, 2 batches each:
@@ -327,12 +329,12 @@ starts during the export round trip.
    (the step-6 one removed) to step 6, whose ``model_weights.npz`` must
    equal the first run's bitwise and whose eval losses the first run's
    (``resume_check``); llama-3.2-1b in the default LoRA mode for 4 steps;
-   then Gemma at head_dim 256 for 5 steps each: gemma-3-4b LoRA and
-   gemma-2-2b LoRA (softcap 50 in K1-K3, the logit cap 30 in the loss,
-   windows of 4096 on alternate layers) in one micro-batch, gemma-3-1b
-   ``--full`` at ``--grad-accum 2``; gpt-oss-20b LoRA at full width and
-   depth (24 layers, 41.8 GB of bf16 weights) at ``--grad-accum 4``, 3
-   steps. From each summary line: finite losses, the first within
+   then Gemma at head_dim 256 for 5 steps each: gemma-3-4b LoRA (12 of
+   its 34 layers) and gemma-2-2b LoRA (8 of 26; softcap 50 in K1-K3, the
+   logit cap 30 in the loss, windows of 4096 on alternate layers) in one
+   micro-batch, gemma-3-1b ``--full`` (12 of 26) at ``--grad-accum 2``;
+   gpt-oss-20b LoRA at full width and 4 of its 24 layers at
+   ``--grad-accum 4``, 3 steps. From each summary line: finite losses, the first within
    1.0 of ln(vocab), per micro-batch of every step K1, K2 and K3 once a
    flash layer each (K1's residuals are kept across remat; gpt-oss's
    sinks take the masked attention, as JAX trains them, so its run
@@ -354,10 +356,10 @@ starts during the export round trip.
    tokens/s, MFU on the active parameters, peak memory, CE and aux. Then
    llama-3-8b and then starcoder2-7b (LayerNorm with a bias, every bias,
    the gateless MLP) fully fine-tuned in this process at full width and
-   depth (``train_opt8_phase``: ``default_optimizer(opt_bits=8)``,
-   ``make_train_step``, whose default loss at batch 8 x 2048 in one
-   micro-batch is the chunked one; out of memory fails it; 4 steps each):
-   K1, K2 and K3 32 a step, A8 once a quantized leaf a step, finite
+   8 and 4 of their 32 layers (``train_opt8_phase``:
+   ``default_optimizer(opt_bits=8)``, ``make_train_step``, whose default
+   loss at batch 8 x 2048 in one micro-batch is the chunked one; out of
+   memory fails it; 4 steps each): K1, K2 and K3 once a layer a step, A8 once a quantized leaf a step, finite
    losses, the first within 1.0 of ln(vocab); step seconds, tokens/s,
    MFU, peak memory beside the bytes of the parameters and the moments.
    The llama full and LoRA runs also write ``--export-hf`` directories,
@@ -384,13 +386,38 @@ starts during the export round trip.
    and each lies within the model's limit of the f32 loss
    (``GRAD_PARITY``: 2e-3, gemma-3-4b 6e-2, gpt-oss-20b 5e-3,
    llama-4-scout 6e-3).
-6. Print the ``kernels`` JSON line (K1 at the llama, the gpt-oss, the
+6. Parallel phase (``parallel_phase``, ROADMAP A6.1): 2 ranks share the
+   card over gloo (NCCL refuses two ranks on one device), started once by
+   torchrun (``chip_smoke.py --parallel-worker DIR``). In them: the ring
+   and Ulysses at llama-3.2-1b's, deepseek-v2-lite's (D = 192),
+   gemma-3-1b's local (window 512) and gemma-2-2b's (window 4096, softcap
+   50) full-width shapes at T = 2048, forward and backward on each rank's
+   half of the sequence, their launches counted by form, each held to the
+   same ring (or Ulysses) on the plain per-step functions and to the
+   single-rank K1-K3 call over the whole sequence (2e-2 element-wise, 1e-2
+   relative RMS a 32-row tile, on o, dq, dk and dv); llama-3.2-1b's
+   gradients at 4 layers on ``sp=2`` and ``fsdp=2``; then the fine-tune
+   driver's ``main`` on both ranks at 8 x 2048 for 3 steps: llama-3.2-1b
+   at full depth on ``--sp 2`` (the ring), ``--sp 2 --seq-parallel
+   ulysses`` and ``--fsdp 2``, deepseek-v2-lite at 4 layers on ``--sp
+   2``. Then in this process, the card its own: K1, K2 and K3 in the
+   ring's new forms (non-causal at one rank's shard; non-causal at
+   ``q_offset`` 1024 under the window) checked against their plain
+   versions and timed beside their bounds, the plain versions and SDPA;
+   the mesh gradients' relative RMS error against the single-rank f32
+   path, leaf by leaf, at most 1.5 times the single-rank kernel path's;
+   each fine-tune's first loss within 2e-3 of the single rank's (the same
+   parameters and first batch through the step's objective), its first
+   line naming gloo and both ranks on the card, and its launches by form
+   the ring's (rank 1 also non-causal), Ulysses' or the flash call's.
+7. Print the ``kernels`` JSON line (K1 at the llama, the gpt-oss, the
    Gemma, the dense families' D = 128 (with G = 5, and llama-3-8b's
    training micro-batch and starcoder2-7b's at G = 9), the MLA serving (at
    16 and, in its own row, at deepseek-v3's 128 heads) and the MLA
    training shape, K2 and K3 at head_dim 64, 128 (llama-3-8b's and, in
    their own rows, starcoder2-7b's micro-batch), 192 and 256, A8 with its
-   four leaves, K4 as one row per
+   four leaves, K1, K2 and K3 in the ring's non-causal and offset forms,
+   K4 as one row per
    form, eight at head_dim 64, four at 128 and four at 256, each with its launches on
    every path of its models; a form launched on no path fails the run;
    every row carries its kernel's ptxas report, K1 its training- and
@@ -417,6 +444,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -535,7 +563,10 @@ QWEN_MOE_FLOOR_MS = 48 * 128 * 3 * 2048 * 768 * 2 / PEAK_BYTES_S * 1e3
 # (B, H, Hkv, T, D; starcoder2-7b's G = 9) in the kernel phase
 LLAMA_8B = "llama-3-8b"
 STARCODER2 = "starcoder2-7b"
-TRAIN_OPT8 = {LLAMA_8B: (8, 4), STARCODER2: (8, 4)}  # model → (rows, steps)
+# model → (rows, steps, layers): at full width, 8 of llama-3-8b's 32 layers
+# and 4 of starcoder2-7b's 32 since the parallel phase came (the run's
+# time; both trained here at full depth before)
+TRAIN_OPT8 = {LLAMA_8B: (8, 4, 8), STARCODER2: (8, 4, 4)}
 D128_TRAIN_SHAPE = (8, 32, 8, 2048, 128)
 D128_G9_TRAIN_SHAPE = (8, 36, 4, 2048, 128)
 D128 = (GLM, OLMO, *FAMILY_TF, MIXTRAL, QWEN_MOE, LLAMA4, COHERE2, LLAMA_8B)  # the models whose paths run the D = 128 forms
@@ -569,19 +600,23 @@ PREFILL_GRID = {("chunk", repr((CHUNK, 0))), ("chunk", repr((16, 0))),
 # card (its vocabulary's f32 logits: with one micro-batch gemma-3-4b LoRA
 # peaked at 62.5 GB and gemma-2-2b LoRA at 74.6 GB, and gemma-3-1b full
 # ran out of memory, on an NVIDIA H100 80GB HBM3 at 700 W)
+# run → (model, mode, grad_accum, steps[, layers]): the Gemma runs and
+# gpt-oss-20b's at full width and a cut depth since the parallel phase came
+# (the run's time; their full depths trained here before): gemma-3's 12
+# layers hold two global ones, gemma-2's 8 and gpt-oss's 4 alternate
+# sliding and global
 TRAIN_RUNS = {
     "full": (MODEL, "full", 1, 6),  # with OPT8_FLAGS, then resumed (RESUME_RUN)
     "lora": (MODEL, "lora", 1, 4),
-    "gemma3_lora": (GEMMA3, "lora", 1, 5),
-    "gemma2_lora": (GEMMA2, "lora", 1, 5),
-    "gemma3_1b_full": (GEMMA3_1B, "full", 2, 5),
-    # gpt-oss-20b at full width and depth (24 layers, 41.8 GB of bf16
-    # weights): every layer's sinks take the masked attention, as JAX trains
-    # them, so no K1-K3 launch; its [B, 64, 2048, 2048] f32 scores set the
-    # micro-batch: at --grad-accum 2 a layer's backward ran out of the
-    # card's memory (66.4 GiB allocated and 8.4 reserved at a 4 GiB request,
-    # NVIDIA H100 80GB HBM3)
-    "gptoss_lora": (GPT_OSS, "lora", 4, 3),
+    "gemma3_lora": (GEMMA3, "lora", 1, 5, 12),
+    "gemma2_lora": (GEMMA2, "lora", 1, 5, 8),
+    "gemma3_1b_full": (GEMMA3_1B, "full", 2, 5, 12),
+    # gpt-oss-20b: every layer's sinks take the masked attention, as JAX
+    # trains them, so no K1-K3 launch; its [B, 64, 2048, 2048] f32 scores
+    # set the micro-batch: at full depth and --grad-accum 2 a layer's
+    # backward ran out of the card's memory (66.4 GiB allocated and 8.4
+    # reserved at a 4 GiB request, NVIDIA H100 80GB HBM3)
+    "gptoss_lora": (GPT_OSS, "lora", 4, 3, 4),
 }
 DIGEST_CHUNK = 1 << 26  # elements a leaf's digest reads at once (tree_digest)
 # the llama full run trains with int8 moments (--opt-bits 8: A8 on every
@@ -1341,13 +1376,15 @@ def _sdpa_bwd_ms(q, k, v, do) -> float:
 FLEX_WINDOW_NOTE = "flex_attention compiled, the causal window as its block mask (its backward)"
 
 
-def _flex_bwd(q, k, v, do, window: int, scale: float, cap: float, want: tuple):
+def _flex_bwd(q, k, v, do, window: int, scale: float, cap: float, want: tuple, keep=None):
     """The yardstick of K2 + K3 in a window or with a softcap: the
-    backward of :func:`_flex` (the causal window as its block
-    mask; the tanh cap as its score_mod where ``cap``), its (dq, dk, dv)
-    first held to the plain version's ``want``. → the call to time."""
-    def keep(bb, hh, qi, kj):
-        return (kj <= qi) & (qi - kj < window) if window else kj <= qi
+    backward of :func:`_flex` (the causal window as its block mask, or
+    the mask ``keep``; the tanh cap as its score_mod where ``cap``), its
+    (dq, dk, dv) first held to the plain version's ``want``. → the call
+    to time."""
+    if keep is None:
+        def keep(bb, hh, qi, kj):
+            return (kj <= qi) & (qi - kj < window) if window else kj <= qi
 
     flex, block, score_mod = _flex(q, k, keep, cap)
     qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
@@ -1460,7 +1497,7 @@ def gemma_backward_kernel_phase() -> dict:
     free_card()
 
     # each Gemma fine-tune run's micro-batch, on every window its layers use
-    for run, (model, _, accum, _) in TRAIN_RUNS.items():
+    for run, (model, _, accum, *_) in TRAIN_RUNS.items():
         if model not in D256:
             continue
         c = llama.CONFIGS[model]
@@ -4437,7 +4474,8 @@ def _finetune(run: str, resume: bool = False) -> dict:
     must have moved. With ``resume`` the OPT8_RUN runs again with
     ``--resume`` from its RESUME_FROM checkpoint (the later ones removed
     first) into its own output directory."""
-    model, mode, accum, steps = TRAIN_RUNS[run]
+    model, mode, accum, steps, *cut = TRAIN_RUNS[run]
+    layers = cut[0] if cut else None  # a depth cut (None: the model's depth)
     name = RESUME_RUN if resume else run
     out = ROOT / "build" / f"chip_smoke_train_{name}"
     log_path = ROOT / "build" / f"chip_smoke_train_{name}.log"
@@ -4475,7 +4513,8 @@ def _finetune(run: str, resume: bool = False) -> dict:
     # the driver's entry point in this process (a process of its own would
     # add its start-up, ~10 s a run), its output into the run's log
     sigterm = signal.getsignal(signal.SIGTERM)
-    with open(log_path, "w") as log_f, contextlib.redirect_stdout(log_f), contextlib.redirect_stderr(log_f):
+    with open(log_path, "w") as log_f, contextlib.redirect_stdout(log_f), contextlib.redirect_stderr(log_f), \
+            _layers(model, layers):
         try:
             rc = finetune.main(cmd[3:])
         except SystemExit as e:
@@ -4511,8 +4550,11 @@ def _finetune(run: str, resume: bool = False) -> dict:
     summary["grad_accum"] = accum
     if mode == "lora":
         summary["base_bitwise_unchanged"] = True
+    summary["layers"] = layers
     log(f"finetune {name} ({time.perf_counter() - t0:.1f} s with start-up): {json.dumps(summary)}")
     c = llama.CONFIGS[model]
+    if layers:
+        c = dataclasses.replace(c, n_layers=layers)
     ln_v = math.log(c.vocab_size)
     first, last = summary["first_loss"], summary["last_loss"]
     if not (math.isfinite(first) and math.isfinite(last) and (resume or abs(first - ln_v) <= 1.0)):
@@ -4536,17 +4578,39 @@ def _finetune(run: str, resume: bool = False) -> dict:
     return summary
 
 
+NPZ_CHUNK = 1 << 26  # bytes of each file _npz_differ reads at once
+
+
+def _npz_differ(a_path: Path, b_path: Path) -> tuple[list, int]:
+    """(the entries of two ``.npz`` files whose stored bytes differ, or
+    that one file lacks; the first file's entry count): each entry's
+    ``.npy`` bytes, header (dtype and shape) and data, compared in
+    NPZ_CHUNK reads, each checked against its CRC-32 (loading and
+    comparing the arrays took ~21 s for two 5 GB files)."""
+    with zipfile.ZipFile(a_path) as za, zipfile.ZipFile(b_path) as zb:
+        names_a, names_b = set(za.namelist()), set(zb.namelist())
+        differ = sorted(names_a ^ names_b)
+        for name in sorted(names_a & names_b):
+            with za.open(name) as fa, zb.open(name) as fb:
+                while True:
+                    x, y = fa.read(NPZ_CHUNK), fb.read(NPZ_CHUNK)
+                    if x != y:
+                        differ.append(name)
+                        break
+                    if not x:
+                        break
+    return [n.removesuffix(".npy") for n in differ], len(names_a)
+
+
 def resume_check(first: dict) -> dict:
     """The opt8 run resumed from its step-RESUME_FROM checkpoint
     (:func:`_finetune` with ``resume``): its ``model_weights.npz`` equals
     the uninterrupted run's bitwise, leaf for leaf and the step."""
     summary = _finetune(OPT8_RUN, resume=True)
-    with np.load(ROOT / "build" / f"chip_smoke_train_{OPT8_RUN}" / "model_weights.npz") as a, \
-            np.load(ROOT / "build" / f"chip_smoke_train_{RESUME_RUN}" / "model_weights.npz") as b:
-        differ = [k for k in a.files if k not in b.files or not np.array_equal(a[k], b[k])]
-        if differ or set(a.files) != set(b.files):
-            raise AssertionError(f"resume: leaves {differ} differ from the uninterrupted run's")
-        leaves = len(a.files)
+    differ, leaves = _npz_differ(ROOT / "build" / f"chip_smoke_train_{OPT8_RUN}" / "model_weights.npz",
+                                 ROOT / "build" / f"chip_smoke_train_{RESUME_RUN}" / "model_weights.npz")
+    if differ:
+        raise AssertionError(f"resume: leaves {differ} differ from the uninterrupted run's")
     evals = {e["tag"]: e["loss"] for e in first["eval"]}
     same = {e["tag"]: e["loss"] == evals.get(e["tag"]) for e in summary["eval"]}
     log(f"resume [{OPT8_RUN} from step {RESUME_FROM}]: model_weights.npz bitwise equal ({leaves} entries); "
@@ -4756,9 +4820,9 @@ def _tree_bytes(tree) -> int:
 
 
 def train_opt8_phase(model: str = LLAMA_8B) -> dict:
-    """``model`` fully fine-tuned in this process at full width and depth
-    (llama-3-8b: 32 layers, 8.03 B parameters; starcoder2-7b: 32 layers,
-    7.17 B, with LayerNorm's bias, every bias and the gateless MLP),
+    """``model`` fully fine-tuned in this process at full width and
+    TRAIN_OPT8's depth (llama-3-8b: 8 of 32 layers; starcoder2-7b: 4 of
+    32, with LayerNorm's bias, every bias and the gateless MLP),
     random weights from seed 0, bf16, through ``init_train_state`` and
     ``make_train_step`` with ``default_optimizer(opt_bits=8)``, as
     ``finetune --full --opt-bits 8`` builds them (in this process, not
@@ -4774,8 +4838,10 @@ def train_opt8_phase(model: str = LLAMA_8B) -> dict:
     start-up), tokens/s, MFU against the bf16 peak,
     ``max_memory_allocated`` beside the bytes of the parameters and the
     optimizer state."""
-    rows, steps = TRAIN_OPT8[model]
+    rows, steps, layers = TRAIN_OPT8[model]
     c = llama.CONFIGS[model]
+    if layers:
+        c = dataclasses.replace(c, n_layers=layers)
     loss_impl = train_step.loss_impl_for(rows, 2048, c.vocab_size)
     if loss_impl != "chunked":
         raise AssertionError(f"{model} training: the default loss at {rows} x 2048 is {loss_impl!r}")
@@ -4999,9 +5065,420 @@ def grad_parity_phase(name: str = MODEL) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# the parallel package (ROADMAP A6.1): 2 ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 2  # ranks sharing the card: NCCL refuses two on one device, so gloo carries their bytes
+# the ring and Ulysses at full width, forward and backward: model → (B, H, Hkv, T, D, window, softcap)
+PAR_SHAPES = {
+    MODEL: (8, 32, 8, 2048, 64, 0, 0.0),
+    DEEPSEEK: (4, 16, 16, 2048, 192, 0, 0.0),  # MLA's training form: v zero-padded to 192
+    GEMMA3_1B: (8, 4, 1, 2048, 256, 512, 0.0),  # its local layer
+    GEMMA2: (8, 8, 4, 2048, 256, 4096, 50.0),
+}
+# the ring's new kernel forms, each timed at one rank's shard (T/sp = 1024):
+# row → (model whose shape, the form's q_offset); the ring's diagonal step is
+# the causal form every earlier row times
+PAR_FORMS = {"noncausal": (MODEL, 0), "offset": (GEMMA3_1B, 1024)}
+PAR_FORM_EXTRA = {"noncausal": DEEPSEEK, "offset": GEMMA2}  # checked and timed beside the row's shape
+# torchrun fine-tunes at 8 x 2048, PAR_STEPS steps: run → (model, layers (None: all), mesh flags)
+PAR_TRAIN = {
+    "sp2_ring": (MODEL, None, ["--sp", "2"]),
+    "sp2_ulysses": (MODEL, None, ["--sp", "2", "--seq-parallel", "ulysses"]),
+    "fsdp2": (MODEL, None, ["--fsdp", "2"]),
+    "deepseek_sp2": (DEEPSEEK, DEEPSEEK_TRAIN_LAYERS, ["--sp", "2"]),
+}
+PAR_STEPS = 3
+PAR_LOSS_RTOL = 2e-3  # first-step loss against the single-rank run of the same seed and flags
+# gradient parity on meshes: llama-3.2-1b at full width and PAR_PARITY_LAYERS
+# layers, a [2, 2048] batch (two rows: one for each fsdp rank)
+PAR_PARITY_LAYERS = 4
+PAR_PARITY_MESHES = {"sp2_ring": dict(fsdp=1, sp=2), "fsdp2": dict(fsdp=2)}
+PAR_DIR = ROOT / "build" / "chip_smoke_parallel"
+
+
+def _par_inputs(name: str) -> tuple:
+    """The whole sequence's q, k, v, dO of PAR_SHAPES[name] (seed 11: the
+    same on every rank) and the call's keywords."""
+    b, h, hkv, t, d, window, cap = PAR_SHAPES[name]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, do = (torch.randn(b, h, t, d, generator=g, device="cuda", dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, hkv, t, d, generator=g, device="cuda", dtype=torch.bfloat16) for _ in range(2))
+    return q, k, v, do, dict(window=window, softcap=cap)
+
+
+def _par_parity_inputs() -> tuple:
+    c = dataclasses.replace(llama.CONFIGS[MODEL], n_layers=PAR_PARITY_LAYERS)
+    params = llama.init_params(c, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, c.vocab_size, (2, 2048), generator=g, device="cuda")
+    mask = torch.ones_like(tokens)
+    mask[:, -1] = 0
+    return c, params, {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1), "mask": mask}
+
+
+def parallel_worker(out_dir: str) -> None:
+    """One rank of the parallel phase, started by torchrun
+    (``chip_smoke.py --parallel-worker DIR``). (1) The ring and Ulysses at
+    each PAR_SHAPES shape, this rank's sequence shard, forward and
+    backward: the launches by form counted on that run alone, then held
+    to the same ring (or Ulysses) on the plain per-step functions and to
+    the single-rank K1-K3 call over the whole sequence, o, dq, dk and dv
+    by :func:`grad_close`. (2) llama-3.2-1b's gradients at
+    PAR_PARITY_LAYERS layers on each PAR_PARITY_MESHES mesh, put back
+    whole on rank 0 (``grads_<mesh>.pt``). (3) Each PAR_TRAIN fine-tune
+    through the entry point's ``finetune.main`` in these ranks (one spawn
+    for the phase: a torchrun a run would start the ranks' imports and
+    process group again),
+    rank 0's output into ``train_<run>.log``, the weights it writes
+    removed once the run ends. → ``rank<r>.json``."""
+    from dstack_tpu_torch.parallel.mesh import Mesh, MeshConfig, init_distributed
+    from dstack_tpu_torch.parallel.ring_attention import ring_attention
+    from dstack_tpu_torch.parallel.ulysses import ulysses_attention
+
+    env = init_distributed("cuda")
+    mesh = Mesh(MeshConfig(fsdp=1, sp=PAR_RANKS), env)
+    rank, out = env.rank, {"forms": {}, "counts": {}, "seconds": {}}
+    for name in PAR_SHAPES:
+        q, k, v, do, kw = _par_inputs(name)
+        tl = q.shape[2] // PAR_RANKS
+        sl = slice(rank * tl, (rank + 1) * tl)
+
+        def run(kind, plain=False):
+            ql, kl, vl = (x[:, :, sl].contiguous().requires_grad_(True) for x in (q, k, v))
+            if kind == "ring":
+                o = ring_attention(ql, kl, vl, mesh=mesh, plain=plain, **kw)
+            else:
+                o = ulysses_attention(ql, kl, vl, mesh=mesh, impl="plain" if plain else None, **kw)
+            o.backward(do[:, :, sl].contiguous())
+            return o.detach(), ql.grad, kl.grad, vl.grad
+
+        qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+        whole = flash.flash_attention(qs, ks, vs, **kw)
+        whole.backward(do)
+        one = tuple(x[:, :, sl] for x in (whole.detach(), qs.grad, ks.grad, vs.grad))
+        del qs, ks, vs, whole
+        for kind in ("ring", "ulysses"):
+            mesh.barrier()
+            t0 = time.perf_counter()
+            flash.LAUNCHES_BY_FORM.clear()
+            got = run(kind)
+            torch.cuda.synchronize()
+            out["counts"][f"{name}/{kind}"] = dict(flash.LAUNCHES_BY_FORM)
+            out["seconds"][f"{name}/{kind}"] = time.perf_counter() - t0
+            errs = {}
+            for ref_name, ref in (("plain", run(kind, plain=True)), ("single_rank", one)):
+                for part, a, w in zip(("o", "dq", "dk", "dv"), got, ref):
+                    errs[f"{ref_name}/{part}"] = grad_close(a, w, f"parallel {name} {kind} {part} vs {ref_name}")
+            out["forms"][f"{name}/{kind}"] = errs
+            del got
+        del q, k, v, do, one
+        free_card()
+    # gradients on meshes, whole on rank 0
+    c, params, batch = _par_parity_inputs()
+    for mname, axes in PAR_PARITY_MESHES.items():
+        pm = Mesh(MeshConfig(**axes), env)
+        layout = train_step.param_layout(c, pm)
+        shards = train_step.shard_tree(params, layout, pm)
+        local = train_step.local_batch(batch, pm)
+        loss, grads = train_step.value_and_grad(
+            lambda p, b: train_step.sharded_objective(p, b, c, None, None, pm, layout)[0], shards, local)
+        grads = train_step.reduce_grads(grads, layout, shards, pm)
+        loss = pm.all_reduce(loss, train_step.DATA_AXES)
+        full = {path: leaf.cpu() for path, leaf in train_step.gathered_leaves(grads, layout, pm)}
+        if rank == 0:
+            torch.save(full, Path(out_dir) / f"grads_{mname}.pt")
+        out[f"loss_{mname}"] = float(loss)
+        del shards, grads, full
+        free_card()
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del c, params, batch
+    free_card()
+    # the fine-tunes, each through the entry point on both ranks
+    out["train_seconds"] = {}
+    for run, (model, layers, flags) in PAR_TRAIN.items():
+        dest = Path(out_dir) / f"train_{run}"
+        argv = ["--model", model, "--full", "--steps", str(PAR_STEPS), "--log-every", "1", "--out", str(dest),
+                *flags]
+        mesh.barrier()
+        t0 = time.perf_counter()
+        with open(Path(out_dir) / f"train_{run}.log" if rank == 0 else os.devnull, "w") as log_f, \
+                contextlib.redirect_stdout(log_f), _layers(model, layers):
+            rc = finetune.main(argv)
+        out["train_seconds"][run] = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"parallel finetune {run} rank {rank} returned {rc}")
+        if rank == 0:
+            shutil.rmtree(dest, ignore_errors=True)
+        free_card()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    mesh.barrier()
+
+
+def _form_pairs(t: int, q_offset: int, window: int) -> int:
+    """Live (query, key) pairs of a non-causal [t, t] call at ``q_offset``
+    with ``window``: 0 <= q_offset + i - j < window (every pair when
+    neither is set)."""
+    if not window:
+        return t * t
+    return sum(max(0, min(t, q_offset + i + 1) - max(0, q_offset + i - window + 1)) for i in range(t))
+
+
+def _par_form_row(form: str, name: str) -> dict:
+    """K1, K2 and K3 at one ring form on one rank's shard of PAR_SHAPES[name]
+    (T/sp = 1024; "offset": the block of the rank before, q_offset 1024,
+    under the window): held to the plain versions (:func:`fwd_bwd_check`),
+    then each timed beside its bound, the plain version and the library
+    on the same block: SDPA (``is_causal=False``) without a window or cap,
+    else the compiled ``flex_attention`` (:func:`_flex`: the offset window
+    as its block mask, the cap as its score_mod), its backward timed for
+    dq, dk and dv together."""
+    b, h, hkv, t, d, window, cap = PAR_SHAPES[name]
+    tl = t // PAR_RANKS
+    q_offset = PAR_FORMS[form][1] if form == "offset" else 0
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q, do = (torch.randn(b, h, tl, d, generator=g, device="cuda", dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, hkv, tl, d, generator=g, device="cuda", dtype=torch.bfloat16) for _ in range(2))
+    kw = dict(causal=False, q_offset=q_offset, window=window if form == "offset" else 0, softcap=cap)
+    chk = fwd_bwd_check(q, k, v, do, kw, f"ring {form} {name}")
+    o, lse, delta = chk["o"], chk["lse"], chk["delta"]
+    pairs = _form_pairs(tl, q_offset, kw["window"])
+    gemm = 2 * b * h * pairs * d
+    qb, kvb, rowb = q.numel() * 2, k.numel() * 2, lse.numel() * 4
+    bounds = {"flash_fwd": bound_ms(2 * qb + 2 * kvb + rowb, 2 * gemm),
+              "flash_bwd_dq": bound_ms(2 * qb + 2 * kvb + 2 * rowb + qb, 3 * gemm),
+              "flash_bwd_dkv": bound_ms(2 * qb + 2 * kvb + 2 * rowb + 2 * kvb, 4 * gemm)}
+    ms = {"flash_fwd": time_ms(lambda: flash.flash_attention_with_lse(q, k, v, **kw)),
+          "flash_bwd_dq": time_ms(lambda: flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw)),
+          "flash_bwd_dkv": time_ms(lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))}
+    plain_fwd = time_ms(lambda: flash.flash_attention_plain(q, k, v, **kw), iters=5)
+    plain_bwd = time_ms(lambda: flash.flash_bwd_plain(q, k, v, o, lse, do, **kw), iters=5)
+    library = {}
+    if kw["window"] or cap:
+        win = kw["window"]
+
+        def keep(bb, hh, qi, kj):
+            ahead = q_offset + qi - kj
+            return (ahead >= 0) & (ahead < win) if win else qi >= 0  # no window: every pair
+
+        scale = d ** -0.5
+        library["flash_fwd"] = time_ms(flex_fwd(q, k, v, keep, scale, cap, o))
+        library["flash_bwd_dq"] = library["flash_bwd_dkv"] = time_ms(
+            _flex_bwd(q, k, v, do, win, scale, cap, chk["want"], keep=keep))
+        note = FLEX_NOTE if cap else "flex_attention compiled, the offset window as its block mask"
+    else:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library["flash_fwd"] = time_ms(lambda: sdpa(q, k, v, enable_gqa=True))
+        qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        so = sdpa(qs, ks, vs, enable_gqa=True)
+        library["flash_bwd_dq"] = library["flash_bwd_dkv"] = time_ms(
+            lambda: torch.autograd.grad(so, (qs, ks, vs), do, retain_graph=True))
+        del qs, ks, vs, so
+        note = "SDPA, is_causal=False"
+    rows = {}
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        err = chk[kernel]
+        rows[kernel] = {
+            "max_abs_err": err if kernel == "flash_fwd" else err[0],
+            "tile_rel_rms": chk["flash_fwd_tiles"] if kernel == "flash_fwd" else err[1],
+            "ms": ms[kernel], "plain_ms": plain_fwd if kernel == "flash_fwd" else plain_bwd,
+            "bound_ms": bounds[kernel][0], "bound_by": bounds[kernel][1], "library_ms": library[kernel],
+            "library_note": note + (" (its backward: dq, dk, dv)" if kernel != "flash_fwd" else ""),
+            "shape": f"q [{b},{h},{tl},{d}] over k/v [{b},{hkv},{tl},{d}] ({name}), q_offset {q_offset}, "
+                     f"window {kw['window']}, softcap {cap}",
+        }
+    del q, k, v, do, chk, o, lse, delta
+    free_card()
+    return rows
+
+
+def _par_finetune(run: str, card: str, seconds: float) -> dict:
+    """One PAR_TRAIN run's report from rank 0's log (:func:`parallel_worker`:
+    the entry point's ``finetune.main`` on 2 ranks at 8 x 2048, PAR_STEPS
+    steps, ``seconds`` of wall time): its first line must name gloo and
+    both ranks on the card, its first-step loss must equal the single-rank
+    run's (the same seed and flags, in this process, one step) within
+    PAR_LOSS_RTOL, and its launches by form must be the ring's, Ulysses'
+    or the flash call's."""
+    model, layers, flags = PAR_TRAIN[run]
+    lines = (PAR_DIR / f"train_{run}.log").read_text().splitlines()
+    summary = json.loads([ln for ln in lines if ln.startswith('{"event": "summary"')][-1])
+    if not lines[0].startswith("backend=gloo") or "1: 'cuda:0'" not in lines[0]:
+        raise AssertionError(f"parallel finetune {run}: first line {lines[0]!r}")
+    for line in lines:
+        if line.startswith(("backend=", "model=", "step ")):
+            log(f"  parallel finetune {run}: {line}")
+    single = _par_single_first_loss(model, layers)
+    rel = abs(summary["first_loss"] - single) / abs(single)
+    if not rel <= PAR_LOSS_RTOL:
+        raise AssertionError(f"parallel finetune {run}: first loss {summary['first_loss']} vs single rank {single}"
+                             f" (rel {rel:.3g} > {PAR_LOSS_RTOL})")
+    c = dataclasses.replace(llama.CONFIGS[model], n_layers=layers or llama.CONFIGS[model].n_layers)
+    per = c.n_layers * PAR_STEPS  # flash layers x steps, each rank
+    ring = flags[:2] == ["--sp", "2"] and "ulysses" not in flags
+    for r, rank in enumerate(summary["by_rank"]):
+        want = {f"{k}/causal": per for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        if ring and r == 1:  # the block of rank 0: non-causal; rank 0 skips rank 1's
+            want.update({f"{k}/noncausal": per for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+        if rank["launches_by_form"] != want:
+            raise AssertionError(f"parallel finetune {run} rank {r}: launches {rank['launches_by_form']} != {want}")
+    report = {"run": run, "model": model, "layers": c.n_layers, "flags": flags, "seconds": seconds,
+              "first_loss": summary["first_loss"], "single_rank_first_loss": single, "rel": rel,
+              "last_loss": summary["last_loss"], "median_step_s": summary["median_step_s"],
+              "tokens_per_s": summary["tokens_per_s"], "mfu_per_rank": summary["mfu"], "mesh": summary["mesh"],
+              "peak_memory_bytes_by_rank": [x["peak_memory_bytes"] for x in summary["by_rank"]],
+              "launches_by_form": summary["launches_by_form"],
+              "launches_by_form_all_ranks": _sum_counts([x["launches_by_form"] for x in summary["by_rank"]]),
+              "card": card}
+    log(f"parallel finetune {run} (2 ranks sharing one card over gloo, not a multi-GPU speed): "
+        + json.dumps(report))
+    return report
+
+
+_SINGLE_FIRST: dict = {}
+
+
+def _par_single_first_loss(model: str, layers) -> float:
+    """The first-step loss of the single-rank run of the same seed and
+    flags: the entry point's parameters (``--seed`` 0) and first
+    synthetic batch through the step's objective in this one process,
+    autograd off (the loss a step reports is its forward's, taken before
+    its update; the mesh flags change no loss), cached by model and
+    depth."""
+    key = (model, layers)
+    if key not in _SINGLE_FIRST:
+        args = finetune._parser().parse_args(["--model", model, "--full"])
+        with _layers(model, layers):
+            c = llama.CONFIGS[model]
+        params = llama.init_params(c, torch.Generator(device="cuda").manual_seed(args.seed), device="cuda")
+        batch = finetune._synthetic_batch(0, args, c, torch.device("cuda"))
+        with torch.no_grad():
+            _SINGLE_FIRST[key] = float(train_step.objective(params, batch, c)[1][0])
+        del params, batch
+        free_card()
+    return _SINGLE_FIRST[key]
+
+
+@contextlib.contextmanager
+def _layers(model: str, layers):
+    """llama.CONFIGS[model] cut to ``layers`` (None: as it is) while the
+    block runs."""
+    full = llama.CONFIGS[model]
+    if layers:
+        llama.CONFIGS[model] = dataclasses.replace(full, n_layers=layers)
+    try:
+        yield
+    finally:
+        llama.CONFIGS[model] = full
+
+
+def _sum_counts(counts: list) -> dict:
+    out = collections.Counter()
+    for c in counts:
+        out.update(c)
+    return dict(sorted(out.items()))
+
+
+def _par_grad_parity(card: str) -> dict:
+    """Each leaf's relative RMS error of the ranks' bf16 gradients on each
+    PAR_PARITY_MESHES mesh against the single-rank f32 path, at most
+    KERNEL_RMS_MARGIN times the single-rank bf16 kernel path's own (as
+    :func:`grad_parity_phase` holds the kernel path to the plain one)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c, params, batch = _par_parity_inputs()
+    loss = {}
+    loss["kernel"], kernel = train_step.value_and_grad(train_step.full_loss, params, batch, c, None)
+    p32 = train_step.tree_map(lambda w: w.float(), params)
+    del params
+    free_card()
+    loss["f32"], f32 = train_step.value_and_grad(train_step.full_loss, p32, batch,
+                                                 dataclasses.replace(c, dtype=torch.float32), "plain")
+    del p32
+    free_card()
+
+    def flat(tree, prefix=""):
+        out = {}
+        for key in sorted(tree):
+            out.update(flat(tree[key], f"{prefix}{key}/") if isinstance(tree[key], dict) else {prefix + key: tree[key]})
+        return out
+
+    def rel_rms(a, ref):
+        return ((a.float() - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
+
+    kernel, f32 = flat(kernel), flat(f32)
+    report = {"layers": c.n_layers, "loss": {k: float(v) for k, v in loss.items()}, "leaves": {}}
+    for mname in PAR_PARITY_MESHES:
+        got = torch.load(PAR_DIR / f"grads_{mname}.pt")
+        for leaf, ref in f32.items():
+            k_err, m_err = rel_rms(kernel[leaf], ref), rel_rms(got[leaf].cuda(), ref)
+            report["leaves"].setdefault(leaf, {"kernel": k_err})[mname] = m_err
+            if not m_err <= KERNEL_RMS_MARGIN * k_err:
+                raise AssertionError(f"parallel gradient parity {mname}: {leaf} rel RMS {m_err:.4g} > "
+                                     f"{KERNEL_RMS_MARGIN} x single-rank kernel {k_err:.4g}")
+        del got
+    log("parallel gradient parity (rel RMS vs the single-rank f32 path, per leaf; " + card + "): "
+        + json.dumps(report))
+    del kernel, f32
+    free_card()
+    return report
+
+
+def parallel_phase(card: str) -> tuple[dict, dict, dict]:
+    """The parallel package on the card (ROADMAP A6.1): PAR_RANKS ranks
+    share it over gloo (NCCL refuses two ranks on one device). One torchrun
+    spawn (:func:`parallel_worker`) runs (a) the ring and Ulysses at
+    PAR_SHAPES, (c)'s mesh gradients and (b) the PAR_TRAIN fine-tunes;
+    then, the card this process's alone, the ring's new kernel forms are
+    timed (:func:`_par_form_row`), (c) the gradients held to the
+    single-rank paths (:func:`_par_grad_parity`) and (b) each run's first
+    loss to the single-rank run's (:func:`_par_finetune`). → (kernel rows,
+    launch counts by path, the report)."""
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    PAR_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    log_path = PAR_DIR / "worker.log"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(PAR_RANKS), "--master-port",
+           str(_free_port()), str(ROOT / "chip_smoke.py"), "--parallel-worker", str(PAR_DIR)]
+    # torchrun would give each rank 1 thread: the ranks' host work (a
+    # weights file's bf16 -> f32 conversion) may share the cores (8 on the
+    # card's machine) up to 4 a rank
+    threads = max(1, min(4, len(os.sched_getaffinity(0)) // PAR_RANKS))
+    env = dict(os.environ, OMP_NUM_THREADS=str(threads))
+    # the windowed ring rows' flex_attention yardsticks compile beside the
+    # ranks (a few GB of the card), so the timed calls below load them
+    start_flex_warm(("ring",))
+    with open(log_path, "w") as log_f:
+        rc = subprocess.run(cmd, cwd=ROOT, env=env, stdout=log_f, stderr=subprocess.STDOUT,
+                            timeout=600).returncode
+    wait_flex_warm()
+    if rc != 0:
+        raise RuntimeError(f"parallel worker exited {rc}:\n{log_path.read_text()[-6000:]}")
+    ranks = [json.loads((PAR_DIR / f"rank{r}.json").read_text()) for r in range(PAR_RANKS)]
+    log(f"parallel worker ({time.perf_counter() - t0:.1f} s with start-up; {card}): "
+        + json.dumps({"forms": ranks[0]["forms"], "counts_by_rank": [r["counts"] for r in ranks],
+                      "seconds": ranks[0]["seconds"], "train_seconds": ranks[0]["train_seconds"],
+                      "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks]}))
+    # the driven run's launches: every shape's ring and Ulysses, both ranks
+    ring_counts = _sum_counts([c for r in ranks for c in r["counts"].values()])
+    rows = {}
+    for form, (name, _) in PAR_FORMS.items():
+        main = _par_form_row(form, name)
+        extra = _par_form_row(form, PAR_FORM_EXTRA[form])
+        for kernel, row in main.items():
+            rows[f"{kernel}_ring_{form}"] = {**row, "also": extra[kernel]}
+    parity = _par_grad_parity(card)
+    train = {run: _par_finetune(run, card, ranks[0]["train_seconds"][run]) for run in PAR_TRAIN}
+    by_path = {"parallel_ring_ulysses": ring_counts,
+               **{f"parallel_train_{run}": t["launches_by_form_all_ranks"] for run, t in train.items()}}
+    return rows, by_path, {"parity": parity, "train": train}
+
+
 # the flex warm-up processes' parts: each process compiles its parts'
-# flex_attention graphs (the embeddings reach flex at gemma-3-4b's D = 256)
-WARM_PARTS = {"gemma": ("gemma", "embed"), "gemma_bwd": ("gemma_bwd",)}
+# flex_attention graphs (the embeddings reach flex at gemma-3-4b's D = 256;
+# "ring", started by parallel_phase beside its ranks: the ring's windowed forms)
+WARM_PARTS = {"gemma": ("gemma", "embed"), "gemma_bwd": ("gemma_bwd",), "ring": ("ring",)}
 _WARM: list = []  # the flex warm-up processes, once started
 
 
@@ -5019,22 +5496,25 @@ def warm_flex(which: str) -> None:
     # the other families' rows are made by parts this process skips
     rows = collections.defaultdict(lambda: {"max_abs_err": 0.0})
     fns = {"gemma": gemma_kernel_phase, "gemma_bwd": gemma_backward_kernel_phase,
-           "embed": lambda: embed_kernel_phase(rows)}
+           "embed": lambda: embed_kernel_phase(rows),
+           "ring": lambda: [_par_form_row("offset", name) for name in (PAR_FORMS["offset"][0],
+                                                                      PAR_FORM_EXTRA["offset"])]}
     for part in WARM_PARTS[which]:
         with phase(f"warm_{part}"):
             fns[part]()
     log(f"peak reserved bytes {torch.cuda.max_memory_reserved()}")
 
 
-def start_flex_warm() -> None:
-    """Start :func:`warm_flex` in one process for each entry of WARM_PARTS
-    (the output of each in ``build/chip_smoke_flex_warm_<which>.log``)."""
-    for which in WARM_PARTS:
+def start_flex_warm(names=("gemma", "gemma_bwd")) -> None:
+    """Start :func:`warm_flex` in one process for each of ``names``, keys
+    of WARM_PARTS (the output of each in
+    ``build/chip_smoke_flex_warm_<which>.log``)."""
+    for which in names:
         with open(ROOT / "build" / f"chip_smoke_flex_warm_{which}.log", "w") as log_f:  # the child keeps its own
             _WARM.append((which, subprocess.Popen(
                 [sys.executable, "-c", f"import chip_smoke; chip_smoke.warm_flex({which!r})"],
                 cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT)))
-    log(f"flex warm-up processes started: {list(WARM_PARTS)}")
+    log(f"flex warm-up processes started: {list(names)}")
 
 
 def wait_flex_warm() -> None:
@@ -5187,6 +5667,9 @@ def _main(card: str, t_all: float) -> int:
     with phase("grad_parity"):
         for name in GRAD_PARITY:
             grad_parity_phase(name)
+    with phase("parallel"):
+        par_rows, par_by_path, par = parallel_phase(card)
+    rows.update(par_rows)
 
     # path → (its model, its launch counts)
     by_path = {
@@ -5205,6 +5688,8 @@ def _main(card: str, t_all: float) -> int:
         "train_8b_opt8": (LLAMA_8B, train_8b["launches"]),
         "train_starcoder2_opt8": (STARCODER2, train_sc2["launches"]),
         "bench_w8_70b": (W8_70B, w8_bench["launches"]),
+        # the parallel phase's paths count K1-K3 by form (flash.LAUNCHES_BY_FORM)
+        **{path: ("parallel", counts) for path, counts in par_by_path.items()},
     }
     k1 = ("dstack_tpu_torch/csrc/flash_fwd.cu", "dstack_tpu/ops/flash.py:190", "flash_fwd")
     k4 = ("dstack_tpu_torch/csrc/flash_decode.cu", "dstack_tpu/ops/flash_decode.py:266")
@@ -5265,6 +5750,9 @@ def _main(card: str, t_all: float) -> int:
         # A8 on the opt8 runs: llama-3.2-1b's fine-tune and its resume,
         # llama-3-8b's and starcoder2-7b's
         "adam8": (*a8, (MODEL, LLAMA_8B, STARCODER2)),
+        # the ring's new forms (the parallel phase: 2 ranks on the card)
+        **{f"{k[2]}_ring_{form}": (k[0], k[1], f"{k[2]}/{form}", ("parallel",))
+           for k in (k1, k2, k3) for form in PAR_FORMS},
     }
     kernels = []
     for name, (src, rep, count, models) in meta.items():
@@ -5282,7 +5770,7 @@ def _main(card: str, t_all: float) -> int:
                                           "softcap_50", "shapes", "timing_floor_ms", "embeddings", "g1", "g5",
                                           "E", "M", "K", "N", "plan", "bf16_matmul_ms",
                                           "graph_replay_max_abs_err", "train_shape", "adamw_bf16_ms",
-                                          "code_differ_share", "scale_max_rel_err")
+                                          "code_differ_share", "scale_max_rel_err", "shape", "also")
                if k in rows[name]},
             "ptxas": ptxas[src.rsplit("/", 1)[1][:-3]],
         })
@@ -5323,4 +5811,7 @@ def _main(card: str, t_all: float) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:  # a rank of parallel_phase, under torchrun
+        parallel_worker(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

@@ -192,6 +192,10 @@ class LlamaConfig:
     # Llama4's router: gates are sigmoid(top-k logit), applied to the expert
     # input (the combine is unweighted)
     router_sigmoid_input: bool = False
+    # the sequence-parallel attention on a mesh with sp > 1: "ring" (KV
+    # blocks rotate; any head count) or "ulysses" (head-sequence
+    # all-to-alls; n_heads % sp == 0): JAX's field (llama.py:101-104)
+    seq_parallel: str = "ring"
 
     def __post_init__(self):
         if self.n_heads % self.n_kv_heads:
@@ -623,6 +627,110 @@ def param_shapes(config: LlamaConfig) -> dict:
     if not c.tie_embeddings:
         shapes["lm_head"] = (E, c.vocab_size)
     return shapes
+
+
+def param_specs(config: LlamaConfig) -> dict:
+    """The logical axes of each parameter dim, a tree matching
+    :func:`param_shapes` (JAX's ``param_specs``, llama.py:548-650, copied):
+    ``parallel/sharding.py``'s rules map them to mesh axes; ``embed_fsdp``
+    is the dim ``fsdp`` shards."""
+    L = ("layers",)
+    if config.mla:
+        # MLA: the latent projections are skinny (rank << hidden), so
+        # only the per-head b-projections shard over tp ("heads")
+        attn = {
+            "wkv_a": L + ("embed_fsdp", None),
+            "kv_a_norm": L + (None,),
+            "wkv_b": L + (None, "heads"),
+            "wo": L + ("heads", "embed_fsdp"),
+        }
+        if config.q_lora_rank:
+            attn["wq_a"] = L + ("embed_fsdp", None)
+            attn["q_a_norm"] = L + (None,)
+            attn["wq_b"] = L + (None, "heads")
+        else:
+            attn["wq"] = L + ("embed_fsdp", "heads")
+    else:
+        attn = {
+            "wq": L + ("embed_fsdp", "heads"),
+            "wk": L + ("embed_fsdp", "kv_heads"),
+            "wv": L + ("embed_fsdp", "kv_heads"),
+            "wo": L + ("heads", "embed_fsdp"),
+        }
+    N = (None, None) if config.norm_type in ("layernorm1p", "layernorm_bias") else (None,)
+    dense_mlp = {
+        "w_up": L + ("embed_fsdp", "mlp"),
+        "w_down": L + ("mlp", "embed_fsdp"),
+    }
+    if not config.mlp_gateless:
+        dense_mlp["w_gate"] = L + ("embed_fsdp", "mlp")
+    if config.pre_norm and not config.parallel_block:
+        # Cohere's parallel block shares attn_norm (one real leaf)
+        dense_mlp["mlp_norm"] = L + N
+    if config.n_experts:
+        mlp = {
+            "w_router": L + ("embed_fsdp", None),
+            "w_gate": L + ("experts", "embed_fsdp", "mlp"),
+            "w_up": L + ("experts", "embed_fsdp", "mlp"),
+            "w_down": L + ("experts", "mlp", "embed_fsdp"),
+        }
+        if config.pre_norm and not config.parallel_block:
+            mlp["mlp_norm"] = L + N
+        if config.router_bias:
+            mlp["router_bias"] = L + (None,)
+        if config.moe_bias:
+            mlp["b_router"] = L + (None,)
+            mlp["b_gate"] = L + ("experts", "mlp")
+            mlp["b_up_e"] = L + ("experts", "mlp")
+            mlp["b_down_e"] = L + ("experts", None)
+        if config.moe_shared_expert:  # dense: shard like a plain MLP
+            mlp["w_shared_gate"] = L + ("embed_fsdp", "mlp")
+            mlp["w_shared_up"] = L + ("embed_fsdp", "mlp")
+            mlp["w_shared_down"] = L + ("mlp", "embed_fsdp")
+    else:
+        mlp = dense_mlp
+    layer = {**attn, **mlp}
+    if config.pre_norm:
+        layer["attn_norm"] = L + N
+    if config.qkv_bias:
+        layer["bq"] = L + ("heads",)
+        layer["bk"] = L + ("kv_heads",)
+        layer["bv"] = L + ("kv_heads",)
+    if config.proj_bias:  # StarCoder2 / gpt-oss
+        layer["bo"] = L + (None,)
+        if not config.n_experts:  # dense-MLP biases only
+            layer["b_up"] = L + ("mlp",)
+            layer["b_down"] = L + (None,)
+    if config.attn_sinks:
+        layer["sinks"] = L + ("heads",)
+    if config.qk_norm:
+        if config.norm_type == "layernorm":  # Cohere [H, D] weights
+            layer["q_norm"] = L + ("heads", None)
+            layer["k_norm"] = L + ("kv_heads", None)
+        else:
+            layer["q_norm"] = L + (None,)
+            layer["k_norm"] = L + (None,)
+    if config.qk_norm_flat:  # OLMo-2: full projection width
+        layer["q_norm"] = L + ("heads",)
+        layer["k_norm"] = L + ("kv_heads",)
+    if config.post_norms:
+        layer["attn_post_norm"] = L + (None,)
+        layer["mlp_post_norm"] = L + (None,)
+    specs = {
+        "embed": ("vocab", "embed_fsdp"),
+        "layers": layer,
+        "final_norm": N,
+    }
+    if config.first_k_dense:
+        # DeepSeek dense prelude: same attention, plain-MLP FFN
+        specs["dense_layers"] = {
+            k: v for k, v in {**layer, **dense_mlp}.items()
+            if k not in ("w_router", "router_bias", "w_shared_gate",
+                         "w_shared_up", "w_shared_down")
+        }
+    if not config.tie_embeddings:
+        specs["lm_head"] = ("embed_fsdp", "vocab")
+    return specs
 
 
 def _leaf_dtype(name: str, config: LlamaConfig, dtype=None):
@@ -1293,7 +1401,31 @@ def _attend(q, k, v, layer: dict, c: LlamaConfig, window: int, impl: Optional[st
     masked attention (:func:`masked_attention`). With autograd off the
     sinks ride K1 with the exact σ(lse - sink) rescale, as a serving
     chunk runs them; under autograd they take the masked attention, as
-    JAX trains them on ``_xla_attention`` (llama.py:1262-1266)."""
+    JAX trains them on ``_xla_attention`` (llama.py:1262-1266).
+
+    On a mesh with sp > 1 (``layer["mesh"]``, set by :func:`forward`) q,
+    k and v are this rank's sequence shard and the attention is JAX's
+    sp dispatch (llama.py:1237-1262): Ulysses or the ring by
+    ``config.seq_parallel``, with the window and softcap; a Llama4 chunk
+    and sinks raise JAX's ``NotImplementedError``."""
+    mesh = layer.get("mesh")
+    if mesh is not None and mesh.size("sp") > 1:
+        if not nope and c.attention_chunk_size:
+            raise NotImplementedError(
+                "chunked attention (Llama4) does not compose with sp "
+                "sequence parallelism yet"
+            )
+        if c.attn_sinks:
+            raise NotImplementedError(
+                "attention sinks do not compose with sp sequence "
+                "parallelism yet (the ring/ulysses paths have no sink "
+                "column)"
+            )
+        from dstack_tpu_torch.parallel import ring_attention, ulysses  # parallel imports ops only
+
+        sp_attention = ulysses.ulysses_attention if c.seq_parallel == "ulysses" else ring_attention.ring_attention
+        return sp_attention(q, k, v, mesh=mesh, causal=True, scale=c.attention_scale, window=window,
+                            softcap=c.attn_softcap)
     return attention(q, k, v, causal=True, scale=c.attention_scale, window=window,
                      softcap=c.attn_softcap, chunk=0 if nope else c.attention_chunk_size, impl=impl,
                      sinks=layer["sinks"] if c.attn_sinks else None,
@@ -1371,6 +1503,7 @@ def forward(
     return_hidden: bool = False,
     return_aux: bool = False,
     impl: Optional[str] = None,  # attention: None = by device | "plain"
+    mesh=None,  # parallel.mesh.Mesh: tokens are this rank's shard
 ):
     """Token ids → f32 logits [B, T, V] (tanh-capped where the config sets
     ``logit_softcap``), or with ``return_hidden`` the final normed hidden
@@ -1400,10 +1533,19 @@ def forward(
     per layer. With ``config.remat`` (and autograd on) every layer runs
     as :func:`_layer_remat`: its activations are recomputed in the
     backward, but not its flash call, whose q, k, v, o and logsumexp are
-    kept (JAX's ``flash_residuals``), so K1 runs once a layer."""
+    kept (JAX's ``flash_residuals``), so K1 runs once a layer.
+
+    With ``mesh`` (``parallel.mesh.Mesh``) ``tokens`` are this rank's
+    rows and, under sp, its sequence shard: positions start at
+    ``index("sp") * T_local``, and each layer dict carries the mesh and a
+    memo of its own (``layer["memo"]``): a collective inside a remat
+    checkpoint (the MoE router's) keeps its result there, so the
+    backward's recompute reuses it and issues none."""
     c = config
     x = _embed_lookup(params, tokens, c)
-    pos = positions if positions is not None else torch.arange(tokens.shape[1], device=tokens.device)
+    t = tokens.shape[1]
+    start = mesh.index("sp") * t if mesh is not None else 0
+    pos = positions if positions is not None else torch.arange(start, start + t, device=tokens.device)
     ropes = dual_rope_freqs(c, pos)
     remat = c.remat and torch.is_grad_enabled()
     check_layer_layout(c)
@@ -1413,10 +1555,13 @@ def forward(
     def run(x, leaves, kinds, extra):
         # the stack's leaves unbound once: each leaf's gradient is stacked
         # once in the backward, not scattered into [L, ...] zeros a layer
-        per_layer = {name: w.unbind(0) for name, w in leaves.items()}
+        # (a leaf may come as the list of its layers: train.step's fsdp)
+        per_layer = {name: w.unbind(0) if isinstance(w, torch.Tensor) else w for name, w in leaves.items()}
         auxs = []
         for i, (window, nope) in enumerate(kinds):
             layer = {**{name: ws[i] for name, ws in per_layer.items()}, **extra}
+            if mesh is not None:
+                layer.update(mesh=mesh, memo={})
             if remat:
                 x, a = _layer_remat(x, layer, c, ropes, window, impl, nope, pos)
             else:

@@ -47,6 +47,7 @@ choice among the zeroed experts (HF's quirk, kept by JAX) would
 otherwise differ.
 """
 
+import math
 from typing import Optional
 
 import torch
@@ -108,6 +109,8 @@ def router(
     topk_softmax: bool = False,
     expert: Optional[torch.Tensor] = None,  # [B, T, k]: these choices instead of the top-k
     with_aux: bool = False,
+    mesh=None,  # parallel.mesh.Mesh: x is this rank's shard of the batch and sequence
+    memo: Optional[dict] = None,  # the layer's memo (llama.forward): collectives' results
 ) -> tuple:
     """Top-k routing with capacity → (expert [B, T, k] int64, slot
     [B, T, k] int64, combine [B, T, k] in x's dtype). ``combine`` is the
@@ -136,7 +139,20 @@ def router(
     (dstack_tpu/models/moe.py:148-156): ``balance = E * sum(frac_tokens *
     frac_probs)``, where ``frac_tokens`` counts each token's first choice
     only and ``frac_probs`` averages the softmax of the logits (whatever
-    the score function), and ``z = mean(logsumexp(logits)^2)``."""
+    the score function), and ``z = mean(logsumexp(logits)^2)``.
+
+    With ``mesh`` the router is JAX's global one, run on this rank's
+    shard (dstack_tpu/models/moe.py:128-156). A row's slots run over the
+    whole row's sequence: a token's place adds the counts of the lower sp
+    ranks' tokens, and the earlier choices' offset is the whole row's
+    (one all-gather of per-expert counts over sp). ``capacity`` is the
+    caller's, from the global T. The aux terms are means over the global
+    (B, T): ``frac_tokens`` is summed over the data ranks (no gradient
+    flows through it), while ``frac_probs`` and the z-loss are this rank's
+    partial sums over the global count, so that the ranks' terms add up to
+    JAX's, and so do their gradients once the leaf gradients are summed.
+    Each collective's result is kept in ``memo``: a remat recompute
+    reuses it."""
     k = experts_per_token
     logits = matmul_f32(x, w_router.to(x.dtype))  # [B, T, E] f32
     if pre_bias is not None:
@@ -165,19 +181,40 @@ def router(
     # row's earlier choices (JAX's cumsum(onehot_j) - 1 + used.sum)
     onehot = F.one_hot(expert, n_experts)  # [B, T, k, E]
     per_choice = onehot.sum(dim=1, keepdim=True)  # [B, 1, k, E]
+    before = 0
+    if mesh is not None and mesh.size("sp") > 1:
+        # [sp, B, 1, k, E]: each sp rank's counts of the row
+        counts = _memo(memo, "slots", lambda: mesh.all_gather(per_choice[None], "sp", 0))
+        before = counts[: mesh.index("sp")].sum(dim=0)  # the row's tokens on the lower ranks
+        per_choice = counts.sum(dim=0)  # the whole row's
     earlier = per_choice.cumsum(dim=2) - per_choice  # choices before j, whole row
-    pos = onehot.cumsum(dim=1) - 1 + earlier  # [B, T, k, E]
+    pos = onehot.cumsum(dim=1) - 1 + earlier + before  # [B, T, k, E]
     slot = pos.gather(-1, expert[..., None])[..., 0]
     combine = torch.where(slot < capacity, gates, torch.zeros_like(gates)).to(x.dtype)
     if not with_aux:
         return expert, slot, combine
-    frac_tokens = F.one_hot(expert[..., 0], n_experts).float().mean(dim=(0, 1))
-    frac_probs = torch.softmax(logits, dim=-1).mean(dim=(0, 1))
-    aux = {
-        "balance": n_experts * (frac_tokens * frac_probs).sum(),
-        "z": torch.logsumexp(logits, dim=-1).pow(2).mean(),
-    }
+    top1 = F.one_hot(expert[..., 0], n_experts).float()
+    probs = torch.softmax(logits, dim=-1)
+    lse2 = torch.logsumexp(logits, dim=-1).pow(2)
+    if mesh is None:
+        frac_tokens, frac_probs, z = top1.mean(dim=(0, 1)), probs.mean(dim=(0, 1)), lse2.mean()
+    else:
+        axes = ("dp", "fsdp", "ep", "sp")
+        n = top1.shape[0] * top1.shape[1] * math.prod(mesh.size(a) for a in axes)  # the global (B, T)
+        frac_tokens = _memo(memo, "aux", lambda: mesh.all_reduce(top1.sum(dim=(0, 1)), axes)) / n
+        frac_probs, z = probs.sum(dim=(0, 1)) / n, lse2.sum() / n
+    aux = {"balance": n_experts * (frac_tokens * frac_probs).sum(), "z": z}
     return expert, slot, combine, aux
+
+
+def _memo(memo: Optional[dict], key: str, fn):
+    """``fn()``, kept in ``memo`` under ``key`` on the first call and
+    returned from there after (a remat recompute of the layer)."""
+    if memo is None:
+        return fn()
+    if key not in memo:
+        memo[key] = fn()
+    return memo[key]
 
 
 def _oai_glu(g: torch.Tensor, u: torch.Tensor, limit: float) -> torch.Tensor:
@@ -236,11 +273,14 @@ def moe_mlp(
         raise ValueError(f"moe_mlp: unknown act {act!r}")
     b, t, h = x.shape
     e, k = n_experts, experts_per_token
-    cap = expert_capacity(t, e, k, capacity_factor)
+    mesh = layer.get("mesh")
+    # the capacity of a row's whole sequence (JAX routes the global [B, T])
+    cap = expert_capacity(t * (mesh.size("sp") if mesh is not None else 1), e, k, capacity_factor)
     expert, slot, combine, *aux = router(
         x, layer["w_router"], e, k, cap, renorm=renorm, sigmoid=sigmoid_input, score=score, groups=groups,
         bias=layer.get("router_bias"), routed_scale=routed_scale,
         pre_bias=layer.get("b_router"), topk_softmax=topk_softmax, with_aux=return_aux,
+        mesh=mesh, memo=layer.get("memo"),
     )
     # flat row of each choice in [E, B, C]; a dropped choice goes to the
     # extra row E*B*C (zeros in, discarded out)

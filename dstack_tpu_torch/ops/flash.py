@@ -83,6 +83,24 @@ LAUNCHES = 0  # K1 flash_fwd
 LAUNCHES_MLA = 0  # K1's D = 576 form, flash_fwd_mla
 LAUNCHES_DQ = 0  # K2 flash_bwd_dq
 LAUNCHES_DKV = 0  # K3 flash_bwd_dkv
+# the same launches of K1, K2 and K3 by form ("flash_fwd/causal", and
+# "noncausal" or "offset" (non-causal at a q_offset: a ring step's block of
+# an earlier shard under a window), as :func:`launch_form` names them)
+LAUNCHES_BY_FORM: dict = {}
+
+
+def launch_form(kernel: str, causal: bool, q_offset) -> str:
+    """The form key of a launch in :data:`LAUNCHES_BY_FORM`."""
+    return f"{kernel}/{'causal' if causal else 'offset' if int(q_offset) else 'noncausal'}"
+
+
+def _count_form(kernel: str, kw_or_causal, q_offset=0) -> None:
+    if isinstance(kw_or_causal, dict):
+        causal, q_offset = kw_or_causal.get("causal", True), kw_or_causal.get("q_offset", 0)
+    else:
+        causal = kw_or_causal
+    key = launch_form(kernel, causal, q_offset)
+    LAUNCHES_BY_FORM[key] = LAUNCHES_BY_FORM.get(key, 0) + 1
 
 _c_void = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -257,6 +275,7 @@ def flash_attention_with_lse(
     cuda_build.check(err, "flash_fwd")
     global LAUNCHES
     LAUNCHES += 1
+    _count_form("flash_fwd", causal, q_offset)
     return o, lse
 
 
@@ -492,6 +511,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, **kw) -> torch.Tensor:
     _launch_bwd("flash_bwd_dq", (dq,), q, k, v, do, lse, delta, **kw)
     global LAUNCHES_DQ
     LAUNCHES_DQ += 1
+    _count_form("flash_bwd_dq", kw)
     return dq
 
 
@@ -505,6 +525,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, **kw) -> tuple[torch.Tensor, torch.Te
     _launch_bwd("flash_bwd_dkv", (dk, dv), q, k, v, do, lse, delta, **kw)
     global LAUNCHES_DKV
     LAUNCHES_DKV += 1
+    _count_form("flash_bwd_dkv", kw)
     return dk, dv
 
 

@@ -15,6 +15,14 @@ counts byte for byte) and ``manifest.json`` (the tree: each leaf's path
 and whether it is a tensor or a Python int). Each step is written under a
 temporary name and renamed into place, so a killed write leaves no step
 behind and :func:`latest_step` finds the last complete one.
+
+On a mesh of ranks (``layout`` and ``mesh``: ``step.state_layout``) the
+file is the same global tree: a save gathers each sharded leaf in turn
+(every rank takes part) and rank 0 alone copies it to the host and
+writes, so no rank holds the whole tree on its card at once; a restore
+reads the file on every rank and keeps each leaf's own shard. A
+checkpoint written on any mesh therefore resumes on any other, as orbax
+restores onto any mesh.
 """
 
 import json
@@ -47,11 +55,21 @@ def _flatten(tree: Any, prefix: str = "") -> dict:
     return {prefix[:-1]: tree}
 
 
-def _to_host(state: Any) -> tuple[dict, dict]:
+def _to_host(state: Any, layout: Any = None, mesh=None) -> tuple[dict, dict]:
     """The state's leaves copied to the host → (tensors, manifest).
-    Ints go out as int64 0-dim tensors."""
+    Ints go out as int64 0-dim tensors. With ``layout`` on a ``mesh`` each
+    sharded leaf is gathered first, one at a time, and only rank 0 keeps
+    the copies."""
+    leaves = _flatten(state).items()  # (and the tree's checks)
+    if mesh is not None:
+        from dstack_tpu_torch.train.step import gathered_leaves
+
+        leaves = gathered_leaves(state, layout, mesh)
+    keep = mesh is None or mesh.rank == 0
     tensors, kinds = {}, {}
-    for path, leaf in _flatten(state).items():
+    for path, leaf in leaves:
+        if not keep:
+            continue
         if isinstance(leaf, torch.Tensor):
             tensors[path] = leaf.detach().to("cpu", copy=True).contiguous()
             kinds[path] = "tensor"
@@ -102,9 +120,10 @@ class Checkpointer:
     while the next steps run (a new save first waits for the one in
     flight); :meth:`close` drains it and raises what a write raised."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 3):
+    def __init__(self, ckpt_dir: str, keep: int = 3, layout: Any = None, mesh=None):
         self.dir = Path(ckpt_dir)
         self.keep = keep
+        self.layout, self.mesh = layout, mesh
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -118,7 +137,9 @@ class Checkpointer:
 
     def save(self, step: int, state: Any) -> None:
         self._join()
-        tensors, manifest = _to_host(state)
+        tensors, manifest = _to_host(state, self.layout, self.mesh)
+        if self.mesh is not None and self.mesh.rank != 0:
+            return  # rank 0 writes
 
         def write():
             try:
@@ -141,18 +162,30 @@ def save_checkpoint(ckpt_dir: str, step: int, state: Any, keep: int = 3) -> None
     ck.close()
 
 
+def _flatten_layout(layout: Any, want: dict) -> dict:
+    """{path: (dim, size) or None} of a state layout (``step.state_layout``)."""
+    out = {}
+    for path in want:
+        node = layout
+        for k in path.split("/"):
+            node = node.get(k) if isinstance(node, dict) else None
+        out[path] = node
+    return out
+
+
 def latest_step(ckpt_dir: str) -> Optional[int]:
     """The newest complete step in ``ckpt_dir``, or None."""
     steps = _steps(Path(ckpt_dir))
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, state: Any) -> tuple[Any, Optional[int]]:
+def restore_checkpoint(ckpt_dir: str, state: Any, layout: Any = None, mesh=None) -> tuple[Any, Optional[int]]:
     """The latest checkpoint restored into the layout of ``state`` (the
     same tree, shapes and dtypes; each tensor lands on its leaf's device)
     → (state, step); ``(state, None)`` when the directory is missing or
     holds no complete step. Raises on any mismatch of tree, kind, shape or
-    dtype."""
+    dtype. With ``layout`` on a ``mesh`` the state's leaves are shards:
+    each takes its chunk of the saved whole leaf."""
     step = latest_step(ckpt_dir)
     if step is None:
         return state, None
@@ -163,9 +196,14 @@ def restore_checkpoint(ckpt_dir: str, state: Any) -> tuple[Any, Optional[int]]:
     if set(kinds) != set(want) or set(saved) != set(want):
         missing, extra = sorted(set(want) - set(kinds)), sorted(set(kinds) - set(want))
         raise ValueError(f"checkpoint {d}: tree differs from the state's (missing {missing}, extra {extra})")
+    wheres = _flatten_layout(layout, want) if mesh is not None else {}
     leaves = {}
     for path, leaf in want.items():
         got = saved[path]
+        if wheres.get(path) is not None:
+            from dstack_tpu_torch.parallel.sharding import shard
+
+            got = shard(got, wheres[path][0], mesh)
         if isinstance(leaf, torch.Tensor):
             if kinds[path] != "tensor" or got.dtype != leaf.dtype or tuple(got.shape) != tuple(leaf.shape):
                 raise ValueError(f"checkpoint {d}: {path} is {kinds[path]} {got.dtype} {tuple(got.shape)}; "

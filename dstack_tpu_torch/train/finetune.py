@@ -53,12 +53,21 @@ as the JAX finetune does.
 (the JAX finetune's step arithmetic) into a Chrome trace in DIR. Runs on
 ``cuda`` unless ``--device cpu`` asks for the plain versions on the CPU.
 
-Flags of the JAX finetune with no counterpart yet (the mesh axes and
-``--seq-parallel``) exit non-zero and name the slice that brings them
-(ROADMAP.md, queue A).
+Multi-rank (ROADMAP A6.1): under ``torchrun --nproc-per-node N`` every
+rank runs this script on a mesh of JAX's axes (``--dp``, ``--fsdp``
+absorbing the rest by default as in JAX, ``--sp`` with ``--seq-parallel
+ring|ulysses``); see ``train/step.py`` and ``parallel/``. Each rank builds
+the same global batch and trains on its part; the first line names the
+backend, the rank-to-device map and the mesh (``parallel/mesh.py``: NCCL
+where every rank has its own card, gloo where ranks share one), and rank 0
+alone logs, checkpoints, writes the weights and the summary, and exports.
+Tokens/s counts the global batch; MFU divides by the ranks' peaks.
+``--tp > 1`` exits non-zero and names the slice that brings it (ROADMAP
+A6.2).
 """
 
 import argparse
+import dataclasses
 import json
 import math
 import signal
@@ -71,7 +80,7 @@ import torch
 
 from dstack_tpu_torch.models import convert_hf, llama
 from dstack_tpu_torch.ops import adam8, flash
-from dstack_tpu_torch.serve.engine import resolve_device
+from dstack_tpu_torch.parallel.mesh import Mesh, MeshConfig, init_distributed, mesh_shape
 from dstack_tpu_torch.train import checkpoint as ckpt_mod
 from dstack_tpu_torch.train import data as data_mod
 from dstack_tpu_torch.train import lora as lora_mod
@@ -80,10 +89,14 @@ from dstack_tpu_torch.train.step import (
     default_optimizer,
     flops_per_token,
     eval_loss,
-    init_train_state,
+    gather_params,
+    gathered_leaves,
+    local_batch,
     loss_impl_for,
     make_step_callback,
     make_train_step,
+    init_train_state,
+    sharded_init,
     tree_leaves,
 )
 
@@ -114,11 +127,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
-    # flags of the JAX finetune that wait for later slices: parsed so the command
-    # lines match, refused when set (see _refusals)
+    # the mesh axes (JAX's defaults: fsdp absorbs every rank); --tp > 1 waits
+    # for a later slice (see _refusals)
     for axis, default in (("--dp", 1), ("--fsdp", -1), ("--sp", 1), ("--tp", 1)):
-        p.add_argument(axis, type=int, default=default, help="mesh axis; > 1 not ported")
-    p.add_argument("--seq-parallel", default=None, choices=["ring", "ulysses"])
+        p.add_argument(axis, type=int, default=default, help="mesh axis size (-1: the rest)")
+    p.add_argument("--seq-parallel", default=None, choices=["ring", "ulysses"],
+                   help="sequence-parallel attention on sp > 1 meshes (default: ring)")
     p.add_argument("--opt-bits", type=int, default=32, choices=[8, 32],
                    help="8 stores the Adam moments as blockwise int8 (train/opt8.py)")
     p.add_argument("--ckpt-dir", default=None, help="checkpoint dir; enables periodic saves")
@@ -141,10 +155,8 @@ def _parser() -> argparse.ArgumentParser:
 def _refusals(args) -> list[str]:
     """What this slice cannot honour, each with the slice that brings it."""
     out = []
-    if max(args.dp, args.fsdp, args.sp, args.tp) > 1:
-        out.append("mesh axes > 1 (--dp/--fsdp/--sp/--tp) come with the parallel slice")
-    if args.seq_parallel:
-        out.append("--seq-parallel comes with the parallel slice")
+    if args.tp > 1:
+        out.append("--tp > 1 comes with the tensor-parallel slice (A6.2)")
     return out
 
 
@@ -165,13 +177,22 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _flat(tree: dict, prefix: str = "") -> dict:
+def _flat(tree: dict, layout=None, mesh=None, prefix: str = "") -> dict:
+    """{path: numpy leaf} of a tree; on a mesh each sharded leaf gathered
+    in turn (every rank takes part; the host copies are rank 0's)."""
+    if mesh is not None:
+        return {k: _host(v) for k, v in gathered_leaves(tree, layout, mesh) if mesh.rank == 0}
     out = {}
     for k in sorted(tree):
         v = tree[k]
         key = f"{prefix}{k}"
-        out.update(_flat(v, key + "/") if isinstance(v, dict) else {key: _host(v)})
+        out.update(_flat(v, prefix=key + "/") if isinstance(v, dict) else {key: _host(v)})
     return out
+
+
+def _whole(tree: dict, layout, mesh) -> dict:
+    """The whole parameters (sharded leaves gathered) on a mesh, else ``tree``."""
+    return tree if mesh is None else gather_params(tree, layout, mesh)
 
 
 def main(argv=None) -> int:
@@ -181,7 +202,17 @@ def main(argv=None) -> int:
         p.error(f"not ported yet: {msg} (ROADMAP.md, queue A)")
     if args.batch % max(args.grad_accum, 1):
         p.error(f"--batch {args.batch} not divisible by --grad-accum {args.grad_accum}")
-    dev = resolve_device(args.device)
+    env = init_distributed(args.device)
+    try:
+        mesh = Mesh(MeshConfig(dp=args.dp, fsdp=args.fsdp, sp=args.sp, tp=args.tp), env)
+    except ValueError as e:
+        p.error(str(e))
+    dev, rank0 = env.device, env.rank == 0
+    # one rank runs the single-device code paths, unchanged
+    pmesh = mesh if mesh.world > 1 else None
+    say = print if rank0 else (lambda *a, **k: None)
+    described = mesh.describe()
+    say(described, flush=True)
     params = None
     if args.hf_model:
         try:
@@ -191,14 +222,21 @@ def main(argv=None) -> int:
         args.model = Path(args.hf_model).resolve().name
     else:
         config = llama.CONFIGS[args.model]
+    if args.seq_parallel:
+        config = dataclasses.replace(config, seq_parallel=args.seq_parallel)
+    rows_per_rank = args.batch // max(args.grad_accum, 1) // mesh.batch_index()[1]
+    if args.batch % (max(args.grad_accum, 1) * mesh.batch_index()[1]) or args.seq_len % mesh.size("sp"):
+        p.error(f"--batch {args.batch} (--grad-accum {args.grad_accum}) and --seq-len {args.seq_len} do not "
+                f"split over the mesh {described.rsplit('mesh=', 1)[1]}")
     if not args.full:
         try:
             lora_mod.check_lora(config)
         except ValueError as e:
             p.error(f"--model {args.model}: {e}")
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(
-        f"model={args.model} params={config.num_params() / 1e9:.2f}B mode="
+    shape = mesh_shape(mesh)
+    say(
+        f"model={args.model} params={config.num_params() / 1e9:.2f}B mesh={shape} chips={mesh.world} mode="
         f"{'full' if args.full else 'lora'} device={dev} ({kind})",
         flush=True,
     )
@@ -221,35 +259,52 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     if params is None:
         params = llama.init_params(config, gen, device=dev)
-    if args.full:
-        state = init_train_state(config, opt, params=params)
-        step_fn = make_train_step(config, opt, grad_accum=args.grad_accum)
-    else:
-        lora_conf = lora_mod.LoRAConfig(rank=args.lora_rank, alpha=args.lora_alpha)
-        state = lora_mod.init_lora_state(lora_mod.init_lora_params(config, lora_conf, gen, device=dev), opt)
-        step_fn = lora_mod.make_lora_train_step(config, lora_conf, opt, grad_accum=args.grad_accum)
-    print(f"init done in {time.perf_counter() - t0:.1f}s", flush=True)
+    layout = base_layout = None
+    try:
+        if args.full and pmesh is None:
+            state = init_train_state(config, opt, params=params)
+        elif args.full:
+            state, layout = sharded_init(config, opt, pmesh, params=params)
+            params = None  # the whole tree goes: the state holds this rank's shards
+            base_layout = layout["params"]
+        else:
+            lora_conf = lora_mod.LoRAConfig(rank=args.lora_rank, alpha=args.lora_alpha)
+            if pmesh is None:
+                state = lora_mod.init_lora_state(lora_mod.init_lora_params(config, lora_conf, gen, device=dev), opt)
+            else:
+                params, state, base_layout = lora_mod.sharded_lora_init(config, lora_conf, opt, pmesh, gen,
+                                                                        params=params)
+                layout = {"lora": None, "opt_state": None, "step": None}  # the adapters: whole on every rank
+        step_fn = (make_train_step(config, opt, grad_accum=args.grad_accum, mesh=pmesh) if args.full else
+                   lora_mod.make_lora_train_step(config, lora_conf, opt, grad_accum=args.grad_accum, mesh=pmesh))
+    except (NotImplementedError, ValueError) as e:
+        p.error(str(e))
+    say(f"init done in {time.perf_counter() - t0:.1f}s", flush=True)
 
     start_step = 0
     checkpointer = None
     if args.ckpt_dir:
         if args.resume:
-            state, restored = ckpt_mod.restore_checkpoint(args.ckpt_dir, state)
+            state, restored = ckpt_mod.restore_checkpoint(args.ckpt_dir, state, layout, pmesh)
             if restored is not None:
                 start_step = restored
-                print(f"resumed from checkpoint step {start_step}", flush=True)
-        checkpointer = ckpt_mod.Checkpointer(args.ckpt_dir)
+                say(f"resumed from checkpoint step {start_step}", flush=True)
+        checkpointer = ckpt_mod.Checkpointer(args.ckpt_dir, layout=layout, mesh=pmesh)
+
+    def mine(batch: dict) -> dict:
+        """This rank's part of a global batch."""
+        return batch if pmesh is None else local_batch(batch, pmesh, args.grad_accum)
 
     if rows is not None:
         # as in JAX, the stream starts at its first batch on a resume too
         data_iter = data_mod.prefetch_to_device(data_mod.batches(rows, args.batch, seed=args.data_seed), dev)
 
         def next_batch(i):
-            return next(data_iter)
+            return mine(next(data_iter))
     else:
 
         def next_batch(i):
-            return _synthetic_batch(i, args, config, dev)
+            return mine(_synthetic_batch(i, args, config, dev))
 
     evals = []
 
@@ -260,26 +315,26 @@ def main(argv=None) -> int:
         t_eval = time.perf_counter()
         total, weight = 0.0, 0.0
         it = data_mod.batches(eval_rows, args.batch, seed=0, epochs=1)
+        whole = _whole(state["params"] if args.full else params, base_layout, pmesh)
         for n, b in enumerate(data_mod.prefetch_to_device(it, dev)):
             if n >= args.eval_batches:
                 break
-            if args.full:
-                loss, w = eval_loss(state["params"], b, config)
-            else:
-                loss, w = eval_loss(params, b, config, lora=state["lora"], lora_scale=lora_conf.scale)
+            b = b if pmesh is None else local_batch(b, pmesh)
+            lora_kw = {} if args.full else dict(lora=state["lora"], lora_scale=lora_conf.scale)
+            loss, w = eval_loss(whole, b, config, mesh=pmesh, **lora_kw)
             loss, w = float(loss), float(w)
             total += loss * w
             weight += w
         if weight:
             mean = total / weight
             evals.append({"tag": tag, "loss": mean, "ppl": math.exp(min(mean, 30))})
-            print(f"eval[{tag}] loss={mean:.4f} ppl={math.exp(min(mean, 30)):.2f}", flush=True)
+            say(f"eval[{tag}] loss={mean:.4f} ppl={math.exp(min(mean, 30)):.2f}", flush=True)
         return time.perf_counter() - t_eval
 
     tokens_per_step = args.batch * args.seq_len
     # step time, tokens/s and MFU into the train registry, fed at the log
-    # windows' sync points
-    step_cb = make_step_callback(config, tokens_per_step, args.seq_len)
+    # windows' sync points; MFU over the ranks' peaks
+    step_cb = make_step_callback(config, tokens_per_step, args.seq_len, peak_flops_per_chip=PEAK_FLOPS * mesh.world)
     step_hist = step_cb.registry.family("dtpu_train_step_seconds")
 
     # Spot preemption arrives as SIGTERM with a short grace period: finish
@@ -289,7 +344,7 @@ def main(argv=None) -> int:
 
     def on_sigterm(signum, frame):
         interrupted["flag"] = True
-        print("SIGTERM: checkpointing before exit", flush=True)
+        say("SIGTERM: checkpointing before exit", flush=True)
 
     previous_handler = signal.getsignal(signal.SIGTERM)
     try:
@@ -301,6 +356,7 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats(dev)
     # the counts of this run's launches start here
     flash.LAUNCHES = flash.LAUNCHES_DQ = flash.LAUNCHES_DKV = adam8.LAUNCHES = 0
+    flash.LAUNCHES_BY_FORM.clear()
     first_loss = metrics = None
     eval_s = ckpt_s = 0.0
     # profile 3 steady-state steps, past the first steps' start-up
@@ -309,15 +365,18 @@ def main(argv=None) -> int:
     prof = None
     t_window = time.perf_counter()
     for i in range(start_step, args.steps):
-        if interrupted["flag"]:
+        stop = interrupted["flag"]
+        if mesh.world > 1:  # every rank stops at the same step
+            stop = bool(mesh.all_reduce(torch.tensor(float(stop), device=dev)).item())
+        if stop:
             if checkpointer is not None:
                 checkpointer.save(i, state)
                 checkpointer.close()
-                print(f"interrupted: checkpoint saved at step {i}; exiting", flush=True)
+                say(f"interrupted: checkpoint saved at step {i}; exiting", flush=True)
             if previous_handler is not None:
                 signal.signal(signal.SIGTERM, previous_handler)
             return 0
-        if args.profile_dir and i == prof_start:
+        if args.profile_dir and i == prof_start and rank0:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if dev.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -335,7 +394,7 @@ def main(argv=None) -> int:
             trace_path = Path(args.profile_dir) / "finetune_trace.json"
             prof.export_chrome_trace(str(trace_path))
             prof = None
-            print(f"profiler trace saved to {trace_path}", flush=True)
+            say(f"profiler trace saved to {trace_path}", flush=True)
         if checkpointer is not None and (i + 1) % args.ckpt_every == 0:
             # only the device-to-host copy blocks: the write runs on a
             # background thread while training continues
@@ -344,11 +403,11 @@ def main(argv=None) -> int:
             took = time.perf_counter() - t_save
             ckpt_s += took
             t_window += took  # the step times leave the save out
-            print(f"checkpoint saved at step {i + 1}", flush=True)
+            say(f"checkpoint saved at step {i + 1}", flush=True)
         if first_loss is None:
             first_loss = float(metrics["loss"])  # waits for the step
             # the provision → first-train-step marker the JAX finetune prints
-            print(json.dumps({"event": "first_train_step", "t_unix": time.time()}), flush=True)
+            say(json.dumps({"event": "first_train_step", "t_unix": time.time()}), flush=True)
         if eval_rows is not None and args.eval_every and (i + 1) % args.eval_every == 0:
             took = run_eval(f"step {i + 1}")
             eval_s += took
@@ -359,7 +418,9 @@ def main(argv=None) -> int:
             t_window = time.perf_counter()
             tel = step_cb(dt, steps=args.log_every)
             mfu = f"{tel['mfu']:.2%} of the {PEAK_NAME}" if dev.type == "cuda" else "n/a on the CPU"
-            print(
+            if mesh.world > 1:
+                mfu += f" x {mesh.world} ranks"
+            say(
                 f"step {i + 1}/{args.steps} loss={loss:.4f} step_s={tel['step_time_s']:.4f} "
                 f"tokens/s={tel['tokens_per_sec']:,.0f} mfu={mfu}",
                 flush=True,
@@ -376,20 +437,26 @@ def main(argv=None) -> int:
         "flash_bwd_dkv": flash.LAUNCHES_DKV,
         "adam8": adam8.LAUNCHES,
     }
+    by_form = dict(sorted(flash.LAUNCHES_BY_FORM.items()))
 
     trained = state["params"] if args.full else state["lora"]
-    flat = _flat(trained) if args.full else {f"layers.{k}": _host(v) for k, v in trained["layers"].items()}
-    if args.full:
-        flat["step"] = np.asarray(state["step"], np.int32)
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
+    flat = _flat(trained, base_layout, pmesh) if args.full else \
+        {f"layers.{k}": _host(v) for k, v in trained["layers"].items()}
     fname = "model_weights.npz" if args.full else "lora_adapters.npz"
-    np.savez(out / fname, **flat)
-    print(f"weights saved to {out}/{fname} ({len(tree_leaves(trained))} leaves)", flush=True)
+    out = Path(args.out)
+    if rank0:
+        if args.full:
+            flat["step"] = np.asarray(state["step"], np.int32)
+        out.mkdir(parents=True, exist_ok=True)
+        np.savez(out / fname, **flat)
+    say(f"weights saved to {out}/{fname} ({len(tree_leaves(trained))} leaves)", flush=True)
     if args.export_hf:
-        merged = state["params"] if args.full else lora_mod.merge_lora_params(params, state["lora"], lora_conf)
-        convert_hf.save_checkpoint(config, merged, args.export_hf)
-        print(f"HF checkpoint exported to {args.export_hf}", flush=True)
+        whole = _whole(state["params"] if args.full else params, base_layout, pmesh)
+        merged = whole if args.full else lora_mod.merge_lora_params(whole, state["lora"], lora_conf)
+        if rank0:
+            convert_hf.save_checkpoint(config, merged, args.export_hf)
+        del whole, merged
+        say(f"HF checkpoint exported to {args.export_hf}", flush=True)
 
     # the registry's median window: a window's mean step time once a step,
     # over the histogram's sample window (its last 1024 steps; a longer run
@@ -398,7 +465,14 @@ def main(argv=None) -> int:
     tps = tokens_per_step / med if med else None
     ftok = flops_per_token(config, args.seq_len)
     on_card = dev.type == "cuda"
-    print(json.dumps({
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+    per_rank = [None] * mesh.world
+    if mesh.world > 1:
+        torch.distributed.all_gather_object(per_rank, {"peak_memory_bytes": peak, "launches": launches,
+                                                       "launches_by_form": by_form})
+    else:
+        per_rank = [{"peak_memory_bytes": peak, "launches": launches, "launches_by_form": by_form}]
+    say(json.dumps({
         "event": "summary",
         "model": args.model,
         "mode": "full" if args.full else "lora",
@@ -406,6 +480,10 @@ def main(argv=None) -> int:
         "device_name": kind,
         "batch": args.batch,
         "seq_len": args.seq_len,
+        "mesh": shape,
+        "ranks": mesh.world,
+        "backend": mesh.backend,
+        "rows_per_rank": rows_per_rank,
         "steps": args.steps,
         "start_step": start_step,
         "opt_bits": args.opt_bits,
@@ -419,10 +497,12 @@ def main(argv=None) -> int:
         "checkpoint_seconds": ckpt_s,
         "median_step_s": med,
         "tokens_per_s": tps,
-        "mfu": ftok * tps / PEAK_FLOPS if on_card and tps else None,
-        "mfu_peak": PEAK_NAME,
-        "peak_memory_bytes": torch.cuda.max_memory_allocated(dev) if on_card else None,
+        "mfu": ftok * tps / (PEAK_FLOPS * mesh.world) if on_card and tps else None,
+        "mfu_peak": PEAK_NAME + (f" x {mesh.world} ranks" if mesh.world > 1 else ""),
+        "peak_memory_bytes": peak,
         "launches": launches,
+        "launches_by_form": by_form,
+        "by_rank": per_rank,
     }), flush=True)
     if previous_handler is not None:
         signal.signal(signal.SIGTERM, previous_handler)

@@ -6,6 +6,11 @@ stacked weights (``{name}_lora_a`` [L, d_in, r], ``{name}_lora_b``
 [L, r, d_out]); ``llama.forward`` adds the bypass ``s·(x·A)·B`` to each
 adapted projection. Only the adapters get gradients and optimizer state;
 the base weights are constants of the step.
+
+On a mesh (:func:`sharded_lora_init`, ``make_lora_train_step(mesh=...)``)
+the base weights are sharded as the full step shards them and gathered
+for each step; the adapters and their moments are whole on every rank,
+and their gradients are summed over the data ranks.
 """
 
 from dataclasses import dataclass
@@ -15,7 +20,19 @@ import numpy as np
 import torch
 
 from dstack_tpu_torch.models import llama
-from dstack_tpu_torch.train.step import AdamW, accumulate_grads, cross_entropy_loss, global_norm
+from dstack_tpu_torch.train.step import (
+    DATA_AXES,
+    AdamW,
+    accumulate_grads,
+    check_mesh,
+    cross_entropy_loss,
+    gather_params,
+    global_norm,
+    mask_total,
+    param_layout,
+    shard_tree,
+    tree_map,
+)
 
 
 @dataclass(frozen=True)
@@ -134,14 +151,35 @@ def lora_loss(
     config: llama.LlamaConfig,
     lora_config: LoRAConfig,
     impl: Optional[str] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """The f32 cross-entropy over the full logits, as the JAX LoRA step
     takes it (lora.py:210); ``forward`` applies the config's final-logit
-    cap to them (Gemma2)."""
+    cap to them (Gemma2). On a ``mesh``, this rank's share (its tokens over
+    the global mask count)."""
     logits = llama.forward(
-        params, batch["tokens"], config, lora=lora, lora_scale=lora_config.scale, impl=impl
+        params, batch["tokens"], config, lora=lora, lora_scale=lora_config.scale, impl=impl, mesh=mesh
     )
-    return cross_entropy_loss(logits, batch["targets"], batch.get("mask"))[0]
+    total = mask_total(batch, mesh) if mesh is not None else None
+    return cross_entropy_loss(logits, batch["targets"], batch.get("mask"), total=total)[0]
+
+
+def sharded_lora_init(config: llama.LlamaConfig, lora_config: LoRAConfig, optimizer: AdamW, mesh,
+                      generator: torch.Generator, params: Optional[dict] = None) -> tuple:
+    """→ (this rank's base shards, the adapters' state, the base layout)
+    (JAX's ``sharded_lora_init``, lora.py:150): the base drawn from
+    ``generator`` (the same draws on every rank) or ``params``, then
+    cut to shards; the adapters drawn next from the same generator, whole
+    on every rank."""
+    check_mesh(mesh)
+    check_lora(config)
+    if params is None:
+        params = llama.init_params(config, generator, device=mesh.device)
+    layout = param_layout(config, mesh)
+    base = shard_tree(params, layout, mesh)
+    del params
+    lora = init_lora_params(config, lora_config, generator, device=mesh.device)
+    return base, init_lora_state(lora, optimizer), layout
 
 
 def make_lora_train_step(
@@ -150,10 +188,13 @@ def make_lora_train_step(
     optimizer: AdamW,
     grad_accum: int = 1,
     impl: Optional[str] = None,
+    mesh=None,
 ) -> Callable:
     """(base_params, state, batch) → (state, metrics): gradients of the
     adapters only, mask-weighted over ``grad_accum`` microbatches, then
-    one optimizer update in place."""
+    one optimizer update in place. With ``mesh``: the base is this rank's
+    shards (:func:`sharded_lora_init`), ``batch`` its part
+    (``step.local_batch``), the metrics global."""
 
     def step(params: dict, state: dict, batch: dict) -> tuple[dict, dict]:
         loss, grads = accumulate_grads(
@@ -164,4 +205,21 @@ def make_lora_train_step(
         state["step"] += 1
         return state, {"loss": loss, "grad_norm": gnorm}
 
-    return step
+    if mesh is None:
+        return step
+    check_mesh(mesh)
+    layout = param_layout(config, mesh)
+
+    def mesh_step(params: dict, state: dict, batch: dict) -> tuple[dict, dict]:
+        base = gather_params(params, layout, mesh)
+        loss, grads = accumulate_grads(
+            lora_loss, state["lora"], batch, grad_accum, base, config, lora_config, impl, mesh, mesh=mesh
+        )
+        del base
+        grads = tree_map(lambda g, a: mesh.all_reduce(g.float(), DATA_AXES).to(a.dtype), grads, state["lora"])
+        gnorm = global_norm(grads)
+        optimizer.update(grads, state["opt_state"], state["lora"], norm=gnorm)
+        state["step"] += 1
+        return state, {"loss": mesh.all_reduce(loss, DATA_AXES), "grad_norm": gnorm}
+
+    return mesh_step

@@ -150,19 +150,24 @@ class AdamW8:
                 "nu": tree_map(codes, params), "nu_scale": tree_map(scales, params)}
 
     @torch.no_grad()
-    def update(self, grads: dict, state: dict, params: dict) -> dict:
+    def update(self, grads: dict, state: dict, params: dict, norm=None) -> dict:
         """One step in place (``grads`` are not written); returns
         ``state`` with its count advanced. The schedule reads the count
-        before the increment, the bias corrections the count after it."""
+        before the increment, the bias corrections the count after it.
+        ``norm``: the clip's global norm where the leaves are ``fsdp``
+        shards (``step.global_norm`` on a mesh). A leaf is quantized when
+        :meth:`init` gave it int8 codes, so a shard keeps its whole leaf's
+        choice, and A8 runs on the shard: its chunk holds whole blocks
+        (``step.state_layout`` checks it) and its block scales are its own."""
         from dstack_tpu_torch.ops import adam8
 
         count = state["count"] + 1
-        scalars = adam8_scalars(global_norm(grads), self.max_norm, count, self.b1, self.b2,
-                                -self.schedule(state["count"]))
+        scalars = adam8_scalars(global_norm(grads) if norm is None else norm, self.max_norm, count, self.b1,
+                                self.b2, -self.schedule(state["count"]))
         kw = dict(b1=self.b1, b2=self.b2, eps=self.eps, weight_decay=self.weight_decay)
         for p, g, mu, mu_s, nu, nu_s in zip(*(tree_leaves(t) for t in (
                 params, grads, state["mu"], state["mu_scale"], state["nu"], state["nu_scale"]))):
-            if _is_quantized(p.shape):
+            if mu.dtype == torch.int8:
                 # a tied embedding's gradient can come back transposed
                 adam8.adam8_update(p, g.contiguous(), mu, mu_s, nu, nu_s, scalars, **kw)
             else:

@@ -44,7 +44,9 @@ def test_the_scan_covers_the_step_sites_and_their_accounting():
             "dstack_tpu_torch.routing.forward", "dstack_tpu_torch.routing.metrics",
             "dstack_tpu_torch.loadgen", "dstack_tpu_torch.loadgen.soak", "dstack_tpu_torch.loadgen.driver",
             "dstack_tpu_torch.loadgen.schedule", "dstack_tpu_torch.loadgen.spec", "dstack_tpu_torch.loadgen.report",
-            "dstack_tpu_torch.loadgen.metrics", "dstack_tpu_torch.loadgen.__main__"} <= set(_port_modules())
+            "dstack_tpu_torch.loadgen.metrics", "dstack_tpu_torch.loadgen.__main__",
+            "dstack_tpu_torch.parallel", "dstack_tpu_torch.parallel.mesh", "dstack_tpu_torch.parallel.sharding",
+            "dstack_tpu_torch.parallel.ring_attention", "dstack_tpu_torch.parallel.ulysses"} <= set(_port_modules())
 
 
 def test_importing_every_module_loads_no_jax():
@@ -112,6 +114,20 @@ class TestNoSilentCpuFallback:
 
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             finetune.main(["--model", "llama-tiny-64", "--steps", "1"])
+
+    def test_finetune_torchrun_rank_default_device_raises(self, monkeypatch):
+        """A rank that torchrun started (its environment set) refuses to
+        train on the CPU unasked, before it joins any process group."""
+        from dstack_tpu_torch.parallel import mesh
+        from dstack_tpu_torch.train import finetune
+
+        for k, v in dict(RANK="1", WORLD_SIZE="2", LOCAL_RANK="1", LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                         MASTER_PORT="1").items():
+            monkeypatch.setenv(k, v)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            finetune.main(["--model", "llama-tiny-64", "--steps", "1", "--sp", "2"])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mesh.make_mesh(mesh.MeshConfig(sp=2))
 
     def test_kernel_wrapper_raises_for_a_non_cpu_tensor(self):
         from dstack_tpu_torch.ops import flash

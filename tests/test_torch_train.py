@@ -466,13 +466,32 @@ class TestFinetuneMain:
         # each case keeps the id of its position in the list it was added to
         ids=[f"extra{i}" for i in (0, 1, 2, 9, 10)],
     )
-    def test_flags_without_a_counterpart_exit_non_zero(self, extra, capsys):
+    def test_flags_without_a_counterpart_exit_non_zero(self, extra, capsys, tmp_path):
         # (--hf-model and --export-hf have their counterparts:
-        # tests/test_torch_convert_hf.py, tests/test_torch_export_hf.py)
+        # tests/test_torch_convert_hf.py, tests/test_torch_export_hf.py).
+        # The mesh flags have theirs since the parallel slice: --seq-parallel
+        # trains (one rank: sp is 1, so the attention is the flash call), and
+        # a mesh one process cannot hold exits with JAX's own mesh error
+        # (tests/test_torch_parallel_train.py runs them on ranks); --tp > 1
+        # waits for its slice
+        if extra == ["--seq-parallel", "ring"]:
+            argv = ["--device", "cpu", "--model", "llama-tiny", "--steps", "1", "--batch", "2", "--seq-len", "32",
+                    "--full", "--out", str(tmp_path)] + extra
+            assert finetune.main(argv) == 0
+            assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["steps"] == 1
+            return
         with pytest.raises(SystemExit) as e:
             finetune.main(["--device", "cpu", "--model", "llama-tiny"] + extra)
         assert e.value.code != 0
-        assert "not ported yet" in capsys.readouterr().err or "--grad-accum" in " ".join(extra)
+        err = capsys.readouterr().err
+        if extra[0] in ("--fsdp", "--sp"):
+            from dstack_tpu.parallel.mesh import MeshConfig as JaxMeshConfig
+
+            with pytest.raises(ValueError) as jax_error:
+                JaxMeshConfig(**{extra[0][2:]: int(extra[1])}).resolved(1)
+            assert str(jax_error.value) in err
+        else:
+            assert "not ported yet" in err or "--grad-accum" in " ".join(extra)
 
     def test_gpt_oss_is_refused_before_its_weights_are_made(self, tmp_path, capsys, monkeypatch):
         """``--model gpt-oss-20b`` trains (the name is from before it did):
